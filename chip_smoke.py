@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
-Drives the port's serving path (``nasa_niswan_tpu_torch``) once at full
-width and checks it; imports nothing of JAX or of the JAX package.  Phases,
-each printing its own lines:
+Drives the port's serving and training paths (``nasa_niswan_tpu_torch``) at
+full width and checks them; imports nothing of JAX or of the JAX package.
+Phases, each printing its own lines:
 
   (a) device: the card's name and power limit as nvidia-smi reports them;
   (b) build: nvcc builds csrc/*.cu for sm_90a; the build time and ptxas's
@@ -23,7 +23,23 @@ each printing its own lines:
       predictions' std, max |d| no more than twice the plain path's own
       difference between two summation orders (card vs CPU), and in f32
       max |d| <= 1e-4 of the std;
-  (e) time: the sustained rate of (d), kernel and plain path (informational).
+  (e) time: the sustained rate of (d), kernel and plain path (informational);
+  (f) backward kernels vs plain: the fused cell backward (B2) and the SAME
+      data-gradient conv (B3) against their plain PyTorch versions at the
+      three training layer shapes (B=8, 100x154) and one ragged shape, bf16
+      and f32, with the bounds in BWD_BOUNDS; two runs bit-identical; kernel
+      and plain times (CUDA events);
+  (g) train: the canonical training step (bs 8, T 48, 8 input channels,
+      hidden 64/32/16, kernels 5/3/3, bf16, 100x154, Adam lr 1e-3 betas
+      (0.5, 0.999)) on the synthetic fixture (T=720, 90x144, seed 0): one
+      warm-up step, then 3 optimizer steps through make_device_train_step
+      with exactly 3 x 48 x 3 launches of each of B1, B2, B3, finite loss and
+      parameters; the parameter gradients at T=8 against eager autograd
+      through the plain cell, per leaf relative to the plain gradient's norm
+      (TOL_GRAD); one epoch of the training CLI's main on a small fixture,
+      whose logger.npy and checkpoint load back;
+  (h) time: training ms/step and model-days/min (BS*T/48 per step), kernel
+      and plain path (informational).
 
 Then one JSON line describing each kernel, and last the device line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -35,16 +51,33 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from nasa_niswan_tpu_torch.data.dataset import Normalizer
+from nasa_niswan_tpu_torch.data.dataset import (
+    Normalizer,
+    SequenceDataset,
+    zscore_static,
+)
+from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
 from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, convlstm_init
-from nasa_niswan_tpu_torch.ops import _build, convlstm_cell
+from nasa_niswan_tpu_torch.models.registry import build_model
+from nasa_niswan_tpu_torch.ops import _build, convgrad, convlstm_cell
+from nasa_niswan_tpu_torch.ops.convgrad import (
+    cell_grads_plain,
+    conv_same,
+    conv_same_plain,
+    flip_kernel,
+    fused_cell_bwd,
+    fused_cell_bwd_plain,
+)
 from nasa_niswan_tpu_torch.ops.convlstm_cell import (
     fused_cell_forward,
     fused_cell_forward_plain,
@@ -53,6 +86,16 @@ from nasa_niswan_tpu_torch.rollout.autoregressive import (
     make_rollout_fn,
     make_streaming_rollout,
     model_days_per_min,
+)
+from nasa_niswan_tpu_torch.train import __main__ as train_cli
+from nasa_niswan_tpu_torch.train.checkpoint import load_checkpoint, param_leaves
+from nasa_niswan_tpu_torch.train.config import TrainConfig
+from nasa_niswan_tpu_torch.train.loop import (
+    DeviceWindowSource,
+    _device_preprocess,
+    make_device_train_step,
+    make_loss_fn,
+    make_optimizer,
 )
 
 SEED = 0
@@ -75,8 +118,33 @@ TOL_CHUNK = 1e-6  # same launches on the same data: expected bit-exact
 TOL_PLAIN_REL = 2e-2  # bf16 rollout, rms |kernel - plain| / std(plain)
 TOL_F32_REL = 1e-4  # f32 rollout, max |kernel - plain| / std(plain)
 
-KERNEL_SOURCE = "nasa_niswan_tpu_torch/csrc/convlstm_cell.cu"
-KERNEL_REPLACES = "nasa_niswan_tpu/ops/convlstm_pallas2.py:176"
+# training: the canonical step of bench.py's main_train
+TRAIN_BS, TRAIN_T, TRAIN_C = 8, 48, 8  # 5 forcings + 3 static channels
+TRAIN_STEPS = 3
+GRAD_T = 8  # eager autograd keeps every intermediate: T=48 would not fit
+# (B, H, W, Cin, hidden, k): the three training layers, then a ragged shape
+# (rows, columns and the 126 channels of the 20-level fusion's layer 1)
+BWD_SHAPES = (
+    (TRAIN_BS, 100, 154, TRAIN_C + 64, 64, 5),
+    (TRAIN_BS, 100, 154, 64 + 32, 32, 3),
+    (TRAIN_BS, 100, 154, 32 + 16, 16, 3),
+    (2, 37, 45, C + 64, 64, 5),
+)
+# kernel vs plain: dgates within one bf16 step (2**-7 relative; f32 1e-5)
+# plus 1e-5; dc_prev 1e-4; dw, db and dxh relative to their largest entry
+BWD_BOUNDS = {"dc_prev": 1e-4, "dw": 1e-3, "db": 1e-4, "dxh": 2e-4}
+# per-leaf |g_kernel - g_plain| / |g_plain| at T=8: bf16 rounds dgates, dw
+# and dxh at other places than eager autograd does; f32 sums in other orders
+TOL_GRAD = {"bfloat16": 5e-2, "float32": 1e-4}
+
+KERNEL_SOURCES = {
+    "convlstm_cell": ("nasa_niswan_tpu_torch/csrc/convlstm_cell.cu",
+                      "nasa_niswan_tpu/ops/convlstm_pallas2.py:176"),
+    "cell_bwd": ("nasa_niswan_tpu_torch/csrc/cell_bwd.cu",
+                 "nasa_niswan_tpu/ops/convgrad_pallas.py:127"),
+    "conv_same": ("nasa_niswan_tpu_torch/csrc/conv_same.cu",
+                  "nasa_niswan_tpu/ops/convgrad_pallas.py:57"),
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -300,6 +368,204 @@ def _tree_to(params, device):
     }
 
 
+def _max_excess(got, want, rtol):
+    """max of |got - want| - rtol * |want|: <= atol means allclose."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() - rtol * want.abs()).max().item()
+
+
+def _rel_max(got, want):
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def phase_backward(device) -> dict:
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    err = {"cell_bwd": 0.0, "conv_same": 0.0}
+    times = {"cell_bwd": [0.0, 0.0], "conv_same": [0.0, 0.0]}
+    for B, H, W, cin, hid, k in BWD_SHAPES:
+        rand = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+        xh32, c, dh, dc = rand(B, H, W, cin), rand(B, H, W, hid), rand(B, H, W, hid), rand(B, H, W, hid)
+        w32 = rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5
+        b = 0.1 * rand(4 * hid)
+        for dtype in (torch.bfloat16, torch.float32):
+            xh, w = xh32.to(dtype), w32.to(dtype)
+            args = (xh, c, dh, dc, w, b)
+            got, again = fused_cell_bwd(*args), fused_cell_bwd(*args)
+            want = fused_cell_bwd_plain(*args)
+            w_flip = flip_kernel(w)
+            dxh, dxh2 = conv_same(want[0], w_flip), conv_same(want[0], w_flip)
+            dxh_want = conv_same_plain(want[0], w_flip)
+            torch.cuda.synchronize()
+            tag = f"B={B} H={H} W={W} Cin={cin} hid={hid} k={k} {str(dtype).split('.')[-1]}"
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"cell_bwd not deterministic at {tag}")
+            check(torch.equal(dxh, dxh2), f"conv_same not deterministic at {tag}")
+            rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+            d = {
+                "dgates": _max_excess(got[0], want[0], rtol),
+                "dc_prev": (got[1] - want[1]).abs().max().item(),
+                "dw": _rel_max(got[2], want[2]),
+                "db": _rel_max(got[3], want[3]),
+                "dxh": _rel_max(dxh, dxh_want),
+            }
+            print(f"[f] {tag}: dgates |d|-{rtol:g}|ref| max {d['dgates']:.3e} "
+                  f"(<= 1e-5), |d dc_prev| {d['dc_prev']:.3e}, rel max |d dw| "
+                  f"{d['dw']:.3e}, |d db| {d['db']:.3e}, |d dxh| {d['dxh']:.3e} "
+                  f"(bounds {BWD_BOUNDS}); bit-identical reruns")
+            check(d["dgates"] <= 1e-5, f"dgates {d['dgates']:.3e} at {tag}")
+            for name, bound in BWD_BOUNDS.items():
+                check(d[name] <= bound, f"{name} {d[name]:.3e} > {bound:g} at {tag}")
+            err["cell_bwd"] = max(err["cell_bwd"], *(
+                (x.float() - y.float()).abs().max().item() for x, y in zip(got, want)))
+            err["conv_same"] = max(err["conv_same"], (dxh - dxh_want).abs().max().item())
+            if dtype == torch.bfloat16 and (H, W) == PADDED:
+                ms = [cuda_ms(lambda: fused_cell_bwd(*args), 5),
+                      cuda_ms(lambda: fused_cell_bwd_plain(*args), 5),
+                      cuda_ms(lambda: conv_same(want[0], w_flip), 5),
+                      cuda_ms(lambda: conv_same_plain(want[0], w_flip), 5)]
+                print(f"[f] {tag}: cell_bwd kernel {ms[0]:.4f} ms, plain "
+                      f"{ms[1]:.4f} ms; conv_same kernel {ms[2]:.4f} ms, plain "
+                      f"{ms[3]:.4f} ms")
+                times["cell_bwd"][0] += ms[0]
+                times["cell_bwd"][1] += ms[1]
+                times["conv_same"][0] += ms[2]
+                times["conv_same"][1] += ms[3]
+    for name, (ms, plain_ms) in times.items():
+        print(f"[f] {name}, the three training layers, bf16: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+    return {name: {"max_abs_err": err[name], "ms": times[name][0],
+                   "plain_ms": times[name][1]} for name in err}
+
+
+def _counts():
+    return (convlstm_cell.launches, convgrad.cell_bwd_launches,
+            convgrad.conv_same_launches)
+
+
+def _set_counts(n: int) -> None:
+    convlstm_cell.launches = n
+    convgrad.cell_bwd_launches = n
+    convgrad.conv_same_launches = n
+
+
+def _train_run(step, params, n_steps, order):
+    """n_steps optimizer steps on the windows of ``order``; returns the
+    seconds (host clock, synchronised) and the last metrics."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(n_steps):
+        _, metrics = step(params, None, order[s * TRAIN_BS : (s + 1) * TRAIN_BS])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, metrics
+
+
+def phase_train(device) -> dict:
+    data = synthetic_e33oma_90d(T=720, H=GRID[0], W=GRID[1], seed=SEED)
+    ds = SequenceDataset(data, period="train", sequence_length=TRAIN_T,
+                         in_channels=TRAIN_C)
+    static = data["static"][: TRAIN_C - 5]
+    kw = dict(in_channels=TRAIN_C, hidden_channels=HIDDEN, kernel_sizes=KERNELS,
+              compute_dtype="bfloat16")
+    bundle = build_model("LSTM-smoke", **kw)
+    plain = build_model("LSTM-smoke", cell_fn=fused_cell_forward_plain,
+                        grads_fn=cell_grads_plain, **kw)
+    params, _ = bundle.init(torch.Generator().manual_seed(SEED), device)
+    params_p = _copy_params(params)
+    src = DeviceWindowSource(ds, device)
+    geo = dict(padded_shape=PADDED, grid_shape=GRID, static=static)
+    order = np.random.default_rng(SEED).permutation(src.n)
+
+    def make_step(b, p):
+        return make_device_train_step(
+            b, ds.normalizer, make_optimizer(p, 1e-3, (0.5, 0.999)), src, **geo)
+
+    step, step_p = make_step(bundle, params), make_step(plain, params_p)
+    # parameter gradients at T=GRAD_T against eager autograd through the
+    # plain cell, from the same weights and batch, before any update
+    x_raw, y_raw = src.gather(order[:TRAIN_BS])
+    for dtype in ("bfloat16", "float32"):
+        kw_d = dict(kw, compute_dtype=dtype)
+        x, y = _device_preprocess(
+            x_raw[:, :GRAD_T], y_raw, ds.normalizer, PADDED,
+            torch.as_tensor(zscore_static(static), device=device))
+        grads = []
+        for b, cudnn in ((build_model("LSTM-smoke", **kw_d), True),
+                         (build_model("LSTM-smoke", cell_fn=fused_cell_forward_plain,
+                                      grads_fn=None, **kw_d), False)):
+            # the eager oracle runs without cuDNN, whose f32 weight gradient
+            # is off by ~1.6e-2 of its largest entry at layer 1 (PERF.md)
+            with torch.backends.cudnn.flags(enabled=cudnn):
+                loss, _ = make_loss_fn(b, GRID)(params, None, x, y)
+                grads.append(torch.autograd.grad(loss, param_leaves(params)))
+            del loss
+        rel = [((g - p).norm() / p.norm()).item() for g, p in zip(*grads)]
+        print(f"[g] T={GRAD_T} {dtype}: per-leaf |g_kernel - g_eager| / "
+              f"|g_eager| max {max(rel):.3e} (tol {TOL_GRAD[dtype]:g}); "
+              f"leaves {[f'{r:.1e}' for r in rel]}")
+        check(max(rel) <= TOL_GRAD[dtype], f"{dtype} gradients {max(rel):.3e}")
+        del grads
+        torch.cuda.empty_cache()
+
+    # warm-up step (allocator growth, kernel library load), then the counted run
+    _train_run(step, params, 1, order)
+    _train_run(step_p, params_p, 1, order)
+    _set_counts(0)
+    t_kernel, metrics = _train_run(step, params, TRAIN_STEPS, order[TRAIN_BS:])
+    launches = _counts()
+    want = len(HIDDEN) * TRAIN_T * TRAIN_STEPS
+    print(f"[g] {TRAIN_STEPS} training steps (bs {TRAIN_BS}, T {TRAIN_T}, bf16): "
+          f"launches B1/B2/B3 = {launches} (want {want} each); loss "
+          f"{metrics['loss'].item():.5f}, R2 {metrics['r2'].item():.4f}")
+    check(launches == (want,) * 3, f"launches {launches}, want {want} each")
+    check(bool(torch.isfinite(metrics["loss"])), "non-finite loss")
+    check(all(bool(torch.isfinite(t).all()) for t in param_leaves(params)),
+          "non-finite parameters")
+    t_plain, metrics_p = _train_run(step_p, params_p, TRAIN_STEPS, order[TRAIN_BS:])
+    check(bool(torch.isfinite(metrics_p["loss"])), "non-finite plain-path loss")
+    print(f"[g] plain path, same steps: loss {metrics_p['loss'].item():.5f}")
+    phase_cli(device)
+    return {"launches": want, "t_kernel": t_kernel, "t_plain": t_plain}
+
+
+def _copy_params(params):
+    return {
+        "cells": [{k: v.detach().clone().requires_grad_(True) for k, v in c.items()}
+                  for c in params["cells"]],
+        "head": {k: v.detach().clone().requires_grad_(True)
+                 for k, v in params["head"].items()},
+    }
+
+
+def phase_cli(device) -> None:
+    """One epoch of ``python -m nasa_niswan_tpu_torch.train``'s main on a
+    small fixture, at the canonical widths."""
+    root = tempfile.mkdtemp(prefix="niswan_smoke_")
+    try:
+        cfg = TrainConfig(
+            model="LSTM-smoke", in_channels=TRAIN_C, num_epochs=1, batch_size=4,
+            sequence_length=8, synthetic_steps=160, synthetic_grid=(32, 48),
+            input_size=(40, 56), compute_dtype="bfloat16", checkpoint_every=1,
+            snapshot_dir=os.path.join(root, "snap"), device=str(device),
+        )
+        cfg.dump()
+        out = train_cli.main(cfg)
+        with open(os.path.join(cfg.snapshot_dir, "logger.npy"), "rb") as f:
+            logs = [np.load(f) for _ in range(3)]
+        check(all(a.shape == (1,) and np.isfinite(a).all() for a in logs),
+              f"logger.npy {logs}")
+        loaded, opt_state, meta = load_checkpoint(
+            os.path.join(cfg.snapshot_dir, "epoch-001"), out["params"])
+        check(meta["epoch"] == 1 and opt_state["step"] > 0, f"checkpoint meta {meta}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            param_leaves(loaded), param_leaves(out["params"]))),
+            "checkpoint params differ from the trained ones")
+        print(f"[g] CLI main: 1 epoch, {opt_state['step']} steps, logger.npy "
+              f"{[float(a[0]) for a in logs]}, epoch-001 checkpoint loads back")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -316,16 +582,28 @@ def main() -> None:
             f"{1000 * t / n_steps:.4f} ms/step over {n_steps} steps "
             f"(C={C}, B=1, bf16) on {smi}"
         )
-    print(json.dumps({"kernels": [{
-        "name": "convlstm_cell",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": serve["launches"],
-        "max_abs_err": cell["max_abs_err"],
-        "ms": cell["ms"],
-        "plain_ms": cell["plain_ms"],
-    }]}))
+    bwd = phase_backward(device)
+    train = phase_train(device)
+    for name in ("kernel", "plain"):
+        t = train[f"t_{name}"]
+        days = TRAIN_STEPS * TRAIN_BS * TRAIN_T / 48.0
+        print(
+            f"[h] training, {name} path: {1000 * t / TRAIN_STEPS:.1f} ms/step, "
+            f"{days / (t / 60.0):.2f} model-days/min over {TRAIN_STEPS} steps "
+            f"(bs {TRAIN_BS}, T {TRAIN_T}, C={TRAIN_C}, bf16) on {smi}"
+        )
+    stats = {
+        "convlstm_cell": dict(cell, launches=serve["launches"] + train["launches"]),
+        "cell_bwd": dict(bwd["cell_bwd"], launches=train["launches"]),
+        "conv_same": dict(bwd["conv_same"], launches=train["launches"]),
+    }
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": stats[name]["launches"],
+         "max_abs_err": stats[name]["max_abs_err"],
+         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+        for name, (src, replaces) in KERNEL_SOURCES.items()
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -7,14 +7,17 @@ and never JAX, so it runs on a machine that has no JAX installed.
 
 Layering (bottom-up), as in the JAX package:
   core/      lat-lon grid spec + geophysical padding (cyclic lon, reflective lat)
-  data/      normalization constants (Normalizer, zscore_static)
-  ops/       NHWC conv wrapper, the hand-written CUDA fused ConvLSTM cell
-             (csrc/convlstm_cell.cu) and its nvcc build
-  models/    ConvLSTM forward (functional + nn.Module)
+  data/      normalization constants, SequenceDataset, the synthetic fixture
+  ops/       NHWC conv wrapper, the hand-written CUDA kernels (csrc/: fused
+             cell forward, fused cell backward, data-gradient conv), their
+             nvcc build, and the whole-scan BPTT autograd Function
+  models/    ConvLSTM (functional + nn.Module) and the model registry
   rollout/   the state-carrying autoregressive rollout (the serving mode)
+  train/     train/eval steps, fit, checkpoints, config and the training CLI
+  evalx/     the training step's R^2
   bridge.py  weight bridge to and from the JAX parameter tree / checkpoint
 
-Importing the package builds nothing: the CUDA kernel is compiled at its
+Importing the package builds nothing: the CUDA kernels are compiled at the
 first launch on a CUDA tensor.
 """
 

@@ -1,17 +1,24 @@
-"""Normalization constants (counterpart of the ``Normalizer`` and
-``zscore_static`` of nasa_niswan_tpu/data/dataset.py).
+"""Array-backed sequence dataset and normalization constants (counterpart of
+nasa_niswan_tpu/data/dataset.py: ``Normalizer``, ``zscore_static``,
+``masked_log10``, ``reference_splits`` and ``SequenceDataset``).
 
-The constants stay numpy float32 arrays, as in the JAX package, so one
-set of statistics serves both packages; the methods take torch tensors and
-compute with the same formulas.
+The dataset is numpy, as in the JAX package, so one set of samples and
+statistics serves both packages; the ``Normalizer`` methods take torch
+tensors and compute with the same formulas.  Samples are served raw and
+unpadded: normalization and geophysical padding run on the device inside
+the training step (train/loop.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from nasa_niswan_tpu_torch.core.padding import pad_geo
+from nasa_niswan_tpu_torch.data.catalog import PACKED_VARS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,3 +49,132 @@ def zscore_static(static: np.ndarray) -> np.ndarray:
     mean = static.mean(axis=(1, 2), keepdims=True)
     std = static.std(axis=(1, 2), keepdims=True)
     return ((static - mean) / std).astype(np.float32)
+
+
+def masked_log10(x: np.ndarray) -> np.ndarray:
+    """np.ma.log10(x).filled(0.0) semantics: non-positive entries map to 0."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out = np.log10(x, where=x > 0, out=np.zeros_like(x, dtype=np.float32))
+    return out.astype(np.float32)
+
+
+def reference_splits(n_usable: int) -> Tuple[int, int]:
+    """(train_end, val_end) with the reference's 70/10/20 boundaries:
+    floor(0.7 n), floor(0.8 n)."""
+    return int(n_usable * 0.7), int(n_usable * 0.8)
+
+
+def _stack_inputs(data: Dict[str, np.ndarray], species: str) -> Tuple[np.ndarray, np.ndarray]:
+    src_var, conc_var = PACKED_VARS[species]
+    conc = data[conc_var]
+    if conc.ndim == 4:  # (T, L, H, W): surface level for the target
+        conc = conc[:, 0]
+    xs = np.stack(
+        [data["u"], data["v"], data["omega"], data["prec"], data[src_var]], axis=1
+    )  # (T, 5, H, W)
+    return xs.astype(np.float32), conc.astype(np.float32)
+
+
+class SequenceDataset:
+    """Sliding-window (T_seq, C, H, W) -> (H, W) samples for recurrent models:
+    stats over the first train_end raw steps, target at the window end
+    (y[seq_len-1:]), contiguous 70/10/20 split over windows."""
+
+    def __init__(
+        self,
+        data: Dict[str, np.ndarray],
+        *,
+        period: str,
+        species: str = "bcb",
+        sequence_length: int = 48,
+        in_channels: Optional[int] = None,
+        padding: Optional[Tuple[int, int]] = None,
+        host_preprocessed: bool = False,
+    ):
+        if period not in ("train", "val", "test"):
+            raise ValueError(f"bad period {period!r}")
+        if isinstance(data, tuple):
+            xs, y = data  # a pre-fused (frames, targets) stack
+        else:
+            xs, y = _stack_inputs(data, species)
+        T = xs.shape[0]
+        train_end, val_end = reference_splits(T)
+
+        self.normalizer = Normalizer(
+            x_mean=xs[:train_end].mean(axis=(0, 2, 3)),
+            x_std=xs[:train_end].std(axis=(0, 2, 3)),
+            y_mean=float(y[:train_end].mean()),
+            y_std=float(y[:train_end].std()),
+        )
+        self.seq_len = sequence_length
+        self.in_channels = in_channels if in_channels is not None else xs.shape[1]
+        self.padding = padding
+        self.host_preprocessed = host_preprocessed
+        self.species = species
+
+        n_static = self.in_channels - xs.shape[1]
+        if n_static > 0:
+            static = data.get("static") if isinstance(data, dict) else None
+            if static is None or static.shape[0] < n_static:
+                raise ValueError(
+                    f"in_channels={self.in_channels} needs {n_static} static channels"
+                )
+            self.static = zscore_static(static[:n_static])
+        else:
+            self.static = None
+
+        # zero-copy windows over the raw (unnormalized) slab
+        windows = np.lib.stride_tricks.sliding_window_view(
+            xs, (sequence_length,), axis=0
+        )  # (T-seq+1, C, H, W, seq)
+        targets = y[sequence_length - 1 :]
+        lo, hi = {
+            "train": (0, train_end),
+            "val": (train_end, val_end),
+            "test": (val_end, len(targets)),
+        }[period]
+        self._windows = windows[lo:hi]
+        self._targets = targets[lo:hi]
+        self.period = period
+
+    def __len__(self) -> int:
+        return len(self._targets)
+
+    def raw_item(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        """((T_seq, C, H, W) raw window, (H, W) raw target)."""
+        x = np.moveaxis(self._windows[idx], -1, 0)
+        return np.ascontiguousarray(x), self._targets[idx]
+
+    def forcing_stream(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The contiguous raw forcing frames covering this split's windows,
+        plus the aligned targets: frames (T_total, C, H, W) such that frames
+        t0..t0+seq-1 feed target 0 and each later target consumes one new
+        frame."""
+        first = np.moveaxis(self._windows[0], -1, 0)  # (seq, C, H, W)
+        rest = self._windows[1:, :, :, :, -1]  # (N-1, C, H, W)
+        frames = np.concatenate([first, rest], axis=0)
+        return np.ascontiguousarray(frames), self._targets.copy()
+
+    def with_static(self, x: np.ndarray) -> np.ndarray:
+        """Append the tiled static channels."""
+        if self.static is None:
+            return x
+        tiled = np.broadcast_to(
+            self.static[None], (x.shape[0], *self.static.shape)
+        )
+        return np.concatenate([x, tiled], axis=1)
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Raw mode (default) serves the dynamic channels only; the training
+        step appends the static ones on the device.  Host-preprocessed mode
+        gives the full sample: normalize + static + pad."""
+        x, y = self.raw_item(idx)
+        if not self.host_preprocessed:
+            return x, y
+        norm = self.normalizer
+        x = (x - norm.x_mean.reshape(-1, 1, 1)) / norm.x_std.reshape(-1, 1, 1)
+        y = norm.normalize_y(y)
+        x = self.with_static(x.astype(np.float32))
+        if self.padding:
+            x = pad_geo(torch.from_numpy(np.ascontiguousarray(x)), self.padding).numpy()
+        return x.astype(np.float32), y.astype(np.float32)

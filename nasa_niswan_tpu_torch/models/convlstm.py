@@ -16,6 +16,13 @@ kernel ``[w_x; w_h]``: the CUDA kernel for tensors on the card, its plain
 PyTorch version on the CPU (ops/convlstm_cell.py).  The time loop is a
 Python loop; the JAX package's TPU policies (``cell_impl``, unroll, remat,
 the input-conv hoist) have no counterpart here.
+
+Training: when grad is enabled, something being differentiated requires it
+and no per-step taps are asked for, the layers and time loop run as one
+autograd Function, the whole-scan BPTT of ops/convlstm_bptt.py, whose
+backward is the per-cell backward ``grads_fn`` (kernels B2 and B3 on the
+card); the head, crop and loss stay plain autograd.  This is the route the
+JAX package takes with ``cell_impl="pallas2", remat=True``.
 """
 
 from __future__ import annotations
@@ -29,10 +36,17 @@ from torch import nn
 
 from nasa_niswan_tpu_torch.models.init import torch_conv_init
 from nasa_niswan_tpu_torch.ops.conv import conv2d
+from nasa_niswan_tpu_torch.ops.convgrad import cell_grads
+from nasa_niswan_tpu_torch.ops.convlstm_bptt import (
+    cells_step,
+    combined_cells,
+    scan_cells,
+)
 from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward, gate_update
 
 Params = Dict[str, Any]
 CellFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+GradsFn = Callable[..., Tuple[torch.Tensor, ...]]
 
 __all__ = [
     "ConvLSTM",
@@ -130,6 +144,7 @@ def convlstm_apply(
     return_state: bool = False,
     tap_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     cell_fn: CellFn = fused_cell_forward,
+    grads_fn: Optional[GradsFn] = cell_grads,
 ):
     """Run the ConvLSTM over a sequence.
 
@@ -143,6 +158,12 @@ def convlstm_apply(
       cell_fn: the fused cell ``(xh, c, w, b) -> (h', c')``.  The default
         dispatches by device; ``fused_cell_forward_plain`` runs the plain
         version on any device (the reference the kernel is checked against).
+      grads_fn: the per-cell backward ``(xh, c, dh, dc, w, b) -> (dxh,
+        dc_prev, dw, db)`` of the whole-scan BPTT (training route, see the
+        module docstring): ``ops/convgrad.cell_grads`` dispatches by device,
+        ``cell_grads_plain`` runs the plain versions.  None differentiates
+        the time loop with eager autograd through ``cell_fn`` instead (the
+        oracle).
 
     Returns:
       pred (B, H, W, out) f32, then the taps and the final state if asked.
@@ -162,27 +183,27 @@ def convlstm_apply(
             (_state_tensor(h, x.device), _state_tensor(c, x.device))
             for h, c in initial_state
         ]
-    # the combined [w_x; w_h] kernel in the compute dtype, built once per call
-    cells = [
-        (
-            torch.cat([cell["w_x"], cell["w_h"]], dim=2).to(dt).contiguous(),
-            cell["b"].float().contiguous(),
-        )
-        for cell in params["cells"]
-    ]
-
+    leaves = [t for cell in params["cells"] for t in cell.values()]
+    leaves += [t for hc in state for t in hc] + [x]
     taps = []
-    for t in range(T):
-        inp = x[:, t]
-        for li, (w, b) in enumerate(cells):
-            h, c = state[li]
-            xh = torch.cat([inp.to(dt), h.to(dt)], dim=-1)
-            state[li] = cell_fn(xh, c, w, b)
-            inp = state[li][0]
-        if return_per_step:
-            taps.append(
-                tap_fn(inp) if tap_fn is not None else head_apply(params, inp, dt)
-            )
+    if (
+        grads_fn is not None
+        and torch.is_grad_enabled()
+        and any(t.requires_grad for t in leaves)
+        and not return_per_step
+        and tap_fn is None
+    ):
+        state = scan_cells(params, x.to(dt), state, dt, cell_fn, grads_fn)
+    else:
+        cells = combined_cells(params, dt)
+        for t in range(T):
+            state = cells_step(cells, x[:, t], state, dt, cell_fn)
+            if return_per_step:
+                h_last = state[-1][0]
+                taps.append(
+                    tap_fn(h_last) if tap_fn is not None
+                    else head_apply(params, h_last, dt)
+                )
 
     out = [head_apply(params, state[-1][0], dt)]
     if return_per_step:
@@ -209,15 +230,12 @@ class ConvLSTM(nn.Module):
         for cell in params["cells"]:
             m = nn.Module()
             for name in ("w_x", "w_h", "b"):
-                m.register_parameter(
-                    name, nn.Parameter(cell[name].to(device), requires_grad=False)
-                )
+                m.register_parameter(name, nn.Parameter(cell[name].to(device)))
             self.cells.append(m)
         self.head = nn.Module()
         for name in ("w", "b"):
             self.head.register_parameter(
-                name,
-                nn.Parameter(params["head"][name].to(device), requires_grad=False),
+                name, nn.Parameter(params["head"][name].to(device))
             )
 
     def params(self) -> Params:

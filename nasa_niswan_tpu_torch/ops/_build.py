@@ -1,14 +1,16 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
-The sources have a plain C interface (no PyTorch headers), so one nvcc call
-builds them in seconds:
+The sources have a plain C interface (no PyTorch headers).  Each ``.cu`` is
+compiled by its own nvcc, all started together, then one nvcc links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/libniswan_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c -o <obj> csrc/<source>.cu            (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/kernels/libniswan_kernels_<hash>.so <objs>
 
 The library lands in ``build/kernels/`` beside the package (listed in
-.gitignore) at first use, named by a hash of the sources and flags, so a
-changed source rebuilds and an unchanged one loads as it is.  nvcc's
+.gitignore) at first use, named by a hash of the sources, headers and flags,
+so a changed source rebuilds and an unchanged one loads as it is.  nvcc's
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel) is kept
 beside it as ``.log``.  Nothing is built when a module is imported, and a
 missing nvcc or a failed build raises.
@@ -28,10 +30,11 @@ from typing import Tuple
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 def find_nvcc() -> str:
@@ -58,11 +61,28 @@ def _sources() -> Tuple[Path, ...]:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libniswan_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the output of the first
+    that fails; return their joined output."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for cmd in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{text}"
+            )
+    return "".join(outs)
 
 
 def build() -> Path:
@@ -73,16 +93,22 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f"{tag}.so.tmp")
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    try:
+        log = _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)
+        ])
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
     return out
 
@@ -92,10 +118,26 @@ def load_kernels() -> ctypes.CDLL:
     """Build if needed, load, and declare every C entry point's types."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("niswan_convlstm_cell_f32", "niswan_convlstm_cell_bf16"):
+    signatures = {
+        # (xh, w, b, c, h_out, c_out), (B, H, W, Cin, hid, k), stream
+        "niswan_convlstm_cell_f32": [ptr] * 6 + [i32] * 6 + [ptr],
+        "niswan_convlstm_cell_bf16": [ptr] * 6 + [i32] * 6 + [ptr],
+        # (xh, w, b, c, dh, dc, dgates, dc_prev, dw, db, work),
+        # (B, H, W, Cin, hid, k), stream
+        "niswan_cell_bwd_f32": [ptr] * 11 + [i32] * 6 + [ptr],
+        "niswan_cell_bwd_bf16": [ptr] * 11 + [i32] * 6 + [ptr],
+        # (x, w, out), (B, H, W, Cin, Cout, k), stream
+        "niswan_conv_same_f32": [ptr] * 3 + [i32] * 6 + [ptr],
+        "niswan_conv_same_bf16": [ptr] * 3 + [i32] * 6 + [ptr],
+    }
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        fn.argtypes = argtypes
         fn.restype = i32
+    # (bf16, xh, w, B, H, W, Cin, hid, k) -> floats of workspace, -1 if
+    # no kernel takes them
+    lib.niswan_cell_bwd_workspace.argtypes = [i32, ptr, ptr] + [i32] * 6
+    lib.niswan_cell_bwd_workspace.restype = ctypes.c_longlong
     lib.niswan_error_string.argtypes = [i32]
     lib.niswan_error_string.restype = ctypes.c_char_p
     return lib

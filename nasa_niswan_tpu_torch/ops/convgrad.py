@@ -1,0 +1,230 @@
+"""Fused ConvLSTM cell backward and the SAME data-gradient conv: the
+hand-written CUDA kernels and their plain PyTorch versions.
+
+Replaces the TPU kernels of ``nasa_niswan_tpu/ops/convgrad_pallas.py``:
+
+* ``fused_cell_bwd`` (B2, ``_cell_bwd_kernel`` via ``fused_cell_bwd_v2``):
+  recomputes the gates of one cell step from (xh, w, b), applies the
+  elementwise backward of the nonlinearities and the state update, and
+  reduces the weight and bias gradients over every pixel.  Kernel:
+  ``csrc/cell_bwd.cu`` (gate recompute on the forward's mainloop, dW split
+  over a fixed number of pixel slots and summed in a fixed order; no
+  atomics, so reruns are bit-identical).
+* ``conv_same`` (B3, ``_conv_same_kernel`` via ``conv_same_v2``): a SAME
+  k x k conv with an f32 output; on the flipped, transposed cell kernel it is
+  the data gradient dxh.  Kernel: ``csrc/conv_same.cu``.
+* ``cell_grads``: B2 then B3 on ``w_flip = flip(w, (0, 1)).swapaxes(2, 3)``,
+  the complete per-cell backward (``cell_grads_pallas``).
+
+The TPU kernels' padded-column margin layout, 128-lane channel padding and
+``pltpu.roll`` are TPU tiling devices; the port runs in the dense NHWC /
+HWIO layout, and every pixel is valid, so nothing is masked.
+
+Roundings kept from the reference: ``dgates`` is rounded to the compute
+dtype (the dtype of xh) before both the dW product and the data-gradient
+conv; ``db`` sums the f32 gate cotangents; ``dc_prev`` is f32.  dW is an f32
+sum of compute-dtype operands, as the TPU kernel computes it.
+
+Dispatch goes by device, with no fallback: CPU tensors run the plain
+versions; any other device goes through the custom ops ``niswan::cell_bwd``
+and ``niswan::conv_same``, whose CUDA implementations launch the kernels or
+raise.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from nasa_niswan_tpu_torch.ops import _build
+from nasa_niswan_tpu_torch.ops.convlstm_cell import (
+    _KERNEL_SIZES,
+    check_cell_args,
+    conv_grads,
+    elementwise_bwd,
+)
+from nasa_niswan_tpu_torch.ops.conv import conv2d
+
+# Launches of each kernel in this process (one per op call); chip_smoke.py
+# resets them before driving the training path and reads them after.
+cell_bwd_launches = 0
+conv_same_launches = 0
+
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _raise_on(err: int, what: str, lib) -> None:
+    if err:
+        raise RuntimeError(
+            f"{what} kernel launch failed: "
+            f"{lib.niswan_error_string(err).decode()} (cudaError {err})"
+        )
+
+
+# ---- B2: fused cell backward ------------------------------------------------
+
+def fused_cell_bwd_plain(xh, c, dh, dc, w, b) -> Grads:
+    """The kernel's math in plain PyTorch (``_cell_bwd_reference``):
+    operands upcast to f32, an f32 gate conv, the elementwise backward, then
+    the f32 weight gradient of the compute-dtype operands.  Returns (dgates
+    in xh's dtype, dc_prev f32, dw (k,k,Cin,4h) f32, db (4h,) f32)."""
+    k = w.shape[0]
+    gates = conv2d(xh.float(), w.float(), padding=k // 2) + b.float()
+    dgates32, dc_prev = elementwise_bwd(gates, c, dh, dc)
+    dgates = dgates32.to(xh.dtype)
+    _, dw = conv_grads(xh, w, dgates, need_dx=False)
+    return dgates, dc_prev, dw, dgates32.sum(dim=(0, 1, 2))
+
+
+def _check_bwd_args(xh, c, dh, dc, w, b) -> None:
+    check_cell_args(xh, c, w, b)
+    for name, t in (("dh", dh), ("dc", dc)):
+        if t.shape != c.shape or t.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be f32 of c's shape {tuple(c.shape)}; got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+        if t.device != xh.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on xh's device")
+
+
+@torch.library.custom_op("niswan::cell_bwd", mutates_args=(), device_types="cuda")
+def _cell_bwd_cuda(
+    xh: torch.Tensor, c: torch.Tensor, dh: torch.Tensor, dc: torch.Tensor,
+    w: torch.Tensor, b: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    global cell_bwd_launches
+    lib = _build.load_kernels()
+    bf16 = xh.dtype == torch.bfloat16
+    B, H, W, cin = xh.shape
+    hid = c.shape[-1]
+    k = w.shape[0]
+    n_work = lib.niswan_cell_bwd_workspace(
+        int(bf16), xh.data_ptr(), w.data_ptr(), B, H, W, cin, hid, k
+    )
+    if n_work < 0:
+        raise ValueError(
+            f"no cell backward kernel for xh {tuple(xh.shape)}, hid {hid}, k {k}"
+        )
+    dgates = torch.empty((B, H, W, 4 * hid), dtype=xh.dtype, device=xh.device)
+    dc_prev = torch.empty_like(c)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=xh.device)
+    db = torch.empty((4 * hid,), dtype=torch.float32, device=xh.device)
+    work = torch.empty((n_work,), dtype=torch.float32, device=xh.device)
+    fn = lib.niswan_cell_bwd_bf16 if bf16 else lib.niswan_cell_bwd_f32
+    with torch.cuda.device(xh.device):
+        stream = torch.cuda.current_stream(xh.device).cuda_stream
+        err = fn(
+            xh.data_ptr(), w.data_ptr(), b.data_ptr(), c.data_ptr(),
+            dh.data_ptr(), dc.data_ptr(), dgates.data_ptr(), dc_prev.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), work.data_ptr(),
+            B, H, W, cin, hid, k, stream,
+        )
+    _raise_on(err, "cell_bwd", lib)
+    cell_bwd_launches += 1
+    return dgates, dc_prev, dw, db
+
+
+@_cell_bwd_cuda.register_fake
+def _(xh, c, dh, dc, w, b):
+    B, H, W, _ = xh.shape
+    n4 = w.shape[-1]
+    return (
+        xh.new_empty((B, H, W, n4)),
+        torch.empty_like(c),
+        w.new_empty(w.shape, dtype=torch.float32),
+        w.new_empty((n4,), dtype=torch.float32),
+    )
+
+
+def fused_cell_bwd(xh, c, dh, dc, w, b) -> Grads:
+    """Cell backward without the data gradient: (dgates, dc_prev, dw, db).
+    xh (B,H,W,Cin) and w (k,k,Cin,4h) bf16 or f32; c, dh, dc (B,H,W,h) and b
+    f32.  CPU tensors run the plain version, every other device the kernel."""
+    _check_bwd_args(xh, c, dh, dc, w, b)
+    if xh.device.type == "cpu":
+        return fused_cell_bwd_plain(xh, c, dh, dc, w, b)
+    return torch.ops.niswan.cell_bwd(xh, c, dh, dc, w, b)
+
+
+# ---- B3: SAME conv, f32 out --------------------------------------------------
+
+def conv_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """f32 SAME conv of the upcast operands: (B,H,W,Cin) x (k,k,Cin,Cout) ->
+    (B,H,W,Cout) f32."""
+    return conv2d(x.float(), w.float(), padding=w.shape[0] // 2)
+
+
+def _check_conv_args(x, w) -> None:
+    if x.dim() != 4 or w.dim() != 4 or w.shape[0] != w.shape[1] \
+            or w.shape[2] != x.shape[-1]:
+        raise ValueError(
+            f"expected x (B,H,W,Cin), w (k,k,Cin,Cout); got {tuple(x.shape)}, "
+            f"{tuple(w.shape)}"
+        )
+    if w.shape[0] not in _KERNEL_SIZES:
+        raise ValueError(f"kernel size {w.shape[0]} not in {_KERNEL_SIZES}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype:
+        raise TypeError(
+            f"x and w must share dtype bf16 or f32; got {x.dtype}, {w.dtype}"
+        )
+    if w.device != x.device or not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("x and w must be contiguous on one device")
+
+
+@torch.library.custom_op("niswan::conv_same", mutates_args=(), device_types="cuda")
+def _conv_same_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    global conv_same_launches
+    lib = _build.load_kernels()
+    B, H, W, cin = x.shape
+    k, cout = w.shape[0], w.shape[-1]
+    out = torch.empty((B, H, W, cout), dtype=torch.float32, device=x.device)
+    fn = (
+        lib.niswan_conv_same_bf16 if x.dtype == torch.bfloat16
+        else lib.niswan_conv_same_f32
+    )
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 B, H, W, cin, cout, k, stream)
+    _raise_on(err, "conv_same", lib)
+    conv_same_launches += 1
+    return out
+
+
+@_conv_same_cuda.register_fake
+def _(x, w):
+    return x.new_empty((*x.shape[:3], w.shape[-1]), dtype=torch.float32)
+
+
+def conv_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME k x k conv, f32 out.  CPU tensors run the plain version, every
+    other device the kernel."""
+    _check_conv_args(x, w)
+    if x.device.type == "cpu":
+        return conv_same_plain(x, w)
+    return torch.ops.niswan.conv_same(x, w)
+
+
+# ---- the per-cell backward ---------------------------------------------------
+
+def flip_kernel(w: torch.Tensor) -> torch.Tensor:
+    """w' = flip(w, (0, 1)).swapaxes(2, 3): conv_same(dgates, w') is the
+    data gradient of the SAME conv with w."""
+    return torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
+
+
+def cell_grads(xh, c, dh, dc, w, b) -> Grads:
+    """Complete per-cell backward (``cell_grads_pallas``): (dxh f32, dc_prev
+    f32, dw f32, db f32) from the output cotangents, via B2 then B3."""
+    dgates, dc_prev, dw, db = fused_cell_bwd(xh, c, dh, dc, w, b)
+    dxh = conv_same(dgates, flip_kernel(w).to(dgates.dtype))
+    return dxh, dc_prev, dw, db
+
+
+def cell_grads_plain(xh, c, dh, dc, w, b) -> Grads:
+    """``cell_grads`` through the plain versions on any device."""
+    dgates, dc_prev, dw, db = fused_cell_bwd_plain(xh, c, dh, dc, w, b)
+    dxh = conv_same_plain(dgates, flip_kernel(w).to(dgates.dtype))
+    return dxh, dc_prev, dw, db

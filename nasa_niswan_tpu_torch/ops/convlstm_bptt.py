@@ -1,0 +1,159 @@
+"""Whole-scan BPTT of the stacked ConvLSTM cells (counterpart of
+nasa_niswan_tpu/ops/convlstm_bptt.py::scan_cells_pallas2 with its default
+``bwd_impl="fused"``).
+
+One ``torch.autograd.Function`` spans every layer and time step:
+
+* forward: the time loop through the fused cell forward (kernel B1 on the
+  card), keeping only each step's *input* carry: the saved tensors are
+  (params, xs, state0, the per-step carries, final), as ``_scan_fwd`` keeps.
+  No gates and no cell intermediates are stored.
+* backward: one reverse loop.  Per step and layer (as ``_cells_bwd_step`` does) the
+  per-cell backward ``cell_grads`` (kernels B2 then B3 on the card)
+  recomputes the gates and returns (dxh, dc_prev, dw, db).  Layer l > 0's
+  forward input at step t is layer l-1's carry h at step t+1, so nothing is
+  replayed.
+
+It keeps the reference's roundings: xh and w in the compute dtype, dgates
+rounded to it before dW and the data-gradient conv, db from the f32 gate
+cotangents, dc_prev = dct * f in f32, the layer-below part of dxh added to
+that layer's dh in f32, and dx_t cast to xs's dtype.  Weight and bias
+gradients accumulate in f32 over the steps.
+
+The TPU package's ``_pack_state`` (a lane-padding fix for the stacked
+carries) has no counterpart: the carries stay a list of tensors.  Eager
+autograd through the plain cell (``convlstm_apply`` with ``grads_fn=None``)
+is the oracle, as ``bwd_impl="xla"`` is in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Sequence, Tuple
+
+import torch
+from torch.autograd.function import once_differentiable
+
+State = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def combined_cells(params, dt: torch.dtype) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per layer, the combined [w_x; w_h] kernel in the compute dtype and
+    the f32 bias, as the fused cell takes them."""
+    return [
+        (torch.cat([cell["w_x"], cell["w_h"]], dim=2).to(dt).contiguous(),
+         cell["b"].float().contiguous())
+        for cell in params["cells"]
+    ]
+
+
+def cells_step(cells, x_t, state, dt, cell_fn) -> State:
+    """One time step through every layer (cell inputs ``xh = [x; h]`` in the
+    compute dtype); returns the new per-layer (h, c)."""
+    inp = x_t
+    new = []
+    for (w, b), (h, c) in zip(cells, state):
+        xh = torch.cat([inp.to(dt), h.to(dt)], dim=-1)
+        new.append(cell_fn(xh, c, w, b))
+        inp = new[-1][0]
+    return new
+
+
+def _raw_params(flat, n_layers):
+    return {"cells": [dict(zip(("w_x", "w_h", "b"), flat[3 * i : 3 * i + 3]))
+                      for i in range(n_layers)]}
+
+
+class _ScanCells(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fns, dt, xs, *flat):
+        cell_fn, grads_fn = fns
+        n_layers = len(flat) // 5
+        state0 = [
+            (flat[3 * n_layers + 2 * i], flat[3 * n_layers + 2 * i + 1])
+            for i in range(n_layers)
+        ]
+        cells = combined_cells(_raw_params(flat, n_layers), dt)
+        carries = [state0]
+        for t in range(xs.shape[1]):
+            carries.append(cells_step(cells, xs[:, t], carries[-1], dt, cell_fn))
+        ctx.grads_fn = grads_fn
+        ctx.dt = dt
+        ctx.n_layers = n_layers
+        ctx.save_for_backward(
+            xs, *flat, *(t for st in carries[1:] for hc in st for t in hc)
+        )
+        return tuple(t for hc in carries[-1] for t in hc)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *d_final):
+        L, dt = ctx.n_layers, ctx.dt
+        saved = ctx.saved_tensors
+        xs, flat, rest = saved[0], saved[1 : 1 + 5 * L], saved[1 + 5 * L :]
+        raw = _raw_params(flat, L)
+        T = xs.shape[1]
+
+        def carry(t):
+            src, base = (flat, 3 * L) if t == 0 else (rest, 2 * L * (t - 1))
+            return [(src[base + 2 * i], src[base + 2 * i + 1]) for i in range(L)]
+
+        cells = combined_cells(raw, dt)
+        g_w = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+               for w, _ in cells]
+        g_b = [torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+               for _, b in cells]
+        d_state = [
+            (d_final[2 * i].float(), d_final[2 * i + 1].float()) for i in range(L)
+        ]
+        need_dx = ctx.needs_input_grad[2]
+        dxs = torch.zeros_like(xs) if need_dx else None
+        state_next = carry(T)
+        for t in reversed(range(T)):
+            state_in = carry(t)
+            new_d: list = [None] * L
+            for li in reversed(range(L)):
+                inp = xs[:, t] if li == 0 else state_next[li - 1][0]
+                (h_in, c_in), (dh, dc) = state_in[li], d_state[li]
+                w, b = cells[li]
+                xh = torch.cat([inp.to(dt), h_in.to(dt)], dim=-1)
+                dxh, dc_prev, dw, db = ctx.grads_fn(
+                    xh, c_in, dh.contiguous(), dc.contiguous(), w, b
+                )
+                g_w[li] += dw
+                g_b[li] += db
+                cin = inp.shape[-1]
+                if li > 0:
+                    ph, pc = d_state[li - 1]
+                    d_state[li - 1] = (ph + dxh[..., :cin], pc)
+                elif need_dx:
+                    dxs[:, t] = dxh[..., :cin].to(xs.dtype)
+                new_d[li] = (dxh[..., cin:], dc_prev)
+            d_state = new_d
+            state_next = state_in
+
+        grads = []
+        for cell, gw, gb in zip(raw["cells"], g_w, g_b):
+            cin = cell["w_x"].shape[2]
+            grads += [gw[:, :, :cin].to(cell["w_x"].dtype),
+                      gw[:, :, cin:].to(cell["w_h"].dtype), gb.to(cell["b"].dtype)]
+        grads += [d for dhc in d_state for d in dhc]
+        return (None, None, dxs, *grads)
+
+
+def scan_cells(
+    params,
+    xs: torch.Tensor,
+    state0: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    dt: torch.dtype,
+    cell_fn: Callable,
+    grads_fn: Callable,
+) -> State:
+    """Run the cells over ``xs`` (B, T, H, W, Cin) in the compute dtype
+    ``dt`` from the per-layer carry ``state0``; returns the final per-layer
+    (h, c), f32.  Differentiable in the cell parameters, ``xs`` and
+    ``state0``: the backward is the whole-scan BPTT through ``grads_fn``
+    (``ops/convgrad.cell_grads``, or ``cell_grads_plain``)."""
+    flat = [t for cell in params["cells"] for t in (cell["w_x"], cell["w_h"], cell["b"])]
+    flat += [t for hc in state0 for t in hc]
+    out = _ScanCells.apply((cell_fn, grads_fn), dt, xs, *flat)
+    return [(out[2 * i], out[2 * i + 1]) for i in range(len(state0))]

@@ -2,8 +2,11 @@
 PyTorch version.
 
 Replaces the TPU kernel ``nasa_niswan_tpu/ops/convlstm_pallas2.py::
-_cell_kernel_v2`` (plain mode: no hoisted input gates ``xg``, no
-``emit_gates`` output; those two modes serve training and come later).  The
+_cell_kernel_v2`` in its plain mode.  Its other two modes are not ported:
+hoisted input gates ``xg`` serve only the JAX package's
+``precompute_input_conv``, and the ``emit_gates`` output only its
+``bptt_bwd="xla"`` fallback; the port's training backward recomputes the
+gates in ``ops/convgrad.py`` instead.  The
 kernel is ``csrc/convlstm_cell.cu``: the SAME k x k gate conv of ``xh =
 [x; h]``, the gate nonlinearities and the state update in one launch, with
 the 4*hidden gate tensor kept in registers.  The TPU kernel's padded-column
@@ -22,11 +25,15 @@ Dispatch goes by device: a tensor on the CPU runs ``fused_cell_forward_plain``;
 any other device goes through the custom op ``niswan::convlstm_cell``,
 whose CUDA implementation launches the kernel or raises.  There is no
 fallback from the kernel to the plain version.
+
+Beside the forward live the plain building blocks of every backward
+(``_elementwise_bwd`` and ``_conv_grads`` of the JAX package):
+``elementwise_bwd`` and ``conv_grads``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,6 +67,61 @@ def fused_cell_forward_plain(
     k = w.shape[0]
     gates = conv2d(xh.float(), w.float(), padding=k // 2) + b.float()
     return gate_update(gates, c)
+
+
+def elementwise_bwd(
+    gates: torch.Tensor, c: torch.Tensor, dh: torch.Tensor, dc: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of the gate nonlinearities and the state update
+    (``_elementwise_bwd`` of nasa_niswan_tpu/ops/convlstm_pallas2.py, without
+    its margin mask: every pixel of the dense layout is valid).  Output
+    cotangents (dh', dc') -> (f32 pre-activation gate cotangents in i, f, g, o
+    order, dc_prev)."""
+    hid = c.shape[-1]
+    g32 = gates.float()
+    i = torch.sigmoid(g32[..., :hid])
+    f = torch.sigmoid(g32[..., hid : 2 * hid])
+    g = torch.tanh(g32[..., 2 * hid : 3 * hid])
+    og = torch.sigmoid(g32[..., 3 * hid :])
+    c32 = c.float()
+    tc = torch.tanh(c32 * f + i * g)
+    dct = dc + dh * og * (1.0 - tc * tc)
+    d_i = dct * g * i * (1.0 - i)
+    d_f = dct * c32 * f * (1.0 - f)
+    d_g = dct * i * (1.0 - g * g)
+    d_o = dh * tc * og * (1.0 - og)
+    return torch.cat([d_i, d_f, d_g, d_o], dim=-1), dct * f
+
+
+def conv_grads(
+    x: torch.Tensor, w: torch.Tensor, dgates: torch.Tensor, *,
+    need_dx: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """f32 cotangents (dx, dw) of the linear SAME conv ``conv2d(x, w)`` for
+    the output cotangent ``dgates`` (``_conv_grads`` of
+    nasa_niswan_tpu/ops/convlstm_pallas2.py); operands are upcast to f32, dx
+    is None unless asked for.  NHWC / HWIO in and out.
+
+    dw is one f32 matmul per tap, x's shifted window against dgates: cuDNN's
+    f32 weight gradient on an H100 was measured off by 1.6e-2 of its largest
+    entry at the training layer-1 shape (B=8, 100x154, 72 -> 256, k=5), and
+    the plain version is the kernel's reference."""
+    k = w.shape[0]
+    p = k // 2
+    B, H, W, cin = x.shape
+    g2 = dgates.float().reshape(-1, dgates.shape[-1])
+    xp = torch.nn.functional.pad(x.float(), (0, 0, p, p, p, p))
+    dw = torch.stack([
+        xp[:, dy : dy + H, dx : dx + W].reshape(-1, cin).T @ g2
+        for dy in range(k) for dx in range(k)
+    ]).reshape(k, k, cin, -1)
+    dx = None
+    if need_dx:
+        dx = torch.nn.grad.conv2d_input(
+            (B, cin, H, W), w.float().permute(3, 2, 0, 1),
+            dgates.float().permute(0, 3, 1, 2), padding=p,
+        ).permute(0, 2, 3, 1)
+    return dx, dw
 
 
 def check_cell_args(xh, c, w, b) -> None:

@@ -1,4 +1,6 @@
-"""The CUDA fused ConvLSTM cell against its plain PyTorch version, on the card.
+"""The CUDA kernels of the port against their plain PyTorch versions, on the
+card: the fused ConvLSTM cell forward (B1), the fused cell backward (B2),
+the SAME data-gradient conv (B3), and the whole-scan BPTT built on them.
 
 Needs an NVIDIA GPU and nvcc; every test here skips without a CUDA device.
 On a machine with a card, from the repository root:
@@ -17,9 +19,18 @@ torch = pytest.importorskip("torch")
 from nasa_niswan_tpu_torch.data.dataset import Normalizer  # noqa: E402
 from nasa_niswan_tpu_torch.models.convlstm import (  # noqa: E402
     ConvLSTMConfig,
+    convlstm_apply,
     convlstm_init,
 )
-from nasa_niswan_tpu_torch.ops import convlstm_cell  # noqa: E402
+from nasa_niswan_tpu_torch.ops import convgrad, convlstm_cell  # noqa: E402
+from nasa_niswan_tpu_torch.ops.convgrad import (  # noqa: E402
+    cell_grads,
+    cell_grads_plain,
+    conv_same,
+    conv_same_plain,
+    fused_cell_bwd,
+    fused_cell_bwd_plain,
+)
 from nasa_niswan_tpu_torch.ops.convlstm_cell import (  # noqa: E402
     fused_cell_forward,
     fused_cell_forward_plain,
@@ -100,3 +111,119 @@ def test_rollout_kernel_matches_plain(device):
     for (h1, c1), (h2, c2) in zip(s1, s2):
         assert (h1 - h2).abs().max().item() <= 1e-4
         assert (c1 - c2).abs().max().item() <= 1e-4
+
+
+# hid 4 runs the gate recompute on the FP32 pipes in bf16 too; 8, 16, 32
+# and 64 on the tensor cores.  dW runs on the tensor cores in bf16 when Cin
+# is a multiple of 8, else on the FP32 pipes.
+BWD_SHAPES = [
+    (1, 16, 24, 9, 8, 3),
+    (2, 20, 28, 13, 16, 5),
+    (1, 10, 12, 5, 4, 1),
+    (1, 10, 12, 8, 4, 1),
+    (1, 9, 37, 70, 64, 7),  # two channel chunks, ragged rows and columns
+    (1, 11, 19, 48, 16, 7),  # a ragged last pass of pixels
+    (2, 20, 28, 96, 32, 3),
+    (2, 12, 20, 72, 64, 5),  # the training layer-1 widths
+]
+
+
+def _rel(got, want):
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,cin,hid,k", BWD_SHAPES)
+def test_cell_bwd_matches_plain(device, dtype, B, H, W, cin, hid, k):
+    """B2 against its plain version.  f32 sums in another order; in bf16 a
+    gate cotangent may round to the neighbouring bf16 value, so dgates is
+    held to one bf16 step (at most 2**-7 relative) and dw to 1e-3 of its
+    largest entry.  Reruns bit-identical."""
+    xh, c, w, b = _cell_inputs(device, dtype, B, H, W, cin, hid, k)
+    rng = np.random.default_rng(1)
+    dh, dc = (torch.tensor(rng.standard_normal(c.shape), dtype=torch.float32,
+                           device=device) for _ in range(2))
+    before = convgrad.cell_bwd_launches
+    got = fused_cell_bwd(xh, c, dh, dc, w, b)
+    again = fused_cell_bwd(xh, c, dh, dc, w, b)
+    want = fused_cell_bwd_plain(xh, c, dh, dc, w, b)
+    torch.cuda.synchronize()
+    assert convgrad.cell_bwd_launches == before + 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    dg, dcp, dw, db = got
+    assert dg.dtype == dtype and dw.dtype == db.dtype == dcp.dtype == torch.float32
+    rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(dg.float(), want[0].float(), rtol=rtol, atol=1e-5)
+    torch.testing.assert_close(dcp, want[1], rtol=1e-5, atol=1e-5)
+    assert _rel(dw, want[2]) <= 1e-3
+    assert _rel(db, want[3]) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "B,H,W,cin,cout,k",
+    [(1, 16, 24, 32, 9, 3), (2, 20, 28, 64, 13, 5), (1, 10, 12, 16, 5, 1),
+     (1, 9, 37, 256, 126, 7), (2, 12, 20, 256, 72, 5), (1, 13, 21, 128, 96, 3),
+     (2, 9, 17, 64, 48, 3)],
+)
+def test_conv_same_matches_plain(device, dtype, B, H, W, cin, cout, k):
+    """B3 against an f32 conv of the same operands: f32 sums in another
+    order over K <= 12,544 terms of O(1/sqrt(K)); reruns bit-identical."""
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.standard_normal((B, H, W, cin)), dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((k, k, cin, cout)) / np.sqrt(k * k * cin),
+                     dtype=torch.float32)
+    x, w = x.to(device, dtype), w.to(device, dtype)
+    before = convgrad.conv_same_launches
+    got, again = conv_same(x, w), conv_same(x, w)
+    want = conv_same_plain(x, w)
+    torch.cuda.synchronize()
+    assert convgrad.conv_same_launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_cell_grads_matches_plain(device):
+    """B2 then B3 against the plain per-cell backward, f32."""
+    xh, c, w, b = _cell_inputs(device, torch.float32, 2, 12, 20, 24, 16, 3)
+    dh = torch.ones_like(c)
+    dc = 0.5 * torch.ones_like(c)
+    for g, p in zip(cell_grads(xh, c, dh, dc, w, b),
+                    cell_grads_plain(xh, c, dh, dc, w, b)):
+        assert _rel(g, p) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bptt_kernel_path_matches_eager_autograd(device, dtype):
+    """Gradients of a small model through the whole-scan BPTT on the kernels
+    against eager autograd through the plain cell, per parameter leaf,
+    relative to the leaf's largest entry: 1e-4 in f32; 2e-2 in bf16, where
+    the two paths round dgates, dw and dxh to bf16 at different places."""
+    cfg = ConvLSTMConfig(in_channels=6, hidden_channels=(16, 8),
+                         kernel_sizes=(5, 3), compute_dtype=dtype)
+    params = convlstm_init(torch.Generator().manual_seed(0), cfg, device=device)
+    for t in [t for cell in params["cells"] for t in cell.values()] + list(
+            params["head"].values()):
+        t.requires_grad_(True)
+    x = torch.tensor(np.random.default_rng(3).standard_normal((2, 4, 12, 20, 6)),
+                     dtype=torch.float32, device=device)
+    leaves = [t for cell in params["cells"] for t in cell.values()]
+    leaves += list(params["head"].values())
+
+    def grads(**kw):
+        pred = convlstm_apply(params, x, cfg, **kw)
+        return torch.autograd.grad((pred**2).sum(), leaves)
+
+    before = (convlstm_cell.launches, convgrad.cell_bwd_launches,
+              convgrad.conv_same_launches)
+    got = grads()
+    after = (convlstm_cell.launches, convgrad.cell_bwd_launches,
+             convgrad.conv_same_launches)
+    assert [a - b for a, b in zip(after, before)] == [2 * 4] * 3
+    want = grads(cell_fn=fused_cell_forward_plain, grads_fn=None)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for g, p in zip(got, want):
+        assert _rel(g, p) <= tol

@@ -218,7 +218,13 @@ def test_port_imports_no_jax():
         ".".join(p.relative_to(root).with_suffix("").parts).removesuffix(".__init__")
         for p in pkg.rglob("*.py")
     )
-    assert "nasa_niswan_tpu_torch.ops.convlstm_cell" in modules
+    for name in (
+        "ops.convlstm_cell", "ops.convgrad", "ops.convlstm_bptt",
+        "models.registry", "evalx.metrics", "data.synthetic", "data.catalog",
+        "train.schedule", "train.checkpoint", "train.loop", "train.config",
+        "train.__main__",
+    ):
+        assert f"nasa_niswan_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
