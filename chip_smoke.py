@@ -39,12 +39,38 @@ Phases, each printing its own lines:
       (TOL_GRAD); one epoch of the training CLI's main on a small fixture,
       whose logger.npy and checkpoint load back;
   (h) time: training ms/step and model-days/min (BS*T/48 per step), kernel
-      and plain path (informational).
+      and plain path (informational), and the step's peak device memory;
+  (i) B1's emit_gates and xg modes against their plain versions: emit_gates
+      at the three training layer shapes (B=8), xg at serving layer 0 (B=1,
+      the hoisted h-conv) and at training layer 0 with both modes on; gates
+      within one bf16 step plus 1e-5, h' and c' <= 1e-3, reruns
+      bit-identical; kernel and plain times, and the plain mode's time at
+      the serving shapes beside (c)'s;
+  (j) the per-cell route (remat off) on the canonical training step: 3
+      steps with exact launch counts (B1 emit_gates 3 x 48 per step, B2 and
+      B1 plain none, B3 3 x 48 - 1 per step: layer 0's first step has no
+      input gradient, B2's dW kernels 3 x 48), finite loss; T=8 gradients vs
+      eager autograd with (g)'s bounds; ms/step and peak memory beside (h)'s;
+  (k) the hoisted input conv: four C=62 serving requests with
+      precompute_input_conv against the unhoisted kernel path (RMS <= 2e-2 of
+      the std, as (d)) with exact launch counts, ms/step beside (e)'s; one
+      counted training step with the hoist (after a warm-up), and a T=8
+      training gradient check with the hoist against eager autograd;
+  (l) config #3 (seq2seq scheduled sampling) at full width: in_channels 6,
+      hidden 64/32/16, kernels 5/3/3, bf16, bs 8, T 48, 100x154, on
+      synthetic_e33oma_90d: 2 steps of each route (per-cell and whole-chunk
+      BPTT) from the same weights and draws, with exact launch counts and
+      agreeing losses; T=8 gradients of each route vs eager autograd; a
+      48-step closed-loop chunk chained through its carry (equal to two
+      24-step chunks, and against the plain path); one CLI epoch of
+      ``--mode seq2seq``.
 
-Then one JSON line describing each kernel, and last the device line
-``{"ok": true, "device": {...}}``.  Any failed check raises: the script
-exits non-zero and prints no result.  It also exits non-zero when no CUDA
-device is visible.
+Then one JSON line describing each kernel (launches summed over the counted
+main-path runs, the largest error against the plain version, kernel, plain
+and library times, and the least time the card could take for the same
+work), and last the device line ``{"ok": true, "device": {...}}``.  Any
+failed check raises: the script exits non-zero and prints no result.  It
+also exits non-zero when no CUDA device is visible.
 """
 
 from __future__ import annotations
@@ -63,13 +89,19 @@ import torch
 
 from nasa_niswan_tpu_torch.data.dataset import (
     Normalizer,
+    Seq2SeqDataset,
     SequenceDataset,
     zscore_static,
 )
 from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
+from nasa_niswan_tpu_torch.evalx.evaluate import (
+    make_closed_loop_chunk,
+    zero_closed_loop_state,
+)
 from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, convlstm_init
 from nasa_niswan_tpu_torch.models.registry import build_model
 from nasa_niswan_tpu_torch.ops import _build, convgrad, convlstm_cell
+from nasa_niswan_tpu_torch.ops.conv import conv2d
 from nasa_niswan_tpu_torch.ops.convgrad import (
     cell_grads_plain,
     conv_same,
@@ -81,7 +113,10 @@ from nasa_niswan_tpu_torch.ops.convgrad import (
 from nasa_niswan_tpu_torch.ops.convlstm_cell import (
     fused_cell_forward,
     fused_cell_forward_plain,
+    fused_cell_gates,
+    fused_cell_gates_plain,
 )
+from nasa_niswan_tpu_torch.rollout.seq2seq import _make_forward_chunk, make_seq2seq_train_step
 from nasa_niswan_tpu_torch.rollout.autoregressive import (
     make_rollout_fn,
     make_streaming_rollout,
@@ -137,14 +172,43 @@ BWD_BOUNDS = {"dc_prev": 1e-4, "dw": 1e-3, "db": 1e-4, "dxh": 2e-4}
 # and dxh at other places than eager autograd does; f32 sums in other orders
 TOL_GRAD = {"bfloat16": 5e-2, "float32": 1e-4}
 
+# config #3: seq2seq scheduled sampling (5 forcings + the feedback channel)
+S2S_C = 6
+S2S_STEPS = 2
+
 KERNEL_SOURCES = {
     "convlstm_cell": ("nasa_niswan_tpu_torch/csrc/convlstm_cell.cu",
-                      "nasa_niswan_tpu/ops/convlstm_pallas2.py:176"),
+                      "nasa_niswan_tpu/ops/convlstm_pallas2.py:176 (plain mode), "
+                      "nasa_niswan_tpu/ops/convlstm_pallas.py:52"),
+    "convlstm_cell_gates": ("nasa_niswan_tpu_torch/csrc/convlstm_cell.cu",
+                            "nasa_niswan_tpu/ops/convlstm_pallas2.py:176 (emit_gates)"),
+    "convlstm_cell_xg": ("nasa_niswan_tpu_torch/csrc/convlstm_cell.cu",
+                         "nasa_niswan_tpu/ops/convlstm_pallas2.py:176 (xg)"),
     "cell_bwd": ("nasa_niswan_tpu_torch/csrc/cell_bwd.cu",
                  "nasa_niswan_tpu/ops/convgrad_pallas.py:127"),
     "conv_same": ("nasa_niswan_tpu_torch/csrc/conv_same.cu",
                   "nasa_niswan_tpu/ops/convgrad_pallas.py:57"),
 }
+# published H100 SXM peaks: dense bf16 tensor cores, FP32 pipes, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_S = 3.35e12
+
+
+def least_time(flops: float, nbytes: float, dtype=torch.bfloat16):
+    """(ms, "operations" or "bytes"): the larger of the two least times."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def cell_work(B, H, W, cin, hid, k, *, gates=False, xg=False, isz=2):
+    """(FLOPs, bytes) of one fused cell step: the gate conv's products,
+    each input read once and each output written once."""
+    px = B * H * W
+    flops = 2.0 * px * k * k * cin * 4 * hid
+    nbytes = px * cin * isz + k * k * cin * 4 * hid * isz + 16 * hid  # xh, w, b
+    nbytes += 3 * px * hid * 4  # c in, h' and c' out
+    nbytes += (px * 4 * hid * isz) * (int(gates) + int(xg))
+    return flops, nbytes
 
 
 def check(ok: bool, what: str) -> None:
@@ -197,7 +261,7 @@ def phase_build() -> None:
 
 def phase_kernel_vs_plain(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED)
-    max_err, ms_step, plain_ms_step = 0.0, 0.0, 0.0
+    max_err, ms_step, plain_ms_step, by_shape = 0.0, 0.0, 0.0, {}
     for B, H, W, cin, hid, k in CELL_SHAPES:
         xh32 = torch.randn((B, H, W, cin), generator=gen, device=device)
         c = torch.randn((B, H, W, hid), generator=gen, device=device)
@@ -228,11 +292,16 @@ def phase_kernel_vs_plain(device) -> dict:
             if dtype == torch.bfloat16 and H == PADDED[0] and W == PADDED[1]:
                 ms_step += ms
                 plain_ms_step += plain_ms
+                by_shape[(B, H, W, cin, hid, k)] = ms
     print(
         f"[c] one serving step's three cells, bf16: kernel {ms_step:.4f} ms, "
         f"plain {plain_ms_step:.4f} ms"
     )
-    return {"max_abs_err": max_err, "ms": ms_step, "plain_ms": plain_ms_step}
+    works = [cell_work(*shape) for shape in by_shape]
+    bound_ms, bound_by = least_time(sum(f for f, _ in works), sum(b for _, b in works))
+    return {"max_abs_err": max_err, "ms": ms_step, "plain_ms": plain_ms_step,
+            "by_shape": by_shape, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def phase_serve(device) -> dict:
@@ -267,7 +336,7 @@ def phase_serve(device) -> dict:
     torch.cuda.synchronize()
 
     # the counted main path: N_REQUESTS requests chained through the carry
-    convlstm_cell.launches = 0
+    _set_counts(0)
     t0 = time.perf_counter()
     state, preds = None, []
     for f in forcings:
@@ -275,11 +344,8 @@ def phase_serve(device) -> dict:
         preds.append(p)
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
-    launches = convlstm_cell.launches
-    want = len(HIDDEN) * N_REQUESTS * STEPS
-    print(f"[d] served {N_REQUESTS} requests x {STEPS} steps through the carry: "
-          f"{launches} kernel launches (want {want})")
-    check(launches == want, f"{launches} kernel launches, want {want}")
+    launches = _expect_counts(
+        "[d] serving", convlstm_cell=len(HIDDEN) * N_REQUESTS * STEPS)
     for p in preds:
         check(tuple(p.shape) == (1, STEPS, *GRID), f"pred shape {tuple(p.shape)}")
         check(bool(torch.isfinite(p).all()), "non-finite prediction")
@@ -351,7 +417,9 @@ def phase_serve(device) -> dict:
     print(f"[d] request 1, f32: kernel vs plain max|d|/std={f_max:.3e} "
           f"rms/std={f_rms:.3e} (tol {TOL_F32_REL:g})")
     check(f_max <= TOL_F32_REL, f"f32 kernel vs plain rollout {f_max:.3e}")
-    return {"launches": launches, "t_kernel": t_kernel, "t_plain": t_plain}
+    return {"launches": launches, "t_kernel": t_kernel, "t_plain": t_plain,
+            "cfg": cfg, "params": params, "norm": norm, "forcings": forcings,
+            "preds": preds}
 
 
 def rel_err(p: torch.Tensor, ref: torch.Tensor):
@@ -383,6 +451,8 @@ def phase_backward(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     err = {"cell_bwd": 0.0, "conv_same": 0.0}
     times = {"cell_bwd": [0.0, 0.0], "conv_same": [0.0, 0.0]}
+    work = {"cell_bwd": [0.0, 0.0], "conv_same": [0.0, 0.0]}
+    library_ms = 0.0
     for B, H, W, cin, hid, k in BWD_SHAPES:
         rand = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
         xh32, c, dh, dc = rand(B, H, W, cin), rand(B, H, W, hid), rand(B, H, W, hid), rand(B, H, W, hid)
@@ -423,30 +493,73 @@ def phase_backward(device) -> dict:
                 ms = [cuda_ms(lambda: fused_cell_bwd(*args), 5),
                       cuda_ms(lambda: fused_cell_bwd_plain(*args), 5),
                       cuda_ms(lambda: conv_same(want[0], w_flip), 5),
-                      cuda_ms(lambda: conv_same_plain(want[0], w_flip), 5)]
+                      cuda_ms(lambda: conv_same_plain(want[0], w_flip), 5),
+                      # the one PyTorch call computing B3's function (bf16 out)
+                      cuda_ms(lambda: conv2d(want[0], w_flip, padding=k // 2), 5)]
                 print(f"[f] {tag}: cell_bwd kernel {ms[0]:.4f} ms, plain "
                       f"{ms[1]:.4f} ms; conv_same kernel {ms[2]:.4f} ms, plain "
-                      f"{ms[3]:.4f} ms")
+                      f"{ms[3]:.4f} ms, library (bf16 F.conv2d) {ms[4]:.4f} ms")
                 times["cell_bwd"][0] += ms[0]
                 times["cell_bwd"][1] += ms[1]
                 times["conv_same"][0] += ms[2]
                 times["conv_same"][1] += ms[3]
+                library_ms += ms[4]
+                # B2: the gate recompute and dW, two products of the conv's
+                # size; in: xh, c, dh, dc, w, b; out: dgates, dc_prev, dw, db
+                px, kk = B * H * W, k * k * cin * 4 * hid
+                work["cell_bwd"][0] += 2 * 2.0 * px * kk
+                work["cell_bwd"][1] += (px * cin * 2 + 3 * px * hid * 4 + kk * 2
+                                        + px * 4 * hid * 2 + px * hid * 4 + kk * 4
+                                        + 2 * 16 * hid)
+                # B3: dgates (B,H,W,4h) bf16 x w' (k,k,4h,Cin) bf16 -> f32
+                work["conv_same"][0] += 2.0 * px * kk
+                work["conv_same"][1] += px * 4 * hid * 2 + kk * 2 + px * cin * 4
+    out = {}
     for name, (ms, plain_ms) in times.items():
         print(f"[f] {name}, the three training layers, bf16: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
-    return {name: {"max_abs_err": err[name], "ms": times[name][0],
-                   "plain_ms": times[name][1]} for name in err}
+        bound_ms, bound_by = least_time(*work[name])
+        out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    out["conv_same"]["library_ms"] = library_ms
+    print(f"[f] conv_same, the three training layers: library (bf16 F.conv2d) "
+          f"{library_ms:.4f} ms")
+    return out
 
 
-def _counts():
-    return (convlstm_cell.launches, convgrad.cell_bwd_launches,
-            convgrad.conv_same_launches)
+COUNTERS = {
+    "convlstm_cell": (convlstm_cell, "launches"),
+    "convlstm_cell_gates": (convlstm_cell, "gates_launches"),
+    "convlstm_cell_xg": (convlstm_cell, "xg_launches"),
+    "cell_bwd": (convgrad, "cell_bwd_launches"),
+    "conv_same": (convgrad, "conv_same_launches"),
+    "conv_dw": (convgrad, "dw_launches"),  # B2's dW kernels on their own
+}
+# launches of each kernel summed over the counted main-path runs
+LAUNCHED = dict.fromkeys(COUNTERS, 0)
+
+
+def _counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 def _set_counts(n: int) -> None:
-    convlstm_cell.launches = n
-    convgrad.cell_bwd_launches = n
-    convgrad.conv_same_launches = n
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, n)
+
+
+def _expect_counts(tag: str, **want) -> dict:
+    """Read the counts of the main-path run that began at ``_set_counts(0)``:
+    each kernel named in ``want`` exactly that often (> 0), every other
+    kernel never.  Adds them to LAUNCHED."""
+    got = _counts()
+    want = {name: want.get(name, 0) for name in COUNTERS}
+    print(f"{tag}: launches {got} (want {want})")
+    check(got == want, f"{tag}: launches {got}, want {want}")
+    check(all(v > 0 for v in want.values() if v), f"{tag}: a kernel of the path ran no time")
+    for name, n in got.items():
+        LAUNCHED[name] += n
+    return got
 
 
 def _train_run(step, params, n_steps, order):
@@ -481,43 +594,29 @@ def phase_train(device) -> dict:
             b, ds.normalizer, make_optimizer(p, 1e-3, (0.5, 0.999)), src, **geo)
 
     step, step_p = make_step(bundle, params), make_step(plain, params_p)
+    init = _copy_params(params)
     # parameter gradients at T=GRAD_T against eager autograd through the
     # plain cell, from the same weights and batch, before any update
     x_raw, y_raw = src.gather(order[:TRAIN_BS])
-    for dtype in ("bfloat16", "float32"):
-        kw_d = dict(kw, compute_dtype=dtype)
-        x, y = _device_preprocess(
-            x_raw[:, :GRAD_T], y_raw, ds.normalizer, PADDED,
-            torch.as_tensor(zscore_static(static), device=device))
-        grads = []
-        for b, cudnn in ((build_model("LSTM-smoke", **kw_d), True),
-                         (build_model("LSTM-smoke", cell_fn=fused_cell_forward_plain,
-                                      grads_fn=None, **kw_d), False)):
-            # the eager oracle runs without cuDNN, whose f32 weight gradient
-            # is off by ~1.6e-2 of its largest entry at layer 1 (PERF.md)
-            with torch.backends.cudnn.flags(enabled=cudnn):
-                loss, _ = make_loss_fn(b, GRID)(params, None, x, y)
-                grads.append(torch.autograd.grad(loss, param_leaves(params)))
-            del loss
-        rel = [((g - p).norm() / p.norm()).item() for g, p in zip(*grads)]
-        print(f"[g] T={GRAD_T} {dtype}: per-leaf |g_kernel - g_eager| / "
-              f"|g_eager| max {max(rel):.3e} (tol {TOL_GRAD[dtype]:g}); "
-              f"leaves {[f'{r:.1e}' for r in rel]}")
-        check(max(rel) <= TOL_GRAD[dtype], f"{dtype} gradients {max(rel):.3e}")
-        del grads
-        torch.cuda.empty_cache()
+    x, y = _device_preprocess(
+        x_raw[:, :GRAD_T], y_raw, ds.normalizer, PADDED,
+        torch.as_tensor(zscore_static(static), device=device))
+    grad_check("[g] remat route", params, lambda dtype, eager: make_loss_fn(
+        build_model("LSTM-smoke", **dict(kw, compute_dtype=dtype),
+                    **(EAGER if eager else {})), GRID)(params, None, x, y)[0])
 
     # warm-up step (allocator growth, kernel library load), then the counted run
     _train_run(step, params, 1, order)
     _train_run(step_p, params_p, 1, order)
+    torch.cuda.reset_peak_memory_stats()
     _set_counts(0)
     t_kernel, metrics = _train_run(step, params, TRAIN_STEPS, order[TRAIN_BS:])
-    launches = _counts()
     want = len(HIDDEN) * TRAIN_T * TRAIN_STEPS
+    _expect_counts("[g] remat route", convlstm_cell=want, cell_bwd=want, conv_same=want)
+    peak = torch.cuda.max_memory_allocated()
     print(f"[g] {TRAIN_STEPS} training steps (bs {TRAIN_BS}, T {TRAIN_T}, bf16): "
-          f"launches B1/B2/B3 = {launches} (want {want} each); loss "
-          f"{metrics['loss'].item():.5f}, R2 {metrics['r2'].item():.4f}")
-    check(launches == (want,) * 3, f"launches {launches}, want {want} each")
+          f"loss {metrics['loss'].item():.5f}, R2 {metrics['r2'].item():.4f}, "
+          f"peak memory {peak / 2**30:.2f} GiB")
     check(bool(torch.isfinite(metrics["loss"])), "non-finite loss")
     check(all(bool(torch.isfinite(t).all()) for t in param_leaves(params)),
           "non-finite parameters")
@@ -525,7 +624,287 @@ def phase_train(device) -> dict:
     check(bool(torch.isfinite(metrics_p["loss"])), "non-finite plain-path loss")
     print(f"[g] plain path, same steps: loss {metrics_p['loss'].item():.5f}")
     phase_cli(device)
-    return {"launches": want, "t_kernel": t_kernel, "t_plain": t_plain}
+    return {"t_kernel": t_kernel, "t_plain": t_plain, "peak": peak, "init": init,
+            "kw": kw, "src": src, "ds": ds, "geo": geo, "order": order,
+            "xy": (x, y), "make_step": make_step}
+
+
+# the eager oracle: autograd through the plain cell, no whole-scan BPTT
+EAGER = dict(cell_fn=fused_cell_forward_plain, grads_fn=None)
+
+
+def grad_check(tag, params, loss_of, dtypes=("bfloat16", "float32")) -> None:
+    """Parameter gradients of ``loss_of(dtype, eager=False)`` (the kernel
+    path) against ``loss_of(dtype, eager=True)`` (eager autograd through the
+    plain cell), per leaf relative to the eager gradient's norm (TOL_GRAD).
+    The eager oracle runs without cuDNN, whose f32 weight gradient is off by
+    ~1.6e-2 of its largest entry at layer 1 (PERF.md)."""
+    for dtype in dtypes:
+        grads = []
+        for eager in (False, True):
+            with torch.backends.cudnn.flags(enabled=not eager):
+                loss = loss_of(dtype, eager)
+                grads.append(torch.autograd.grad(loss, param_leaves(params)))
+            del loss
+        rel = [((g - p).norm() / p.norm()).item() for g, p in zip(*grads)]
+        print(f"{tag}: T={GRAD_T} {dtype}: per-leaf |g_kernel - g_eager| / "
+              f"|g_eager| max {max(rel):.3e} (tol {TOL_GRAD[dtype]:g}); "
+              f"leaves {[f'{r:.1e}' for r in rel]}")
+        check(max(rel) <= TOL_GRAD[dtype], f"{tag} {dtype} gradients {max(rel):.3e}")
+        del grads
+        torch.cuda.empty_cache()
+
+
+def phase_modes(device, cell) -> dict:
+    """(i) B1's emit_gates and xg modes against their plain versions."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    serve_l0 = (1, PADDED[0], PADDED[1], HIDDEN[0], HIDDEN[0], KERNELS[0])
+    train_l0 = (TRAIN_BS, PADDED[0], PADDED[1], HIDDEN[0], HIDDEN[0], KERNELS[0])
+    # (mode, shape): emit_gates at the training layers; xg alone at serving
+    # layer 0 (the hoisted h-conv); both at training layer 0
+    cases = [("gates", sh) for sh in BWD_SHAPES[:3]]
+    cases += [("xg", serve_l0), ("gates+xg", train_l0)]
+    # per entry: max |err|, then over its timed shapes kernel ms, plain ms,
+    # FLOPs and bytes
+    stats = {"gates": [0.0] * 5, "xg": [0.0] * 5}
+    for mode, (B, H, W, cin, hid, k) in cases:
+        xh32, c = rand(B, H, W, cin), rand(B, H, W, hid)
+        w32 = rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5
+        b, xg32 = 0.1 * rand(4 * hid), rand(B, H, W, 4 * hid)
+        for dtype in (torch.bfloat16, torch.float32):
+            xh, w = xh32.to(dtype), w32.to(dtype)
+            xg = xg32.to(dtype) if "xg" in mode else None
+            if mode == "xg":  # the serving launch: no gate output
+                fn = lambda: fused_cell_forward(xh, c, w, b, xg)  # noqa: E731
+                plain = lambda: fused_cell_forward_plain(xh, c, w, b, xg)  # noqa: E731
+            else:
+                fn = lambda: fused_cell_gates(xh, c, w, b, xg)  # noqa: E731
+                plain = lambda: fused_cell_gates_plain(xh, c, w, b, xg)  # noqa: E731
+            with torch.no_grad():
+                got, again, want = fn(), fn(), plain()
+            torch.cuda.synchronize()
+            tag = (f"B={B} H={H} W={W} Cin={cin} hid={hid} k={k} "
+                   f"{str(dtype).split('.')[-1]} {mode}")
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"{tag}: reruns differ")
+            err = [(g.float() - p.float()).abs().max().item() for g, p in zip(got, want)]
+            line = f"[i] {tag}: max|dh|={err[0]:.3e} max|dc|={err[1]:.3e}"
+            check(max(err[:2]) <= TOL_CELL, f"{tag}: h/c {err[:2]}")
+            if len(got) == 3:
+                check(got[2].dtype == dtype, f"{tag}: gates dtype {got[2].dtype}")
+                rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+                excess = _max_excess(got[2], want[2], rtol)
+                line += f", gates |d|-{rtol:g}|ref| max {excess:.3e} (<= 1e-5)"
+                check(excess <= 1e-5, f"{tag}: gates excess {excess:.3e}")
+            if dtype == torch.bfloat16:
+                ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain, 10)
+                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                if mode in stats:  # the entry's timed shapes
+                    flops, nbytes = cell_work(B, H, W, cin, hid, k, gates=mode == "gates",
+                                              xg=mode == "xg")
+                    for i, v in enumerate((ms, plain_ms, flops, nbytes), start=1):
+                        stats[mode][i] += v
+            for name in ("gates", "xg"):
+                if name in mode:
+                    stats[name][0] = max(stats[name][0], *err)
+            print(line + "; bit-identical reruns")
+    out = {}
+    for name, key in (("gates", "convlstm_cell_gates"), ("xg", "convlstm_cell_xg")):
+        err, ms, plain_ms, flops, nbytes = stats[name]
+        bound_ms, bound_by = least_time(flops, nbytes)
+        out[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    print(f"[i] emit_gates, the three training layers (B={TRAIN_BS}), bf16: kernel "
+          f"{out['convlstm_cell_gates']['ms']:.4f} ms, plain "
+          f"{out['convlstm_cell_gates']['plain_ms']:.4f} ms; xg, serving layer 0: "
+          f"kernel {out['convlstm_cell_xg']['ms']:.4f} ms, plain "
+          f"{out['convlstm_cell_xg']['plain_ms']:.4f} ms")
+    # the plain mode reads no xg and writes no gates: its time as in (c)
+    for shape, ms_c in cell["by_shape"].items():
+        B, H, W, cin, hid, k = shape
+        xh, c, b = rand(B, H, W, cin).bfloat16(), rand(B, H, W, hid), rand(4 * hid)
+        w = (rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5).bfloat16()
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fused_cell_forward(xh, c, w, b))
+        print(f"[i] plain mode, serving Cin={cin} hid={hid} k={k}: {ms:.4f} ms "
+              f"(c: {ms_c:.4f} ms)")
+    return out
+
+
+def phase_per_cell(device, train) -> dict:
+    """(j) the per-cell route (remat off) on the canonical training step."""
+    kw, order = train["kw"], train["order"]
+    bundle = build_model("LSTM-smoke", remat=False, **kw)
+    params = _copy_params(train["init"])
+    step = train["make_step"](bundle, params)
+    _train_run(step, params, 1, order)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _set_counts(0)
+    t, metrics = _train_run(step, params, TRAIN_STEPS, order[TRAIN_BS:])
+    n = len(HIDDEN) * TRAIN_T * TRAIN_STEPS
+    # layer 0's first step has an input that needs no gradient: no B3 there
+    _expect_counts("[j] per-cell route", convlstm_cell_gates=n,
+                   conv_same=n - TRAIN_STEPS, conv_dw=n)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(metrics["loss"])), "non-finite per-cell loss")
+    check(all(bool(torch.isfinite(p).all()) for p in param_leaves(params)),
+          "non-finite per-cell parameters")
+    print(f"[j] {TRAIN_STEPS} steps (bs {TRAIN_BS}, T {TRAIN_T}, bf16): loss "
+          f"{metrics['loss'].item():.5f}; {1000 * t / TRAIN_STEPS:.1f} ms/step "
+          f"(remat route, (h): {1000 * train['t_kernel'] / TRAIN_STEPS:.1f}), "
+          f"peak memory {peak / 2**30:.2f} GiB (remat route: "
+          f"{train['peak'] / 2**30:.2f} GiB)")
+    x, y = train["xy"]
+    grad_check("[j] per-cell route", params, lambda dtype, eager: make_loss_fn(
+        build_model("LSTM-smoke", remat=False, **dict(kw, compute_dtype=dtype),
+                    **(EAGER if eager else {})), GRID)(params, None, x, y)[0])
+    return {"t": t, "peak": peak}
+
+
+def phase_hoist(device, serve, train, smi) -> dict:
+    """(k) the hoisted input conv, serving and training."""
+    cfg, params, norm = serve["cfg"], serve["params"], serve["norm"]
+    rollout = make_rollout_fn(cfg, norm, padded_shape=PADDED, grid_shape=GRID,
+                              device=device, precompute_input_conv=True)
+    rollout(params, serve["forcings"][0])  # warm-up
+    torch.cuda.synchronize()
+    _set_counts(0)
+    t0 = time.perf_counter()
+    state, preds = None, []
+    for f in serve["forcings"]:
+        p, state = rollout(params, f, state)
+        preds.append(p)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    n = N_REQUESTS * STEPS
+    # one hoisted conv (B3) per request
+    _expect_counts("[k] hoisted serving", convlstm_cell=(len(HIDDEN) - 1) * n,
+                   convlstm_cell_xg=n, conv_same=N_REQUESTS)
+    worst = 0.0
+    for p, ref in zip(preds, serve["preds"]):
+        check(bool(torch.isfinite(p).all()), "non-finite hoisted prediction")
+        worst = max(worst, rel_err(p, ref)[1])
+    print(f"[k] hoisted vs unhoisted kernel path, {N_REQUESTS} requests: rms/std max "
+          f"{worst:.3e} (tol {TOL_PLAIN_REL:g}); {1000 * t / n:.4f} ms/step "
+          f"(unhoisted, (e): {1000 * serve['t_kernel'] / n:.4f}) on {smi}")
+    check(worst <= TOL_PLAIN_REL, f"hoisted vs unhoisted rms/std {worst:.3e}")
+
+    # one counted training step with the hoist, then gradients vs eager
+    kw, order = train["kw"], train["order"]
+    bundle = build_model("LSTM-smoke", precompute_input_conv=True, **kw)
+    p_train = _copy_params(train["init"])
+    step = train["make_step"](bundle, p_train)
+    _train_run(step, p_train, 1, order)  # warm-up
+    _set_counts(0)
+    t_step, metrics = _train_run(step, p_train, 1, order[TRAIN_BS:])
+    m = len(HIDDEN) * TRAIN_T
+    # layer 0's first step needs no input gradient; the hoisted conv is one
+    # more B3 launch and its weight gradient one more dW launch
+    _expect_counts("[k] hoisted training step", convlstm_cell_gates=m,
+                   convlstm_cell_xg=TRAIN_T, conv_same=m, conv_dw=m + 1)
+    check(bool(torch.isfinite(metrics["loss"])), "non-finite hoisted loss")
+    print(f"[k] hoisted training step: {1000 * t_step:.1f} ms/step (remat route, "
+          f"(h): {1000 * train['t_kernel'] / TRAIN_STEPS:.1f}), loss "
+          f"{metrics['loss'].item():.5f}")
+    x, y = train["xy"]
+    grad_check("[k] hoisted route", p_train, lambda dtype, eager: make_loss_fn(
+        build_model("LSTM-smoke", precompute_input_conv=True,
+                    **dict(kw, compute_dtype=dtype), **(EAGER if eager else {})),
+        GRID)(p_train, None, x, y)[0])
+    return {"t": t}
+
+
+def phase_seq2seq(device, smi) -> dict:
+    """(l) config #3 at full width: both training routes, the closed loop,
+    one CLI epoch."""
+    data = synthetic_e33oma_90d(T=720, H=GRID[0], W=GRID[1], seed=SEED)
+    ds = Seq2SeqDataset(data, period="train", sequence_length=TRAIN_T)
+    cfg = ConvLSTMConfig(in_channels=S2S_C, hidden_channels=HIDDEN,
+                         kernel_sizes=KERNELS, compute_dtype="bfloat16")
+    init = convlstm_init(torch.Generator().manual_seed(SEED), cfg, device=device)
+    init = _copy_params(init)
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for s in range(S2S_STEPS + 1):  # the first is the warm-up's
+        items = [ds[(s + i) % len(ds)] for i in range(TRAIN_BS)]
+        xs, p0s, ys = (torch.as_tensor(np.stack(a), device=device) for a in zip(*items))
+        batches.append((xs, p0s, ys, rng.random((TRAIN_T, TRAIN_BS)) < 0.5, 0.5))
+    geo = dict(padded_shape=PADDED, grid_shape=GRID)
+    n = len(HIDDEN) * TRAIN_T * S2S_STEPS
+    want = {False: dict(convlstm_cell_gates=n, conv_same=n - S2S_STEPS, conv_dw=n),
+            True: dict(convlstm_cell=n, cell_bwd=n, conv_same=n)}
+    losses, times = {}, {}
+    for remat in (False, True):
+        rcfg = dataclasses.replace(cfg, remat=remat)
+        for warm in (True, False):
+            params = _copy_params(init)
+            step = make_seq2seq_train_step(
+                rcfg, ds.normalizer, make_optimizer(params, 1e-3, (0.5, 0.999)),
+                external_draws=True, **geo)
+            run = batches[:1] if warm else batches[1:]
+            torch.cuda.synchronize()
+            _set_counts(0)
+            t0 = time.perf_counter()
+            ls = [step(params, *b)["loss"].item() for b in run]
+            times[remat] = time.perf_counter() - t0
+        route = "whole-chunk BPTT" if remat else "per-cell"
+        _expect_counts(f"[l] {route} route", **want[remat])
+        losses[remat] = ls
+        check(all(np.isfinite(ls)), f"[l] {route}: non-finite loss {ls}")
+        print(f"[l] {route} route: losses {ls}, "
+              f"{1000 * times[remat] / S2S_STEPS:.1f} ms/step (bs {TRAIN_BS}, T {TRAIN_T}, "
+              f"C={S2S_C}, bf16) on {smi}")
+    d = [abs(a - b) / abs(b) for a, b in zip(losses[False], losses[True])]
+    print(f"[l] per-cell vs whole-chunk BPTT losses: relative |d| {d} (step 1 <= "
+          f"1e-5: the same forward; step 2 <= 1e-2: bf16 rounds the gradients at "
+          f"other places in the two routes)")
+    check(d[0] <= 1e-5 and d[1] <= 1e-2, f"[l] route losses differ: {d}")
+
+    # T=8 gradients of each route against eager autograd (same draws)
+    xs, p0s, ys, draws, tp = batches[1]
+    params = _copy_params(init)
+    for remat in (False, True):
+        def loss_of(dtype, eager, remat=remat):
+            rcfg = dataclasses.replace(cfg, compute_dtype=dtype, remat=remat and not eager)
+            chunk = _make_forward_chunk(rcfg, ds.normalizer, external_draws=True,
+                                        **(EAGER if eager else {}), **geo)
+            return chunk(params, xs[:, :GRAD_T], p0s, ys[:, :GRAD_T], draws[:GRAD_T], tp)[0]
+        grad_check(f"[l] {'whole-chunk BPTT' if remat else 'per-cell'} route", params,
+                   loss_of)
+
+    # a 48-step closed-loop chunk chained through its carry, B = 1
+    frames, prev0, _ = ds.continuous_stream()
+    frames = torch.as_tensor(frames[: 2 * TRAIN_T], device=device)
+    prev_n = torch.as_tensor(ds.normalizer.normalize_y(prev0), device=device)[None].float()
+    run = make_closed_loop_chunk(cfg, ds.normalizer, **geo)
+    run_plain = make_closed_loop_chunk(cfg, ds.normalizer, cell_fn=fused_cell_forward_plain, **geo)
+    zero = zero_closed_loop_state(cfg, PADDED, device)
+    run(init, zero, prev_n, frames[:TRAIN_T])  # warm-up
+    torch.cuda.synchronize()
+    _set_counts(0)
+    t0 = time.perf_counter()
+    st1, fb1, p1 = run(init, zero, prev_n, frames[:TRAIN_T])
+    st2, fb2, p2 = run(init, st1, fb1, frames[TRAIN_T:])
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    _expect_counts("[l] closed loop", convlstm_cell=len(HIDDEN) * 2 * TRAIN_T)
+    for p in (p1, p2):
+        check(tuple(p.shape) == (TRAIN_T, *GRID) and bool(torch.isfinite(p).all()),
+              f"closed-loop preds {tuple(p.shape)}")
+    half = TRAIN_T // 2
+    sa, fa, pa = run(init, zero, prev_n, frames[:half])
+    _, _, pb = run(init, sa, fa, frames[half:TRAIN_T])
+    d_chunk = (torch.cat([pa, pb]) - p1).abs().max().item()
+    _, _, q1 = run_plain(init, zero, prev_n, frames[:TRAIN_T])
+    _, rms = rel_err(p1, q1)
+    print(f"[l] closed loop, 2 x {TRAIN_T} steps chained: {1000 * t_loop / (2 * TRAIN_T):.4f} "
+          f"ms/step; one chunk vs two halves max|d| {d_chunk:.3e} (tol {TOL_CHUNK:g}); "
+          f"vs the plain path rms/std {rms:.3e} (tol {TOL_PLAIN_REL:g})")
+    check(d_chunk <= TOL_CHUNK, "closed loop: chunked != one-shot")
+    check(rms <= TOL_PLAIN_REL, f"closed loop vs plain rms/std {rms:.3e}")
+    phase_cli(device, mode="seq2seq")
+    return {"times": times}
 
 
 def _copy_params(params):
@@ -537,13 +916,14 @@ def _copy_params(params):
     }
 
 
-def phase_cli(device) -> None:
+def phase_cli(device, mode: str = "windowed") -> None:
     """One epoch of ``python -m nasa_niswan_tpu_torch.train``'s main on a
-    small fixture, at the canonical widths."""
+    small fixture, at the canonical widths, in ``mode``."""
     root = tempfile.mkdtemp(prefix="niswan_smoke_")
     try:
         cfg = TrainConfig(
-            model="LSTM-smoke", in_channels=TRAIN_C, num_epochs=1, batch_size=4,
+            model="LSTM-smoke", in_channels=TRAIN_C if mode == "windowed" else 5,
+            num_epochs=1, batch_size=4, mode=mode,
             sequence_length=8, synthetic_steps=160, synthetic_grid=(32, 48),
             input_size=(40, 56), compute_dtype="bfloat16", checkpoint_every=1,
             snapshot_dir=os.path.join(root, "snap"), device=str(device),
@@ -560,8 +940,10 @@ def phase_cli(device) -> None:
         check(all(torch.equal(a, b) for a, b in zip(
             param_leaves(loaded), param_leaves(out["params"]))),
             "checkpoint params differ from the trained ones")
-        print(f"[g] CLI main: 1 epoch, {opt_state['step']} steps, logger.npy "
-              f"{[float(a[0]) for a in logs]}, epoch-001 checkpoint loads back")
+        tag = "[g]" if mode == "windowed" else "[l]"
+        print(f"{tag} CLI main --mode {mode}: 1 epoch, {opt_state['step']} steps, "
+              f"logger.npy {[float(a[0]) for a in logs]}, epoch-001 checkpoint "
+              "loads back")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -592,16 +974,18 @@ def main() -> None:
             f"{days / (t / 60.0):.2f} model-days/min over {TRAIN_STEPS} steps "
             f"(bs {TRAIN_BS}, T {TRAIN_T}, C={TRAIN_C}, bf16) on {smi}"
         )
-    stats = {
-        "convlstm_cell": dict(cell, launches=serve["launches"] + train["launches"]),
-        "cell_bwd": dict(bwd["cell_bwd"], launches=train["launches"]),
-        "conv_same": dict(bwd["conv_same"], launches=train["launches"]),
-    }
+    print(f"[h] training, kernel path: peak memory {train['peak'] / 2**30:.2f} GiB")
+    stats = dict(phase_modes(device, cell), convlstm_cell=cell, **bwd)
+    phase_per_cell(device, train)
+    phase_hoist(device, serve, train, smi)
+    phase_seq2seq(device, smi)
+    check(all(LAUNCHED[name] > 0 for name in COUNTERS), f"kernels never launched: {LAUNCHED}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": stats[name]["launches"],
-         "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         "launches": LAUNCHED[name],
+         **({"dw_launches": LAUNCHED["conv_dw"]} if name == "cell_bwd" else {}),
+         **{key: stats[name][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name, (src, replaces) in KERNEL_SOURCES.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,18 @@ and never JAX, so it runs on a machine that has no JAX installed.
 
 Layering (bottom-up), as in the JAX package:
   core/      lat-lon grid spec + geophysical padding (cyclic lon, reflective lat)
-  data/      normalization constants, SequenceDataset, the synthetic fixture
+  data/      normalization constants, SequenceDataset, Seq2SeqDataset,
+             batch_iterator, the synthetic fixture
   ops/       NHWC conv wrapper, the hand-written CUDA kernels (csrc/: fused
-             cell forward, fused cell backward, data-gradient conv), their
-             nvcc build, and the whole-scan BPTT autograd Function
+             cell forward in three modes, fused cell backward and its dW,
+             data-gradient conv), their nvcc build, and the autograd
+             Functions of the training routes (per-cell, whole-scan BPTT,
+             whole-chunk seq2seq BPTT)
   models/    ConvLSTM (functional + nn.Module) and the model registry
-  rollout/   the state-carrying autoregressive rollout (the serving mode)
+  rollout/   the state-carrying autoregressive rollout (the serving mode) and
+             seq2seq scheduled-sampling training (config #3)
   train/     train/eval steps, fit, checkpoints, config and the training CLI
-  evalx/     the training step's R^2
+  evalx/     the training step's R^2 and the closed-loop evaluation
   bridge.py  weight bridge to and from the JAX parameter tree / checkpoint
 
 Importing the package builds nothing: the CUDA kernels are compiled at the

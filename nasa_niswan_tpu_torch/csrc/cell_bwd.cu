@@ -30,6 +30,9 @@
 //  (c) sum_slots_kernel / sum_rows_kernel: dw and db summed over the slots
 //      and block rows, each in a fixed order.
 //
+// (b) and (c) for dw also run on their own (niswan_conv_dw_*): the weight
+// gradient of the per-cell training route, whose forward kept the gates.
+//
 // The workspace (slot partials and db partials) is allocated by the caller;
 // niswan_cell_bwd_workspace says how many floats it needs.
 //
@@ -371,6 +374,60 @@ sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out,
   if (threadIdx.x == 0) out[col] = s[0];
 }
 
+// (b) and (c) for dw: the slot partials into `dw_part`, then their sum in
+// order into `dw`.
+template <typename T>
+int launch_dw(const DwPlan& p, const void* xh, const void* dgates,
+              float* dw_part, void* dw, int B, int H, int W, int Cin, int N,
+              int k, cudaStream_t s) {
+  const int M = k * k * Cin;
+  const dim3 grid(p.m_tiles, p.n_tiles, p.slots);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (p.mma)
+      dw_partial_mma_kernel<<<grid, kDwThreads, 0, s>>>(
+          static_cast<const T*>(xh), static_cast<const T*>(dgates), dw_part, H,
+          W, Cin, N, k, M, (long long)B * H * W, p.pix_per_slot);
+  }
+  if (!p.mma)
+    dw_partial_kernel<T><<<grid, kDwThreads, 0, s>>>(
+        static_cast<const T*>(xh), static_cast<const T*>(dgates), dw_part, H,
+        W, Cin, N, k, M, (long long)B * H * W, p.pix_per_slot);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const long long mn = (long long)M * N;
+  sum_slots_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
+      dw_part, static_cast<float*>(dw), p.slots, mn);
+  return (int)cudaGetLastError();
+}
+
+// dw alone, for a gate cotangent computed elsewhere (the per-cell training
+// route, whose forward kept the gates): the tensor-core dw takes bf16 with
+// Cin and N multiples of 8 and 16-byte aligned xh and dgates.
+bool plan_conv_dw(bool bf16, const void* xh, const void* dgates, int B, int H,
+                  int W, int Cin, int N, int k, DwPlan* out) {
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || N < 1 ||
+      (k != 1 && k != 3 && k != 5 && k != 7))
+    return false;
+  const bool mma = bf16 && Cin % 8 == 0 && N % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(xh) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dgates) % 16 == 0;
+  const DwPlan p = plan_dw(mma, (long long)B * H * W, k * k * Cin, N);
+  if (p.n_tiles > 65535) return false;
+  *out = p;
+  return true;
+}
+
+template <typename T>
+int conv_dw(const void* xh, const void* dgates, void* dw, void* work, int B,
+            int H, int W, int Cin, int N, int k, void* stream) {
+  DwPlan p;
+  if (!plan_conv_dw(std::is_same<T, __nv_bfloat16>::value, xh, dgates, B, H,
+                    W, Cin, N, k, &p))
+    return (int)cudaErrorInvalidValue;
+  return launch_dw<T>(p, xh, dgates, static_cast<float*>(work), dw, B, H, W,
+                      Cin, N, k, static_cast<cudaStream_t>(stream));
+}
+
 struct BwdPlan {
   CellLaunch cell;
   DwPlan dw;
@@ -417,24 +474,7 @@ int backward(const void* xh, const void* w, const void* b, const void* c,
   int err = launch_cell<T>(p.cell, xh, w, b, epi, H, W, Cin, hid, k, stream);
   if (err) return err;
 
-  const dim3 grid(p.dw.m_tiles, p.dw.n_tiles, p.dw.slots);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (p.dw.mma)
-      dw_partial_mma_kernel<<<grid, kDwThreads, 0, s>>>(
-          static_cast<const T*>(xh), static_cast<const T*>(dgates), dw_part, H,
-          W, Cin, N, k, M, (long long)B * H * W, p.dw.pix_per_slot);
-  }
-  if (!p.dw.mma)
-    dw_partial_kernel<T><<<grid, kDwThreads, 0, s>>>(
-        static_cast<const T*>(xh), static_cast<const T*>(dgates), dw_part, H,
-        W, Cin, N, k, M, (long long)B * H * W, p.dw.pix_per_slot);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-
-  const long long mn = (long long)M * N;
-  sum_slots_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
-      dw_part, static_cast<float*>(dw), p.dw.slots, mn);
-  err = (int)cudaGetLastError();
+  err = launch_dw<T>(p.dw, xh, dgates, dw_part, dw, B, H, W, Cin, N, k, s);
   if (err) return err;
   sum_rows_kernel<<<N, kRowThreads, 0, s>>>(db_part, static_cast<float*>(db),
                                             p.db_rows, N);
@@ -454,6 +494,31 @@ long long niswan_cell_bwd_workspace(int bf16, const void* xh, const void* w,
   BwdPlan p;
   if (!plan_bwd(bf16 != 0, xh, w, B, H, W, Cin, hid, k, &p)) return -1;
   return p.floats;
+}
+
+// Floats of workspace niswan_conv_dw_{f32,bf16} needs (the slot
+// partials); -1 if no kernel takes them.
+long long niswan_conv_dw_workspace(int bf16, const void* xh,
+                                   const void* dgates, int B, int H, int W,
+                                   int Cin, int N, int k) {
+  DwPlan p;
+  if (!plan_conv_dw(bf16 != 0, xh, dgates, B, H, W, Cin, N, k, &p)) return -1;
+  return (long long)p.slots * k * k * Cin * N;
+}
+
+// dw (k,k,Cin,N) f32 = sum over pixels of im2col(xh) x dgates, for xh
+// (B,H,W,Cin) and dgates (B,H,W,N) of one dtype: (b) and (c) above.
+int niswan_conv_dw_f32(const void* xh, const void* dgates, void* dw,
+                       void* work, int B, int H, int W, int Cin, int N, int k,
+                       void* stream) {
+  return conv_dw<float>(xh, dgates, dw, work, B, H, W, Cin, N, k, stream);
+}
+
+int niswan_conv_dw_bf16(const void* xh, const void* dgates, void* dw,
+                        void* work, int B, int H, int W, int Cin, int N, int k,
+                        void* stream) {
+  return conv_dw<__nv_bfloat16>(xh, dgates, dw, work, B, H, W, Cin, N, k,
+                                stream);
 }
 
 // Each returns the cudaError_t of its launches (0 = success).  They are

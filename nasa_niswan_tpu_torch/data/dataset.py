@@ -178,3 +178,69 @@ class SequenceDataset:
         if self.padding:
             x = pad_geo(torch.from_numpy(np.ascontiguousarray(x)), self.padding).numpy()
         return x.astype(np.float32), y.astype(np.float32)
+
+
+class Seq2SeqDataset:
+    """Contiguous chunks for multi-step autoregressive training (config #3):
+    per sample a (T, 5, H, W) forcing window, the (H, W) concentration at
+    the step before the window (the initial feedback frame), and the
+    (T, H, W) target series.
+
+    Chunks stride by ``sequence_length`` (non-overlapping) so an epoch sees
+    each step once; splits follow reference_splits over chunk counts.
+    """
+
+    def __init__(
+        self,
+        data: Dict[str, np.ndarray],
+        *,
+        period: str,
+        species: str = "bcb",
+        sequence_length: int = 48,
+    ):
+        if isinstance(data, tuple):
+            xs, y = data  # a pre-fused (frames, targets) stack
+        else:
+            xs, y = _stack_inputs(data, species)
+        T = xs.shape[0]
+        # step 0 of each chunk needs conc at -1, so chunks start at 1
+        n_chunks = (T - 1) // sequence_length
+        starts = 1 + np.arange(n_chunks) * sequence_length
+        train_end, val_end = reference_splits(n_chunks)
+        lo, hi = {
+            "train": (0, train_end),
+            "val": (train_end, val_end),
+            "test": (val_end, n_chunks),
+        }[period]
+        self._starts = starts[lo:hi]
+        self._xs = xs
+        self._y = y
+        self.seq_len = sequence_length
+        # stats over the steps covered by training chunks
+        t_hi = starts[train_end - 1] + sequence_length if train_end else 1
+        self.normalizer = Normalizer(
+            x_mean=xs[1:t_hi].mean(axis=(0, 2, 3)),
+            x_std=xs[1:t_hi].std(axis=(0, 2, 3)),
+            y_mean=float(y[1:t_hi].mean()),
+            y_std=float(y[1:t_hi].std()),
+        )
+
+    def __len__(self) -> int:
+        return len(self._starts)
+
+    def __getitem__(self, idx: int):
+        s = int(self._starts[idx])
+        x = np.ascontiguousarray(self._xs[s : s + self.seq_len])
+        y = self._y[s : s + self.seq_len]
+        prev0 = self._y[s - 1]
+        return x, prev0, y
+
+    def continuous_stream(self):
+        """The whole split as one contiguous closed-loop episode:
+        ``(frames, prev0, targets)`` with frames (T, C-1, H, W) raw
+        forcings, prev0 the (H, W) raw concentration one step before the
+        split, targets (T, H, W)."""
+        s0 = int(self._starts[0])
+        s_end = int(self._starts[-1]) + self.seq_len
+        frames = np.ascontiguousarray(self._xs[s0:s_end])
+        return frames, self._y[s0 - 1], self._y[s0:s_end]

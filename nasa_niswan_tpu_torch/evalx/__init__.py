@@ -1,2 +1,2 @@
-"""Evaluation metrics (counterpart of nasa_niswan_tpu/evalx; the training
-step's R^2 only so far)."""
+"""Evaluation (counterpart of nasa_niswan_tpu/evalx; the training step's
+R^2 and the closed-loop evaluation of a seq2seq snapshot so far)."""

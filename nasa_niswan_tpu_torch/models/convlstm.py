@@ -14,15 +14,34 @@ layer's h.  The numerical contract is the JAX package's:
 Each cell step is one fused-cell call on ``xh = [x; h]`` with the combined
 kernel ``[w_x; w_h]``: the CUDA kernel for tensors on the card, its plain
 PyTorch version on the CPU (ops/convlstm_cell.py).  The time loop is a
-Python loop; the JAX package's TPU policies (``cell_impl``, unroll, remat,
-the input-conv hoist) have no counterpart here.
+Python loop.  Of the JAX package's TPU policies, ``remat`` and the
+input-conv hoist ``precompute_input_conv`` have counterparts, because they
+pick the training route; ``cell_impl``, the unrolls and ``bptt_fwd`` do
+not: a CUDA tensor always runs the kernels.
 
-Training: when grad is enabled, something being differentiated requires it
-and no per-step taps are asked for, the layers and time loop run as one
-autograd Function, the whole-scan BPTT of ops/convlstm_bptt.py, whose
-backward is the per-cell backward ``grads_fn`` (kernels B2 and B3 on the
-card); the head, crop and loss stay plain autograd.  This is the route the
-JAX package takes with ``cell_impl="pallas2", remat=True``.
+Training routes, JAX's rule (nasa_niswan_tpu/models/convlstm.py:332-338):
+
+* whole-scan BPTT: when grad is enabled, something being differentiated
+  requires it, ``config.remat`` is set, and no per-step taps, ``tap_fn`` or
+  hoist are asked for, the layers and time loop run as one autograd
+  Function (ops/convlstm_bptt.py), whose backward recomputes the gates
+  (kernels B2 and B3 on the card).  ``build_model`` sets ``remat``, as the
+  JAX package's does, so the windowed trainer takes this route.
+* per-cell: otherwise every differentiated cell is the custom VJP
+  ``FusedCell`` (``FusedCellXg`` at layer 0 with the hoist), whose forward
+  keeps the gates (the ``emit_gates`` launch) and whose backward runs B3
+  for dxh and B2's dW kernels.  It stores the gates, xh and c of every
+  cell: about 219 MB per step at the canonical training shapes.
+* the hoist: layer 0's input conv runs once over all T*B frames, outside
+  the cell kernel as in the JAX package, and its f32 sums are rounded to
+  the compute dtype; the kernel's ``xg`` mode then convolves h with
+  ``w_h`` only.  The conv is the SAME-conv kernel B3 (``conv_same``), its
+  weight gradient B2's dW kernel (``conv_dw``) and its data gradient B3 on
+  the flipped kernel.  With cuDNN's f32 conv and weight gradient there,
+  the hoisted route's T=8 gradients on the H100 were 1.7e-4 of their norm
+  from eager autograd (3.3e-7 with B3 and dW; PERF.md).
+
+The head, crop and loss stay plain autograd.
 """
 
 from __future__ import annotations
@@ -34,9 +53,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from torch.autograd.function import once_differentiable
+
 from nasa_niswan_tpu_torch.models.init import torch_conv_init
 from nasa_niswan_tpu_torch.ops.conv import conv2d
-from nasa_niswan_tpu_torch.ops.convgrad import cell_grads
+from nasa_niswan_tpu_torch.ops.convgrad import cell_grads, conv_dw, conv_same, flip_kernel
 from nasa_niswan_tpu_torch.ops.convlstm_bptt import (
     cells_step,
     combined_cells,
@@ -68,6 +89,8 @@ class ConvLSTMConfig:
     kernel_sizes: Tuple[int, ...] = (5, 3, 3)
     out_channels: int = 1
     compute_dtype: str = "float32"  # or "bfloat16"
+    remat: bool = False  # differentiate through the whole-scan BPTT (no
+    # per-step residuals) instead of the per-cell route; JAX's default
 
     def __post_init__(self):
         if len(self.hidden_channels) != len(self.kernel_sizes):
@@ -126,6 +149,44 @@ def head_apply(params: Params, h: torch.Tensor, dtype: torch.dtype) -> torch.Ten
     ).float()
 
 
+class _HoistedConv(torch.autograd.Function):
+    """The SAME conv of the hoist, B3 with its f32 output rounded to x's
+    dtype; backward: dw from B2's dW kernels, dx from B3 on the flipped
+    kernel (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv_same(x, w).to(x.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = conv_same(g, flip_kernel(w)) if ctx.needs_input_grad[0] else None
+        return dx, conv_dw(x, g, w.shape[0])
+
+
+def hoist_input_conv(
+    params: Params, x: torch.Tensor, config: ConvLSTMConfig, *, eager: bool = False
+) -> torch.Tensor:
+    """Layer 0's input conv over every frame at once: (B, T, H, W, C) ->
+    time-major (T, B, H, W, 4*hidden0) in the compute dtype (the JAX
+    package's ``precompute_input_conv``, a (T*B)-batched conv whose output
+    is rounded to the compute dtype).  Differentiable through
+    ``_HoistedConv``, or through eager autograd of the conv if ``eager``."""
+    dt = config.torch_dtype
+    B, T, H, W, C = x.shape
+    flat = x.transpose(0, 1).reshape(T * B, H, W, C).to(dt).contiguous()
+    w = params["cells"][0]["w_x"].to(dt).contiguous()
+    if eager:
+        xg = conv2d(flat, w, padding=w.shape[0] // 2)
+    else:
+        xg = _HoistedConv.apply(flat, w)
+    return xg.reshape(T, B, H, W, -1).contiguous()
+
+
 def _state_tensor(a, device) -> torch.Tensor:
     """A carry leaf as a contiguous f32 tensor on ``device``; numpy leaves
     (a carry handed over from the JAX package) are copied."""
@@ -143,6 +204,7 @@ def convlstm_apply(
     initial_state: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
     return_state: bool = False,
     tap_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    precompute_input_conv: bool = False,
     cell_fn: CellFn = fused_cell_forward,
     grads_fn: Optional[GradsFn] = cell_grads,
 ):
@@ -155,15 +217,19 @@ def convlstm_apply(
       tap_fn: custom per-step tap ``f(h_last) -> ys`` replacing the head tap.
       initial_state: per-layer (h, c), each (B, H, W, hidden); zeros if None.
       return_state: also return the final per-layer (h, c) carry.
-      cell_fn: the fused cell ``(xh, c, w, b) -> (h', c')``.  The default
-        dispatches by device; ``fused_cell_forward_plain`` runs the plain
-        version on any device (the reference the kernel is checked against).
+      precompute_input_conv: hoist layer 0's input conv out of the time
+        loop (``hoist_input_conv``); layer 0 then runs the kernel's xg mode.
+      cell_fn: the fused cell ``(xh, c, w, b, xg=None) -> (h', c')``.  The
+        default dispatches by device and takes the per-cell autograd route
+        when differentiating; ``fused_cell_forward_plain`` runs the plain
+        version on any device, and eager autograd through it is the oracle.
       grads_fn: the per-cell backward ``(xh, c, dh, dc, w, b) -> (dxh,
-        dc_prev, dw, db)`` of the whole-scan BPTT (training route, see the
-        module docstring): ``ops/convgrad.cell_grads`` dispatches by device,
-        ``cell_grads_plain`` runs the plain versions.  None differentiates
-        the time loop with eager autograd through ``cell_fn`` instead (the
-        oracle).
+        dc_prev, dw, db)`` of the whole-scan BPTT (training route with
+        ``config.remat``, see the module docstring):
+        ``ops/convgrad.cell_grads`` dispatches by device,
+        ``cell_grads_plain`` runs the plain versions.  None never takes the
+        whole-scan BPTT and differentiates the hoisted conv with eager
+        autograd: with the plain ``cell_fn``, the eager oracle.
 
     Returns:
       pred (B, H, W, out) f32, then the taps and the final state if asked.
@@ -187,17 +253,31 @@ def convlstm_apply(
     leaves += [t for hc in state for t in hc] + [x]
     taps = []
     if (
-        grads_fn is not None
+        config.remat
+        and grads_fn is not None
         and torch.is_grad_enabled()
         and any(t.requires_grad for t in leaves)
         and not return_per_step
         and tap_fn is None
+        and not precompute_input_conv
     ):
         state = scan_cells(params, x.to(dt), state, dt, cell_fn, grads_fn)
     else:
         cells = combined_cells(params, dt)
+        if precompute_input_conv:
+            # unbound once: the backward stacks the T step gradients in one
+            # pass, where indexing xg[t] would add each into a zero-filled
+            # gradient of the whole (T, B, H, W, 4*hidden0) tensor
+            xg = hoist_input_conv(params, x, config, eager=grads_fn is None).unbind(0)
+            w_h0 = params["cells"][0]["w_h"].to(dt).contiguous()
+        x_steps = x.unbind(1)
         for t in range(T):
-            state = cells_step(cells, x[:, t], state, dt, cell_fn)
+            if precompute_input_conv:
+                h0, c0 = state[0]
+                first = cell_fn(h0.to(dt), c0, w_h0, cells[0][1], xg[t])
+                state = [first] + cells_step(cells[1:], first[0], state[1:], dt, cell_fn)
+            else:
+                state = cells_step(cells, x_steps[t], state, dt, cell_fn)
             if return_per_step:
                 h_last = state[-1][0]
                 taps.append(

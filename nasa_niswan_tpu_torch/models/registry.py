@@ -3,9 +3,12 @@ LSTM family only; UNet and pix2pix are not ported yet).
 
 Accepts the reference's encoded model-name strings (e.g.
 ``LSTM-64K5.32K3.16K3-E33OMA-8C-BCB-<date>``): the family is everything
-before the first '-'.  The JAX package's TPU knobs (``cell_impl``,
-``bptt_fwd``, ``remat``, unroll) have no counterpart: a CUDA tensor always
-runs the kernels.
+before the first '-'.  ``remat`` (default True, as in the JAX package: the
+whole-scan BPTT route) and ``precompute_input_conv`` (the hoisted input
+conv, which takes the per-cell route) pick the training route as there
+(models/convlstm.py).  The JAX package's other TPU knobs (``cell_impl``,
+``bptt_fwd``, ``bptt_bwd``, unroll) have no counterpart: a CUDA tensor
+always runs the kernels.
 """
 
 from __future__ import annotations
@@ -61,12 +64,17 @@ def build_model(
     hidden_channels: Tuple[int, ...] = (64, 32, 16),
     kernel_sizes: Tuple[int, ...] = (5, 3, 3),
     compute_dtype: str = "float32",
+    precompute_input_conv: bool = False,
+    remat: bool = True,
     cell_fn: CellFn = fused_cell_forward,
     grads_fn: Optional[GradsFn] = cell_grads,
 ) -> ModelBundle:
-    """``cell_fn`` / ``grads_fn`` go to ``convlstm_apply``: the defaults
-    dispatch by device (kernels on the card, plain versions on the CPU);
-    the plain versions give the reference path on the card."""
+    """``remat`` defaults True, as in the JAX package: the windowed trainer
+    differentiates through the whole-scan BPTT, which stores no per-step
+    residuals.  ``precompute_input_conv`` and ``cell_fn`` / ``grads_fn`` go
+    to ``convlstm_apply``: the defaults dispatch by device (kernels on the
+    card, plain versions on the CPU); the plain versions give the reference
+    path on the card."""
     family = model_family(model_name)
     if family != "LSTM":
         raise NotImplementedError(
@@ -77,6 +85,7 @@ def build_model(
         hidden_channels=tuple(hidden_channels),
         kernel_sizes=tuple(kernel_sizes),
         compute_dtype=compute_dtype,
+        remat=remat,
     )
 
     def init(generator: torch.Generator, device=None):
@@ -90,6 +99,9 @@ def build_model(
 
     def apply(params, state, x, *, training=False, rng=None):
         del state, training, rng
-        return convlstm_apply(params, x, cfg, cell_fn=cell_fn, grads_fn=grads_fn), None
+        return convlstm_apply(
+            params, x, cfg, precompute_input_conv=precompute_input_conv,
+            cell_fn=cell_fn, grads_fn=grads_fn,
+        ), None
 
     return ModelBundle("LSTM", cfg, True, init, apply)

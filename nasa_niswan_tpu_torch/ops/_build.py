@@ -122,6 +122,13 @@ def load_kernels() -> ctypes.CDLL:
         # (xh, w, b, c, h_out, c_out), (B, H, W, Cin, hid, k), stream
         "niswan_convlstm_cell_f32": [ptr] * 6 + [i32] * 6 + [ptr],
         "niswan_convlstm_cell_bf16": [ptr] * 6 + [i32] * 6 + [ptr],
+        # (xh, w, b, c, xg or null, h_out, c_out, gates or null),
+        # (B, H, W, Cin, hid, k), stream
+        "niswan_convlstm_cell_modes_f32": [ptr] * 8 + [i32] * 6 + [ptr],
+        "niswan_convlstm_cell_modes_bf16": [ptr] * 8 + [i32] * 6 + [ptr],
+        # (xh, dgates, dw, work), (B, H, W, Cin, N, k), stream
+        "niswan_conv_dw_f32": [ptr] * 4 + [i32] * 6 + [ptr],
+        "niswan_conv_dw_bf16": [ptr] * 4 + [i32] * 6 + [ptr],
         # (xh, w, b, c, dh, dc, dgates, dc_prev, dw, db, work),
         # (B, H, W, Cin, hid, k), stream
         "niswan_cell_bwd_f32": [ptr] * 11 + [i32] * 6 + [ptr],
@@ -138,6 +145,10 @@ def load_kernels() -> ctypes.CDLL:
     # no kernel takes them
     lib.niswan_cell_bwd_workspace.argtypes = [i32, ptr, ptr] + [i32] * 6
     lib.niswan_cell_bwd_workspace.restype = ctypes.c_longlong
+    # (bf16, xh, dgates, B, H, W, Cin, N, k) -> floats of workspace, -1 if
+    # no kernel takes them
+    lib.niswan_conv_dw_workspace.argtypes = [i32, ptr, ptr] + [i32] * 6
+    lib.niswan_conv_dw_workspace.restype = ctypes.c_longlong
     lib.niswan_error_string.argtypes = [i32]
     lib.niswan_error_string.restype = ctypes.c_char_p
     return lib

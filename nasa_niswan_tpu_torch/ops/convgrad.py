@@ -14,7 +14,14 @@ Replaces the TPU kernels of ``nasa_niswan_tpu/ops/convgrad_pallas.py``:
   k x k conv with an f32 output; on the flipped, transposed cell kernel it is
   the data gradient dxh.  Kernel: ``csrc/conv_same.cu``.
 * ``cell_grads``: B2 then B3 on ``w_flip = flip(w, (0, 1)).swapaxes(2, 3)``,
-  the complete per-cell backward (``cell_grads_pallas``).
+  the complete per-cell backward (``cell_grads_pallas``).  With B1 in plain
+  mode it is also the counterpart of the v1 cell's VJP ``_fused_bwd``
+  (``nasa_niswan_tpu/ops/convlstm_pallas.py``, B4), which recomputes the
+  gates the same way.
+* ``conv_dw``: B2's weight-gradient kernels on their own (``niswan::conv_dw``),
+  for a gate cotangent computed elsewhere: the per-cell route's dw
+  (``ops/convlstm_cell.FusedCell``), where the JAX package runs XLA's conv
+  gradient.
 
 The TPU kernels' padded-column margin layout, 128-lane channel padding and
 ``pltpu.roll`` are TPU tiling devices; the port runs in the dense NHWC /
@@ -40,8 +47,9 @@ import torch
 from nasa_niswan_tpu_torch.ops import _build
 from nasa_niswan_tpu_torch.ops.convlstm_cell import (
     _KERNEL_SIZES,
+    _raise_on,
     check_cell_args,
-    conv_grads,
+    dw_per_tap,
     elementwise_bwd,
 )
 from nasa_niswan_tpu_torch.ops.conv import conv2d
@@ -50,16 +58,9 @@ from nasa_niswan_tpu_torch.ops.conv import conv2d
 # resets them before driving the training path and reads them after.
 cell_bwd_launches = 0
 conv_same_launches = 0
+dw_launches = 0
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
-
-
-def _raise_on(err: int, what: str, lib) -> None:
-    if err:
-        raise RuntimeError(
-            f"{what} kernel launch failed: "
-            f"{lib.niswan_error_string(err).decode()} (cudaError {err})"
-        )
 
 
 # ---- B2: fused cell backward ------------------------------------------------
@@ -73,8 +74,7 @@ def fused_cell_bwd_plain(xh, c, dh, dc, w, b) -> Grads:
     gates = conv2d(xh.float(), w.float(), padding=k // 2) + b.float()
     dgates32, dc_prev = elementwise_bwd(gates, c, dh, dc)
     dgates = dgates32.to(xh.dtype)
-    _, dw = conv_grads(xh, w, dgates, need_dx=False)
-    return dgates, dc_prev, dw, dgates32.sum(dim=(0, 1, 2))
+    return dgates, dc_prev, dw_per_tap(xh, dgates, k), dgates32.sum(dim=(0, 1, 2))
 
 
 def _check_bwd_args(xh, c, dh, dc, w, b) -> None:
@@ -205,6 +205,60 @@ def conv_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv_same_plain(x, w)
     return torch.ops.niswan.conv_same(x, w)
+
+
+# ---- B2's dW on its own ------------------------------------------------------
+
+@torch.library.custom_op("niswan::conv_dw", mutates_args=(), device_types="cuda")
+def _conv_dw_cuda(x: torch.Tensor, dgates: torch.Tensor, k: int) -> torch.Tensor:
+    global dw_launches
+    lib = _build.load_kernels()
+    bf16 = x.dtype == torch.bfloat16
+    B, H, W, cin = x.shape
+    n = dgates.shape[-1]
+    n_work = lib.niswan_conv_dw_workspace(
+        int(bf16), x.data_ptr(), dgates.data_ptr(), B, H, W, cin, n, k
+    )
+    if n_work < 0:
+        raise ValueError(f"no dw kernel for x {tuple(x.shape)}, N {n}, k {k}")
+    dw = torch.empty((k, k, cin, n), dtype=torch.float32, device=x.device)
+    work = torch.empty((n_work,), dtype=torch.float32, device=x.device)
+    fn = lib.niswan_conv_dw_bf16 if bf16 else lib.niswan_conv_dw_f32
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dgates.data_ptr(), dw.data_ptr(), work.data_ptr(),
+                 B, H, W, cin, n, k, stream)
+    _raise_on(err, "conv_dw", lib)
+    dw_launches += 1
+    return dw
+
+
+@_conv_dw_cuda.register_fake
+def _(x, dgates, k):
+    return x.new_empty((k, k, x.shape[-1], dgates.shape[-1]), dtype=torch.float32)
+
+
+def conv_dw(x: torch.Tensor, dgates: torch.Tensor, k: int) -> torch.Tensor:
+    """f32 weight gradient (k,k,Cin,N) of the SAME k x k conv of x
+    (B,H,W,Cin) for the output cotangent dgates (B,H,W,N) of x's dtype.
+    CPU tensors run the plain version (one f32 matmul per tap), every other
+    device the kernel."""
+    if x.dim() != 4 or dgates.dim() != 4 or x.shape[:3] != dgates.shape[:3]:
+        raise ValueError(
+            f"expected x (B,H,W,Cin), dgates (B,H,W,N); got {tuple(x.shape)}, "
+            f"{tuple(dgates.shape)}"
+        )
+    if k not in _KERNEL_SIZES:
+        raise ValueError(f"kernel size {k} not in {_KERNEL_SIZES}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or dgates.dtype != x.dtype:
+        raise TypeError(
+            f"x and dgates must share dtype bf16 or f32; got {x.dtype}, {dgates.dtype}"
+        )
+    if dgates.device != x.device or not (x.is_contiguous() and dgates.is_contiguous()):
+        raise ValueError("x and dgates must be contiguous on one device")
+    if x.device.type == "cpu":
+        return dw_per_tap(x, dgates, k)
+    return torch.ops.niswan.conv_dw(x, dgates, k)
 
 
 # ---- the per-cell backward ---------------------------------------------------

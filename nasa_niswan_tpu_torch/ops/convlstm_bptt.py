@@ -98,10 +98,7 @@ class _ScanCells(torch.autograd.Function):
             return [(src[base + 2 * i], src[base + 2 * i + 1]) for i in range(L)]
 
         cells = combined_cells(raw, dt)
-        g_w = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-               for w, _ in cells]
-        g_b = [torch.zeros(b.shape, dtype=torch.float32, device=b.device)
-               for _, b in cells]
+        g_w, g_b = zero_cell_grads(cells)
         d_state = [
             (d_final[2 * i].float(), d_final[2 * i + 1].float()) for i in range(L)
         ]
@@ -110,34 +107,66 @@ class _ScanCells(torch.autograd.Function):
         state_next = carry(T)
         for t in reversed(range(T)):
             state_in = carry(t)
-            new_d: list = [None] * L
-            for li in reversed(range(L)):
-                inp = xs[:, t] if li == 0 else state_next[li - 1][0]
-                (h_in, c_in), (dh, dc) = state_in[li], d_state[li]
-                w, b = cells[li]
-                xh = torch.cat([inp.to(dt), h_in.to(dt)], dim=-1)
-                dxh, dc_prev, dw, db = ctx.grads_fn(
-                    xh, c_in, dh.contiguous(), dc.contiguous(), w, b
-                )
-                g_w[li] += dw
-                g_b[li] += db
-                cin = inp.shape[-1]
-                if li > 0:
-                    ph, pc = d_state[li - 1]
-                    d_state[li - 1] = (ph + dxh[..., :cin], pc)
-                elif need_dx:
-                    dxs[:, t] = dxh[..., :cin].to(xs.dtype)
-                new_d[li] = (dxh[..., cin:], dc_prev)
-            d_state = new_d
+            d_state, d_x = cells_bwd_step(
+                cells, ctx.grads_fn, xs[:, t], state_in, state_next, d_state,
+                g_w, g_b, dt,
+            )
+            if need_dx:
+                dxs[:, t] = d_x.to(xs.dtype)
             state_next = state_in
-
-        grads = []
-        for cell, gw, gb in zip(raw["cells"], g_w, g_b):
-            cin = cell["w_x"].shape[2]
-            grads += [gw[:, :, :cin].to(cell["w_x"].dtype),
-                      gw[:, :, cin:].to(cell["w_h"].dtype), gb.to(cell["b"].dtype)]
+        grads = cell_param_grads(raw, g_w, g_b)
         grads += [d for dhc in d_state for d in dhc]
         return (None, None, dxs, *grads)
+
+
+def zero_cell_grads(cells):
+    """f32 accumulators for the combined kernels' and the biases' gradients."""
+    return (
+        [torch.zeros(w.shape, dtype=torch.float32, device=w.device) for w, _ in cells],
+        [torch.zeros(b.shape, dtype=torch.float32, device=b.device) for _, b in cells],
+    )
+
+
+def cell_param_grads(raw, g_w, g_b) -> list:
+    """The accumulated combined-kernel gradients split back into (w_x, w_h,
+    b) per layer, in the parameters' dtypes."""
+    grads = []
+    for cell, gw, gb in zip(raw["cells"], g_w, g_b):
+        cin = cell["w_x"].shape[2]
+        grads += [gw[:, :, :cin].to(cell["w_x"].dtype),
+                  gw[:, :, cin:].to(cell["w_h"].dtype), gb.to(cell["b"].dtype)]
+    return grads
+
+
+def cells_bwd_step(cells, grads_fn, x_t, state_in, state_next, d_state,
+                   g_w, g_b, dt):
+    """One step's backward through every layer (``_cells_bwd_step``), from
+    the top layer down.  Layer l > 0's forward input is layer l-1's h in
+    ``state_next``, so nothing is replayed; the per-cell backward
+    ``grads_fn`` recomputes the gates.  Adds the weight and bias gradients
+    into ``g_w`` / ``g_b`` (f32) and returns (the per-layer (dh, dc) of
+    ``state_in``, the f32 cotangent of ``x_t``)."""
+    d_state = list(d_state)
+    new_d: list = [None] * len(cells)
+    d_x = None
+    for li in reversed(range(len(cells))):
+        inp = x_t if li == 0 else state_next[li - 1][0]
+        (h_in, c_in), (dh, dc) = state_in[li], d_state[li]
+        w, b = cells[li]
+        xh = torch.cat([inp.to(dt), h_in.to(dt)], dim=-1)
+        dxh, dc_prev, dw, db = grads_fn(
+            xh, c_in, dh.contiguous(), dc.contiguous(), w, b
+        )
+        g_w[li] += dw
+        g_b[li] += db
+        cin = inp.shape[-1]
+        if li > 0:
+            ph, pc = d_state[li - 1]
+            d_state[li - 1] = (ph + dxh[..., :cin], pc)
+        else:
+            d_x = dxh[..., :cin]
+        new_d[li] = (dxh[..., cin:], dc_prev)
+    return new_d, d_x
 
 
 def scan_cells(

@@ -59,6 +59,7 @@ def make_rollout_fn(
     grid_shape: Tuple[int, int] = (90, 144),
     static: Optional[np.ndarray] = None,
     unnormalize: bool = True,
+    precompute_input_conv: Optional[bool] = None,
     device=None,
     cell_fn: CellFn = fused_cell_forward,
 ) -> Callable:
@@ -70,6 +71,12 @@ def make_rollout_fn(
     ``final_state`` the carry to hand to the next chunk.  Runs under
     ``torch.inference_mode()`` on ``device`` (default: the forcings').
     ``cell_fn`` is passed to ``convlstm_apply``.
+
+    ``precompute_input_conv``: True hoists layer 0's input conv out of the
+    time loop (one (B*T)-batched conv, then the kernel's xg mode); None
+    means off, which is what the JAX package's ``_auto_hoist`` gives its
+    fused kernel, since the fused cell never writes the gate tensor and
+    hoisting only adds traffic.
     """
     static_np = None if static is None else zscore_static(static)
     dt = config.torch_dtype
@@ -95,6 +102,7 @@ def make_rollout_fn(
                 initial_state=initial_state,
                 return_state=True,
                 tap_fn=lambda h: tap(params, h),
+                precompute_input_conv=bool(precompute_input_conv),
                 cell_fn=cell_fn,
             )
         return preds, final_state

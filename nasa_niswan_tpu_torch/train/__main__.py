@@ -1,13 +1,22 @@
 """Training entry point: ``python -m nasa_niswan_tpu_torch.train [flags]``
-(counterpart of ``python -m nasa_niswan_tpu.train``, windowed mode).
+(counterpart of ``python -m nasa_niswan_tpu.train``).
 
 Writes ``configurations.json`` to the snapshot dir, trains on the device
 named by ``--device`` (default ``cuda``; there is no silent fall back to the
 CPU), checkpoints in ``epoch-NNN`` directories and writes ``logger.npy``.
-Data is the synthetic fixture or a packed ``.npz``; resume through
-``--use-checkpoint --restore-from DIR`` or ``--auto-resume``.  Not ported
-yet: ``--mode seq2seq``, the 3-D level fusion (``--levels`` > 1), the
-``.nc`` reader and data parallelism.
+Data is the synthetic fixture or a packed ``.npz``.  Two modes:
+
+* ``--mode windowed`` (default): sliding-window training; resume through
+  ``--use-checkpoint --restore-from DIR`` or ``--auto-resume``;
+  ``--precompute-input-conv`` trains with the hoisted input conv (the
+  per-cell route), otherwise the whole-scan BPTT;
+* ``--mode seq2seq`` (config #3): scheduled-sampling training through the
+  feedback channel; ``--use-checkpoint --restore-from DIR`` fine-tunes a
+  windowed snapshot (the canonical protocol: windowed train, seq2seq
+  fine-tune, rollout); ``--schedule-k`` sets the teacher-forcing decay.
+
+Not ported yet: the 3-D level fusion (``--levels`` > 1), the ``.nc`` reader
+and data parallelism.
 """
 
 from __future__ import annotations
@@ -15,8 +24,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nasa_niswan_tpu_torch.data.dataset import SequenceDataset
+import os
+
+from nasa_niswan_tpu_torch.data.dataset import Seq2SeqDataset, SequenceDataset
 from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
+from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, convlstm_init
 from nasa_niswan_tpu_torch.models.registry import build_model
 from nasa_niswan_tpu_torch.train.checkpoint import latest_epoch_dir, load_checkpoint
 from nasa_niswan_tpu_torch.train.config import TrainConfig, parse_args
@@ -48,9 +60,6 @@ def load_data(config: TrainConfig) -> dict:
 
 
 def build_datasets(config: TrainConfig, data):
-    if config.levels > 1:
-        raise NotImplementedError("--levels > 1 (3-D level fusion) is not ported yet")
-
     def make(period):
         return SequenceDataset(
             data, period=period, species=config.species,
@@ -60,19 +69,81 @@ def build_datasets(config: TrainConfig, data):
     return make("train"), make("val")
 
 
+def run_seq2seq(config: TrainConfig, data, device: torch.device):
+    """Config #3: scheduled-sampling training through the feedback channel
+    (``--mode seq2seq``), with ``remat`` off as in the JAX package: every
+    cell differentiates through the per-cell route."""
+    from nasa_niswan_tpu_torch.rollout.seq2seq import fit_seq2seq
+
+    if config.family != "LSTM":
+        raise ValueError("--mode seq2seq drives the recurrent (LSTM) family")
+
+    def make(period):
+        return Seq2SeqDataset(
+            data, period=period, species=config.species,
+            sequence_length=config.sequence_length,
+        )
+
+    train_ds, val_ds = make("train"), make("val")
+    model_cfg = ConvLSTMConfig(
+        in_channels=config.in_channels,
+        hidden_channels=tuple(config.hidden_channels),
+        kernel_sizes=tuple(config.kernel_size),
+        compute_dtype=config.compute_dtype,
+    )
+    params = convlstm_init(
+        torch.Generator().manual_seed(config.seed), model_cfg, device=device
+    )
+    for t in [t for cell in params["cells"] for t in cell.values()] + list(
+            params["head"].values()):
+        t.requires_grad_(True)
+    if config.use_checkpoint:
+        # fine-tune from a windowed-training checkpoint
+        params, _, _ = load_checkpoint(
+            config.restore_from, params, lr=config.learning_rate
+        )
+    grid = tuple(data[1].shape[-2:]) if isinstance(data, tuple) else tuple(
+        data[f"{config.species}_conc"].shape[-2:]
+    )
+    params, optimizer, history = fit_seq2seq(
+        model_cfg, params, train_ds,
+        val_dataset=val_ds,
+        padded_shape=tuple(config.input_size),
+        grid_shape=grid,
+        num_epochs=config.num_epochs,
+        batch_size=config.batch_size,
+        learning_rate=config.learning_rate,
+        betas=tuple(config.betas),
+        schedule_k=config.schedule_k,
+        seed=config.seed,
+        snapshot_dir=config.snapshot_dir,
+        checkpoint_every=config.checkpoint_every,
+    )
+    # logger.npy: loss / train R2 / val R2, the reference's three arrays
+    os.makedirs(config.snapshot_dir, exist_ok=True)
+    with open(os.path.join(config.snapshot_dir, "logger.npy"), "wb") as f:
+        np.save(f, np.array([h["loss"] for h in history]))
+        np.save(f, np.array([h["r2"] for h in history]))
+        np.save(f, np.array([h.get("r2_val", np.nan) for h in history]))
+    return {"params": params, "optimizer": optimizer, "history": history}
+
+
 def main(config: TrainConfig):
-    if config.mode != "windowed":
-        raise NotImplementedError(f"--mode {config.mode} is not ported yet")
     device = resolve_device(config.device)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"{config.model} deployed on {kind}")
+    if config.levels > 1:
+        raise NotImplementedError("--levels > 1 (3-D level fusion) is not ported yet")
     data = load_data(config)
+    if config.mode == "seq2seq":
+        return run_seq2seq(config, data, device)
     bundle = build_model(
         config.model,
         in_channels=config.in_channels,
         hidden_channels=config.hidden_channels,
         kernel_sizes=config.kernel_size,
         compute_dtype=config.compute_dtype,
+        precompute_input_conv=config.precompute_input_conv,
     )
     train_ds, val_ds = build_datasets(config, data)
     n_static = config.in_channels - 5

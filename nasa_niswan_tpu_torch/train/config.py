@@ -5,9 +5,11 @@ The reference serializes its argparse namespace to
 ``<snapshot_dir>/configurations.json`` and the evaluation reloads it, so the
 reference's keys are kept verbatim.  A file written by either package loads
 in the other: unknown keys are ignored on read, missing ones take their
-defaults.  The JAX package's TPU settings (``cell_impl``,
-``precompute_input_conv``, ``dp_devices``, ``checkpoint_backend``) have no
-counterpart; ``device`` is the port's own.
+defaults.  ``precompute_input_conv`` (the hoisted input conv, which trains
+through the per-cell route) and ``schedule_k`` (the seq2seq teacher-forcing
+decay) mean what they mean there.  The JAX package's other TPU settings
+(``cell_impl``, ``dp_devices``, ``checkpoint_backend``) have no counterpart;
+``device`` is the port's own.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ class TrainConfig:
     restore_from: str = "./snapshots"
     # --- settings shared with the JAX package ---
     compute_dtype: str = "float32"  # or "bfloat16"
+    precompute_input_conv: bool = False  # hoist layer 0's input conv
     seed: int = 0
     data_path: Optional[str] = None  # packed npz; None -> synthetic fixture
     synthetic_steps: int = 480  # fixture length when data_path is None
@@ -52,7 +55,8 @@ class TrainConfig:
     checkpoint_every: int = 10  # reference: every 10 epochs
     levels: int = 1  # vertical levels (20 for the 3-D fusion config)
     auto_resume: bool = False  # restart from the newest epoch-NNN checkpoint
-    mode: str = "windowed"  # "windowed" | "seq2seq" (not ported yet)
+    mode: str = "windowed"  # "windowed" | "seq2seq" (scheduled sampling, config #3)
+    schedule_k: float = 10.0  # seq2seq teacher-forcing decay constant
     # --- the port's own ---
     device: str = "cuda"  # torch device the run trains on
 
@@ -135,6 +139,7 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--restore-from", type=str, default=d["restore_from"].default)
     p.add_argument("--compute-dtype", type=str, default=d["compute_dtype"].default,
                    choices=("float32", "bfloat16"))
+    p.add_argument("--precompute-input-conv", action="store_true")
     p.add_argument("--seed", type=int, default=d["seed"].default)
     p.add_argument("--data-path", type=str, default=None)
     p.add_argument("--synthetic-steps", type=int, default=d["synthetic_steps"].default)
@@ -144,6 +149,7 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--auto-resume", action="store_true")
     p.add_argument("--mode", type=str, default=d["mode"].default,
                    choices=("windowed", "seq2seq"))
+    p.add_argument("--schedule-k", type=float, default=d["schedule_k"].default)
     p.add_argument("--device", type=str, default=d["device"].default)
     ns = p.parse_args(argv)
     kwargs = {k.replace("-", "_"): v for k, v in vars(ns).items()}

@@ -25,7 +25,7 @@ from nasa_niswan_tpu_torch import bridge  # noqa: E402
 from nasa_niswan_tpu_torch.models import convlstm as tm  # noqa: E402
 from nasa_niswan_tpu_torch.ops import convgrad  # noqa: E402
 from nasa_niswan_tpu_torch.ops.convlstm_cell import (  # noqa: E402
-    conv_grads,
+    dw_per_tap,
     elementwise_bwd,
     fused_cell_forward_plain,
 )
@@ -131,7 +131,8 @@ def test_conv_same_matches_jax_pallas(B, H, W, cin, cout, k):
 
 def test_elementwise_bwd_and_conv_grads_match_jax():
     """The plain building blocks vs ``_elementwise_bwd`` (margin 0, so its
-    mask keeps every column) and ``_conv_grads``, f32."""
+    mask keeps every column) and ``_conv_grads`` (dx: B3 on the flipped
+    kernel; dw: ``dw_per_tap``), f32."""
     rng = np.random.default_rng(4)
     gates = rng.standard_normal((2, 6, 9, 16)).astype(np.float32)
     c, dh, dc = (rng.standard_normal((2, 6, 9, 4)).astype(np.float32) for _ in range(3))
@@ -142,10 +143,10 @@ def test_elementwise_bwd_and_conv_grads_match_jax():
     x = rng.standard_normal((2, 6, 9, 5)).astype(np.float32)
     w = rng.standard_normal((3, 3, 5, 16)).astype(np.float32)
     want_dx, want_dw = _conv_grads(x, w, gates, 3)
-    got_dx, got_dw = conv_grads(_t(x), _t(w), _t(gates))
+    got_dx = convgrad.conv_same(_t(gates), convgrad.flip_kernel(_t(w)))
+    got_dw = dw_per_tap(_t(x), _t(gates), 3)
     np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx), atol=1e-4)
     np.testing.assert_allclose(got_dw.numpy(), np.asarray(want_dw), atol=1e-4)
-    assert conv_grads(_t(x), _t(w), _t(gates), need_dx=False)[0] is None
 
 
 def test_cell_grads_equal_autograd_of_plain_cell():
@@ -224,7 +225,7 @@ def _jax_value_and_grad(tree, x, state0, dtype):
 
 
 def _port_value_and_grad(params, x, state0, dtype, **kw):
-    cfg = tm.ConvLSTMConfig(5, compute_dtype=dtype, **LAYERS)
+    cfg = tm.ConvLSTMConfig(5, compute_dtype=dtype, remat=True, **LAYERS)
     leaves = [t.requires_grad_(True) for cell in params["cells"] for t in cell.values()]
     xt = _t(x).requires_grad_(True)
     st = [tuple(_t(a).requires_grad_(True) for a in s) for s in state0]
@@ -291,9 +292,9 @@ def test_bptt_matches_eager_autograd_oracle(dtype, tol):
 
 def test_bptt_route_only_when_differentiating():
     """No grad, or per-step taps: the plain time loop (nothing saved);
-    with grad the Function, whose result equals the loop's."""
+    with grad and ``remat`` the Function, whose result equals the loop's."""
     x, _ = _bptt_inputs(3)
-    cfg = tm.ConvLSTMConfig(5, **LAYERS)
+    cfg = tm.ConvLSTMConfig(5, remat=True, **LAYERS)
     params = tm.convlstm_init(torch.Generator().manual_seed(4), cfg)
     with torch.no_grad():
         want = tm.convlstm_apply(params, _t(x), cfg)

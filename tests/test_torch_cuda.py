@@ -1,6 +1,8 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card: the fused ConvLSTM cell forward (B1), the fused cell backward (B2),
-the SAME data-gradient conv (B3), and the whole-scan BPTT built on them.
+card: the fused ConvLSTM cell forward (B1) in its plain, emit_gates and xg
+modes, the fused cell backward (B2) and its dW kernels on their own, the
+SAME data-gradient conv (B3), and the two training routes built on them
+(the whole-scan BPTT and the per-cell Functions).
 
 Needs an NVIDIA GPU and nvcc; every test here skips without a CUDA device.
 On a machine with a card, from the repository root:
@@ -26,14 +28,18 @@ from nasa_niswan_tpu_torch.ops import convgrad, convlstm_cell  # noqa: E402
 from nasa_niswan_tpu_torch.ops.convgrad import (  # noqa: E402
     cell_grads,
     cell_grads_plain,
+    conv_dw,
     conv_same,
     conv_same_plain,
     fused_cell_bwd,
     fused_cell_bwd_plain,
 )
 from nasa_niswan_tpu_torch.ops.convlstm_cell import (  # noqa: E402
+    dw_per_tap,
     fused_cell_forward,
     fused_cell_forward_plain,
+    fused_cell_gates,
+    fused_cell_gates_plain,
 )
 from nasa_niswan_tpu_torch.rollout.autoregressive import make_rollout_fn  # noqa: E402
 
@@ -83,6 +89,154 @@ def test_kernel_matches_plain(device, dtype, B, H, W, cin, hid, k):
     assert torch.equal(h1, h1b) and torch.equal(c1, c1b)
     assert (h1 - h2).abs().max().item() <= 1e-3
     assert (c1 - c2).abs().max().item() <= 1e-3
+
+
+MODE_SHAPES = [
+    (1, 16, 24, 9, 8, 3),
+    (2, 20, 28, 13, 16, 5),
+    (1, 10, 12, 5, 4, 1),
+    (1, 9, 37, 70, 64, 7),
+    (2, 12, 20, 64, 64, 5),  # the hoisted layer 0: Cin = hid
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,cin,hid,k", MODE_SHAPES)
+@pytest.mark.parametrize("with_xg", [False, True])
+def test_modes_match_plain(device, dtype, B, H, W, cin, hid, k, with_xg):
+    """emit_gates (with and without xg) and the xg-only launch against
+    their plain versions: h', c' within 1e-3 (f32 sums in another order),
+    the gates within one bf16 step (2**-7 relative) plus 1e-5 in bf16, 1e-5
+    in f32; reruns bit-identical; each launch counted in its modes."""
+    xh, c, w, b = _cell_inputs(device, dtype, B, H, W, cin, hid, k)
+    xg = None
+    if with_xg:
+        rng = np.random.default_rng(5)
+        xg = torch.tensor(rng.standard_normal((B, H, W, 4 * hid)),
+                          dtype=torch.float32).to(device, dtype)
+    before = (convlstm_cell.gates_launches, convlstm_cell.xg_launches,
+              convlstm_cell.launches)
+    got, again = fused_cell_gates(xh, c, w, b, xg), fused_cell_gates(xh, c, w, b, xg)
+    want = fused_cell_gates_plain(xh, c, w, b, xg)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert got[2].dtype == dtype and got[2].shape == (B, H, W, 4 * hid)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-3
+    assert (got[1] - want[1]).abs().max().item() <= 1e-3
+    rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got[2].float(), want[2].float(), rtol=rtol, atol=1e-5)
+    if with_xg:
+        h1, c1 = fused_cell_forward(xh, c, w, b, xg)
+        torch.cuda.synchronize()
+        assert torch.equal(h1, got[0]) and torch.equal(c1, got[1])
+    after = (convlstm_cell.gates_launches, convlstm_cell.xg_launches,
+             convlstm_cell.launches)
+    assert [a - b_ for a, b_ in zip(after, before)] == [2, 3 if with_xg else 0, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,cin,n,k", [(1, 16, 24, 9, 32, 3), (2, 12, 20, 72, 256, 5),
+                                           (2, 12, 20, 64, 256, 5), (1, 10, 12, 5, 16, 1)])
+def test_conv_dw_matches_plain(device, dtype, B, H, W, cin, n, k):
+    """B2's dW kernels on their own against one f32 matmul per tap, within
+    1e-3 of the largest entry; reruns bit-identical."""
+    rng = np.random.default_rng(6)
+    x = torch.tensor(rng.standard_normal((B, H, W, cin)), dtype=torch.float32)
+    g = torch.tensor(rng.standard_normal((B, H, W, n)), dtype=torch.float32)
+    x, g = x.to(device, dtype), g.to(device, dtype)
+    before = convgrad.dw_launches
+    got, again = conv_dw(x, g, k), conv_dw(x, g, k)
+    want = dw_per_tap(x, g, k)
+    torch.cuda.synchronize()
+    assert convgrad.dw_launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (k, k, cin, n)
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_xg", [False, True])
+def test_fused_cell_grads_match_autograd(device, dtype, with_xg):
+    """The per-cell Functions (FusedCell, FusedCellXg) on the kernels against
+    eager autograd through the plain cell, relative to each gradient's
+    largest entry: 1e-4 in f32; 2e-2 in bf16, where the Function rounds the
+    kept gates and dgates to bf16 and eager autograd does not."""
+    B, H, W, cin, hid, k = 2, 12, 20, 24, 16, 5
+    xh, c, w, b = _cell_inputs(device, dtype, B, H, W, cin, hid, k)
+    rng = np.random.default_rng(7)
+    xg = torch.tensor(rng.standard_normal((B, H, W, 4 * hid)), dtype=torch.float32
+                      ).to(device, dtype) if with_xg else None
+    dh, dc = (torch.tensor(rng.standard_normal(c.shape), dtype=torch.float32,
+                           device=device) for _ in range(2))
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in (xh, c, w, b)]
+        extra = [] if xg is None else [xg.clone().requires_grad_(True)]
+        out = fn(*ins, *extra)
+        return torch.autograd.grad(out, ins + extra, (dh, dc))
+
+    before = (convlstm_cell.gates_launches, convgrad.conv_same_launches,
+              convgrad.dw_launches)
+    got = grads(fused_cell_forward)
+    after = (convlstm_cell.gates_launches, convgrad.conv_same_launches,
+             convgrad.dw_launches)
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1]
+    want = grads(fused_cell_forward_plain)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, p in zip(got, want):
+        assert g.dtype == p.dtype and _rel(g, p) <= tol
+
+
+def test_taps_differentiate_on_the_card(device):
+    """Per-step taps and a ``tap_fn`` under grad run the per-cell route on
+    the kernels (no autograd formula is needed for the plain launch) and
+    match eager autograd through the plain cell, f32, 1e-4 of each leaf's
+    largest gradient entry."""
+    cfg = ConvLSTMConfig(in_channels=6, hidden_channels=(16, 8), kernel_sizes=(5, 3))
+    params = convlstm_init(torch.Generator().manual_seed(1), cfg, device=device)
+    leaves = [t.requires_grad_(True) for cell in params["cells"] for t in cell.values()]
+    x = torch.tensor(np.random.default_rng(8).standard_normal((2, 4, 12, 20, 6)),
+                     dtype=torch.float32, device=device)
+
+    def grads(**kw):
+        _, taps = convlstm_apply(params, x, cfg, return_per_step=True, **kw)
+        _, taps2 = convlstm_apply(params, x, cfg, return_per_step=True,
+                                  tap_fn=lambda h: h.square().mean(-1), **kw)
+        return torch.autograd.grad((taps**2).sum() + taps2.sum(), leaves)
+
+    before = convlstm_cell.gates_launches
+    got = grads()
+    assert convlstm_cell.gates_launches == before + 2 * 2 * 4
+    want = grads(cell_fn=fused_cell_forward_plain)
+    for g, p in zip(got, want):
+        assert _rel(g, p) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_hoisted_route_matches_eager_on_the_card(device, dtype, tol):
+    """``precompute_input_conv`` under grad: the hoisted conv (B3, its
+    gradients from B3 and B2's dW kernels) and layer 0 in the xg mode,
+    against eager autograd through the plain cell without cuDNN, relative
+    to each leaf's largest gradient entry."""
+    cfg = ConvLSTMConfig(in_channels=6, hidden_channels=(16, 8), kernel_sizes=(5, 3),
+                         compute_dtype=dtype)
+    params = convlstm_init(torch.Generator().manual_seed(2), cfg, device=device)
+    leaves = [t.requires_grad_(True) for cell in params["cells"] for t in cell.values()]
+    x = torch.tensor(np.random.default_rng(9).standard_normal((2, 4, 12, 20, 6)),
+                     dtype=torch.float32, device=device)
+
+    def grads(**kw):
+        pred = convlstm_apply(params, x, cfg, precompute_input_conv=True, **kw)
+        return torch.autograd.grad((pred**2).sum(), leaves)
+
+    before = (convlstm_cell.xg_launches, convgrad.dw_launches)
+    got = grads()
+    assert (convlstm_cell.xg_launches - before[0], convgrad.dw_launches - before[1]) == (4, 9)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = grads(cell_fn=fused_cell_forward_plain, grads_fn=None)
+    for g, p in zip(got, want):
+        assert _rel(g, p) <= tol
 
 
 def test_kernel_rejects_bad_args(device):
@@ -203,7 +357,7 @@ def test_bptt_kernel_path_matches_eager_autograd(device, dtype):
     relative to the leaf's largest entry: 1e-4 in f32; 2e-2 in bf16, where
     the two paths round dgates, dw and dxh to bf16 at different places."""
     cfg = ConvLSTMConfig(in_channels=6, hidden_channels=(16, 8),
-                         kernel_sizes=(5, 3), compute_dtype=dtype)
+                         kernel_sizes=(5, 3), compute_dtype=dtype, remat=True)
     params = convlstm_init(torch.Generator().manual_seed(0), cfg, device=device)
     for t in [t for cell in params["cells"] for t in cell.values()] + list(
             params["head"].values()):

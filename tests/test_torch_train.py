@@ -260,8 +260,8 @@ def test_cli_device_is_explicit(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(TrainConfig(synthetic_steps=60, synthetic_grid=(16, 24)))
-    with pytest.raises(NotImplementedError):
-        cli.main(TrainConfig(mode="seq2seq", device="cpu"))
+    with pytest.raises(NotImplementedError, match="levels"):
+        cli.main(TrainConfig(mode="seq2seq", levels=20, device="cpu"))
     with pytest.raises(NotImplementedError):
         build_model("UNet-x", in_channels=5)
     assert model_family("LSTM-64K5.32K3.16K3-E33OMA-8C-BCB-x") == "LSTM"
