@@ -15,8 +15,8 @@
 // f32.  All tensors are dense NHWC / HWIO; the conv's SAME zero padding is
 // applied at every frame edge by the tile loader.
 //
-// Modes (niswan_convlstm_cell_modes_*; the plain entry points keep their own
-// epilogue and read and write nothing more):
+// Modes (nullable pointers of the one entry point per dtype; with both off
+// the kernel reads no xg and writes no gates):
 //   xg          hoisted input gates (B,H,W,4*hid) in the compute dtype are
 //               added in f32 to the gates; xh is then h alone and w is w_h
 //               (the training and serving form of precompute_input_conv);
@@ -32,8 +32,8 @@
 // operands with hid in {8, 16, 32, 64} run on the tensor cores (mma.sync),
 // everything else on the FP32 pipes.  The epilogue below is the state
 // update; the four gates of a (pixel, j) meet in one thread, so it is
-// thread-local and the 4*hid gate tensor never reaches device memory.  No
-// atomics: reruns are bit-identical.
+// thread-local and the 4*hid gate tensor reaches device memory only in the
+// emit_gates mode.  No atomics: reruns are bit-identical.
 //
 // What bounds it: at the serving shapes (B=1, 100x154, layer 1 Cin=126,
 // hid=64, k=5) the gate conv is an M=15,400 x N=256 x K=3,150 product, about
@@ -51,32 +51,11 @@ namespace {
 
 using namespace niswan;
 
-struct ForwardEpi {
-  const float* c;
-  float* h_out;
-  float* c_out;
-  int hid;
-  float* db_part;  // unused: no reduction
-  static constexpr bool kReduce = false;
-
-  __device__ __forceinline__ void apply(size_t pix, int j, float pi, float pf,
-                                        float pg, float po,
-                                        float (&)[4]) const {
-    const size_t o = pix * hid + j;
-    const float ig = sigmoid(pi);
-    const float fg = sigmoid(pf);
-    const float gg = tanhf(pg);
-    const float og = sigmoid(po);
-    const float c_new = c[o] * fg + ig * gg;
-    c_out[o] = c_new;
-    h_out[o] = og * tanhf(c_new);
-  }
-};
-
-// The xg / emit_gates epilogue: ForwardEpi plus a nullable hoisted-gate
-// input and a nullable gate output, both in the compute dtype T.
+// The state update, with a nullable hoisted-gate input and a nullable gate
+// output, both in the compute dtype T; with both null it reads and writes
+// nothing more than the plain cell.
 template <typename T>
-struct ModeEpi {
+struct CellEpi {
   const float* c;
   float* h_out;
   float* c_out;
@@ -114,30 +93,17 @@ struct ModeEpi {
 };
 
 template <typename T>
-int forward_modes(const void* xh, const void* w, const void* b, const void* c,
-                  const void* xg, void* h_out, void* c_out, void* gates, int B,
-                  int H, int W, int Cin, int hid, int k, void* stream) {
+int forward(const void* xh, const void* w, const void* b, const void* c,
+            const void* xg, void* h_out, void* c_out, void* gates, int B, int H,
+            int W, int Cin, int hid, int k, void* stream) {
   CellLaunch L;
   if (!plan_cell(std::is_same<T, __nv_bfloat16>::value, w, B, H, W, Cin, hid,
                  k, false, &L))
     return (int)cudaErrorInvalidValue;
-  const ModeEpi<T> epi{static_cast<const float*>(c), static_cast<float*>(h_out),
+  const CellEpi<T> epi{static_cast<const float*>(c), static_cast<float*>(h_out),
                        static_cast<float*>(c_out), hid,
                        static_cast<const T*>(xg), static_cast<T*>(gates),
                        nullptr};
-  return launch_cell<T>(L, xh, w, b, epi, H, W, Cin, hid, k, stream);
-}
-
-template <typename T>
-int forward(const void* xh, const void* w, const void* b, const void* c,
-            void* h_out, void* c_out, int B, int H, int W, int Cin, int hid,
-            int k, void* stream) {
-  CellLaunch L;
-  if (!plan_cell(std::is_same<T, __nv_bfloat16>::value, w, B, H, W, Cin, hid,
-                 k, false, &L))
-    return (int)cudaErrorInvalidValue;
-  const ForwardEpi epi{static_cast<const float*>(c), static_cast<float*>(h_out),
-                       static_cast<float*>(c_out), hid, nullptr};
   return launch_cell<T>(L, xh, w, b, epi, H, W, Cin, hid, k, stream);
 }
 
@@ -147,41 +113,23 @@ extern "C" {
 
 // Each returns the cudaError_t of the launch (0 = success).  The launch is
 // asynchronous on `stream`; nothing is synchronised or allocated here.
+// `xg` (hoisted input gates, compute dtype) and `gates` (gate output,
+// compute dtype) are each null when their mode is off; with both null the
+// launch is the plain mode.  The xg sum is (conv + b) + xg in f32.
 int niswan_convlstm_cell_f32(const void* xh, const void* w, const void* b,
-                             const void* c, void* h_out, void* c_out, int B,
-                             int H, int W, int Cin, int hid, int k,
-                             void* stream) {
-  return forward<float>(xh, w, b, c, h_out, c_out, B, H, W, Cin, hid, k,
-                        stream);
+                             const void* c, const void* xg, void* h_out,
+                             void* c_out, void* gates, int B, int H, int W,
+                             int Cin, int hid, int k, void* stream) {
+  return forward<float>(xh, w, b, c, xg, h_out, c_out, gates, B, H, W, Cin,
+                        hid, k, stream);
 }
 
 int niswan_convlstm_cell_bf16(const void* xh, const void* w, const void* b,
-                              const void* c, void* h_out, void* c_out, int B,
-                              int H, int W, int Cin, int hid, int k,
-                              void* stream) {
-  return forward<__nv_bfloat16>(xh, w, b, c, h_out, c_out, B, H, W, Cin, hid,
-                                k, stream);
-}
-
-// The xg and emit_gates modes: `xg` (hoisted input gates, compute dtype) and
-// `gates` (gate output, compute dtype) are each null when the mode is off.
-// The xg sum is (conv + b) + xg in f32.
-int niswan_convlstm_cell_modes_f32(const void* xh, const void* w,
-                                   const void* b, const void* c,
-                                   const void* xg, void* h_out, void* c_out,
-                                   void* gates, int B, int H, int W, int Cin,
-                                   int hid, int k, void* stream) {
-  return forward_modes<float>(xh, w, b, c, xg, h_out, c_out, gates, B, H, W,
-                              Cin, hid, k, stream);
-}
-
-int niswan_convlstm_cell_modes_bf16(const void* xh, const void* w,
-                                    const void* b, const void* c,
-                                    const void* xg, void* h_out, void* c_out,
-                                    void* gates, int B, int H, int W, int Cin,
-                                    int hid, int k, void* stream) {
-  return forward_modes<__nv_bfloat16>(xh, w, b, c, xg, h_out, c_out, gates, B,
-                                      H, W, Cin, hid, k, stream);
+                              const void* c, const void* xg, void* h_out,
+                              void* c_out, void* gates, int B, int H, int W,
+                              int Cin, int hid, int k, void* stream) {
+  return forward<__nv_bfloat16>(xh, w, b, c, xg, h_out, c_out, gates, B, H, W,
+                                Cin, hid, k, stream);
 }
 
 const char* niswan_error_string(int err) {

@@ -17,11 +17,12 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
+from nasa_niswan_tpu_torch.core.padding import pad_geo
 from nasa_niswan_tpu_torch.data.dataset import Normalizer
-from nasa_niswan_tpu_torch.models.convlstm import CellFn, ConvLSTMConfig, head_apply
-from nasa_niswan_tpu_torch.ops.convlstm_bptt import cells_step, combined_cells
+from nasa_niswan_tpu_torch.models.convlstm import CellFn, ConvLSTMConfig
+from nasa_niswan_tpu_torch.ops.convlstm_bptt import combined_cells
 from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward
+from nasa_niswan_tpu_torch.ops.seq2seq_bptt import feedback_step
 
 
 def make_closed_loop_chunk(
@@ -50,10 +51,10 @@ def make_closed_loop_chunk(
             prev = torch.as_tensor(prev_norm, device=dev)
             cells = combined_cells(params, dt)
             preds = []
+            head_w, head_b = params["head"]["w"], params["head"]["b"]
             for t in range(xs.shape[0]):
-                fb = pad_geo(prev, padded_shape).to(dt)[..., None]
-                st = cells_step(cells, torch.cat([xs[t], fb], dim=-1), st, dt, cell_fn)
-                prev = crop_to_grid(head_apply(params, st[-1][0], dt)[..., 0], grid_shape)
+                st, prev = feedback_step(cells, head_w, head_b, xs[t], prev, st, dt,
+                                         padded_shape, grid_shape, cell_fn)
                 preds.append(prev)
             return st, prev, normalizer.unnormalize_y(torch.cat(preds))
 

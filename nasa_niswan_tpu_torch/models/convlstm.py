@@ -63,7 +63,11 @@ from nasa_niswan_tpu_torch.ops.convlstm_bptt import (
     combined_cells,
     scan_cells,
 )
-from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward, gate_update
+from nasa_niswan_tpu_torch.ops.convlstm_cell import (
+    fused_cell_forward,
+    fused_cell_forward_plain,
+    gate_update,
+)
 
 Params = Dict[str, Any]
 CellFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
@@ -222,14 +226,14 @@ def convlstm_apply(
       cell_fn: the fused cell ``(xh, c, w, b, xg=None) -> (h', c')``.  The
         default dispatches by device and takes the per-cell autograd route
         when differentiating; ``fused_cell_forward_plain`` runs the plain
-        version on any device, and eager autograd through it is the oracle.
+        version on any device, and eager autograd through it is the oracle
+        (with the hoist, its input conv is then an eager conv too).
       grads_fn: the per-cell backward ``(xh, c, dh, dc, w, b) -> (dxh,
         dc_prev, dw, db)`` of the whole-scan BPTT (training route with
         ``config.remat``, see the module docstring):
         ``ops/convgrad.cell_grads`` dispatches by device,
         ``cell_grads_plain`` runs the plain versions.  None never takes the
-        whole-scan BPTT and differentiates the hoisted conv with eager
-        autograd: with the plain ``cell_fn``, the eager oracle.
+        whole-scan BPTT: with the plain ``cell_fn``, the eager oracle.
 
     Returns:
       pred (B, H, W, out) f32, then the taps and the final state if asked.
@@ -268,7 +272,8 @@ def convlstm_apply(
             # unbound once: the backward stacks the T step gradients in one
             # pass, where indexing xg[t] would add each into a zero-filled
             # gradient of the whole (T, B, H, W, 4*hidden0) tensor
-            xg = hoist_input_conv(params, x, config, eager=grads_fn is None).unbind(0)
+            eager = cell_fn is fused_cell_forward_plain
+            xg = hoist_input_conv(params, x, config, eager=eager).unbind(0)
             w_h0 = params["cells"][0]["w_h"].to(dt).contiguous()
         x_steps = x.unbind(1)
         for t in range(T):

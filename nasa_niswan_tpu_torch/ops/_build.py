@@ -119,13 +119,10 @@ def load_kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     signatures = {
-        # (xh, w, b, c, h_out, c_out), (B, H, W, Cin, hid, k), stream
-        "niswan_convlstm_cell_f32": [ptr] * 6 + [i32] * 6 + [ptr],
-        "niswan_convlstm_cell_bf16": [ptr] * 6 + [i32] * 6 + [ptr],
         # (xh, w, b, c, xg or null, h_out, c_out, gates or null),
         # (B, H, W, Cin, hid, k), stream
-        "niswan_convlstm_cell_modes_f32": [ptr] * 8 + [i32] * 6 + [ptr],
-        "niswan_convlstm_cell_modes_bf16": [ptr] * 8 + [i32] * 6 + [ptr],
+        "niswan_convlstm_cell_f32": [ptr] * 8 + [i32] * 6 + [ptr],
+        "niswan_convlstm_cell_bf16": [ptr] * 8 + [i32] * 6 + [ptr],
         # (xh, dgates, dw, work), (B, H, W, Cin, N, k), stream
         "niswan_conv_dw_f32": [ptr] * 4 + [i32] * 6 + [ptr],
         "niswan_conv_dw_bf16": [ptr] * 4 + [i32] * 6 + [ptr],

@@ -65,8 +65,8 @@ from nasa_niswan_tpu_torch.ops import _build
 from nasa_niswan_tpu_torch.ops.conv import conv2d
 
 # Successful launches of the CUDA kernel in this process, by mode (a launch
-# with both xg and emit_gates on counts in both); chip_smoke.py resets them
-# before driving a path and reads them after.
+# with both xg and emit_gates on counts once, under gates_launches);
+# chip_smoke.py resets them before driving a path and reads them after.
 launches = 0
 gates_launches = 0
 xg_launches = 0
@@ -206,48 +206,17 @@ def _raise_on(err: int, what: str, lib) -> None:
         )
 
 
-@torch.library.custom_op(
-    "niswan::convlstm_cell", mutates_args=(), device_types="cuda"
-)
-def _convlstm_cell_cuda(
-    xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
+def _launch(xh, c, w, b, xg, emit_gates: bool):
+    """One launch of the kernel (xg and the gate output are null unless
+    their mode is on); returns (h', c', gates or None).  A launch counts
+    once: under ``gates_launches`` with emit_gates (with or without xg),
+    else under ``xg_launches`` with xg, else under ``launches``."""
+    global launches, gates_launches, xg_launches
     lib = _build.load_kernels()
     fn = (
         lib.niswan_convlstm_cell_bf16
         if xh.dtype == torch.bfloat16
         else lib.niswan_convlstm_cell_f32
-    )
-    h_out = torch.empty_like(c)
-    c_out = torch.empty_like(c)
-    B, H, W, cin = xh.shape
-    with torch.cuda.device(xh.device):
-        stream = torch.cuda.current_stream(xh.device).cuda_stream
-        err = fn(
-            xh.data_ptr(), w.data_ptr(), b.data_ptr(), c.data_ptr(),
-            h_out.data_ptr(), c_out.data_ptr(),
-            B, H, W, cin, c.shape[-1], w.shape[0], stream,
-        )
-    _raise_on(err, "convlstm_cell", lib)
-    launches += 1
-    return h_out, c_out
-
-
-@_convlstm_cell_cuda.register_fake
-def _(xh, c, w, b):
-    return torch.empty_like(c), torch.empty_like(c)
-
-
-def _launch_modes(xh, c, w, b, xg, emit_gates: bool):
-    """One launch of the xg / emit_gates entry point; returns (h', c',
-    gates or None)."""
-    global gates_launches, xg_launches
-    lib = _build.load_kernels()
-    fn = (
-        lib.niswan_convlstm_cell_modes_bf16
-        if xh.dtype == torch.bfloat16
-        else lib.niswan_convlstm_cell_modes_f32
     )
     B, H, W, cin = xh.shape
     hid = c.shape[-1]
@@ -266,10 +235,29 @@ def _launch_modes(xh, c, w, b, xg, emit_gates: bool):
             None if gates is None else gates.data_ptr(),
             B, H, W, cin, hid, w.shape[0], stream,
         )
-    _raise_on(err, "convlstm_cell (modes)", lib)
-    gates_launches += int(emit_gates)
-    xg_launches += int(xg is not None)
+    _raise_on(err, "convlstm_cell", lib)
+    if emit_gates:
+        gates_launches += 1
+    elif xg is not None:
+        xg_launches += 1
+    else:
+        launches += 1
     return h_out, c_out, gates
+
+
+@torch.library.custom_op(
+    "niswan::convlstm_cell", mutates_args=(), device_types="cuda"
+)
+def _convlstm_cell_cuda(
+    xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    h_out, c_out, _ = _launch(xh, c, w, b, None, False)
+    return h_out, c_out
+
+
+@_convlstm_cell_cuda.register_fake
+def _(xh, c, w, b):
+    return torch.empty_like(c), torch.empty_like(c)
 
 
 @torch.library.custom_op(
@@ -279,7 +267,7 @@ def _convlstm_cell_gates_cuda(
     xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     xg: Optional[torch.Tensor],
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    return _launch_modes(xh, c, w, b, xg, True)
+    return _launch(xh, c, w, b, xg, True)
 
 
 @_convlstm_cell_gates_cuda.register_fake
@@ -295,7 +283,7 @@ def _convlstm_cell_xg_cuda(
     xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     xg: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    h_out, c_out, _ = _launch_modes(xh, c, w, b, xg, False)
+    h_out, c_out, _ = _launch(xh, c, w, b, xg, False)
     return h_out, c_out
 
 

@@ -60,6 +60,16 @@ def pred_from_h(h_last, head_w, head_b, grid_shape, dt) -> torch.Tensor:
     return crop_to_grid(p[..., 0], grid_shape)
 
 
+def feedback_step(cells, head_w, head_b, x_t, fb, state, dt, padded_shape,
+                  grid_shape, cell_fn):
+    """One step of the feedback chunk: the padded feedback map appended to
+    the forcings x_t (B, H, W, C-1), the fused cells, the head and the crop.
+    Returns (new per-layer (h, c), the (B, h, w) normalized prediction)."""
+    frame = torch.cat([x_t.to(dt), fb_channel(fb, padded_shape).to(dt)], dim=-1)
+    state = cells_step(cells, frame, state, dt, cell_fn)
+    return state, pred_from_h(state[-1][0], head_w, head_b, grid_shape, dt)
+
+
 class _ScanSeq2Seq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fns, dt, shapes, xs, prev0n, ysn, draws_f, *flat):
@@ -74,9 +84,8 @@ class _ScanSeq2Seq(torch.autograd.Function):
         fb = prev0n
         carries, preds = [], []
         for t in range(xs.shape[0]):
-            frame = torch.cat([xs[t], fb_channel(fb, padded_shape).to(dt)], dim=-1)
-            state = cells_step(cells, frame, state, dt, cell_fn)
-            pred = pred_from_h(state[-1][0], head_w, head_b, grid_shape, dt)
+            state, pred = feedback_step(cells, head_w, head_b, xs[t], fb, state, dt,
+                                        padded_shape, grid_shape, cell_fn)
             sel = draws_f[t][:, None, None]
             fb = sel * ysn[t] + (1.0 - sel) * pred
             carries.append(state)

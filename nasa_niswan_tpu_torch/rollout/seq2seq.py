@@ -14,9 +14,11 @@ Two routes, as in the JAX package (``_make_forward_chunk``):
 
 * ``config.remat`` set: the whole-chunk BPTT autograd Function of
   ops/seq2seq_bptt.py (B1 forward, B2 + B3 backward on the card);
-* otherwise (the CLI's default): a per-step loop of T=1 ``convlstm_apply``
-  calls, whose cells differentiate through the per-cell Function
-  ``FusedCell`` (B1's emit_gates mode, then B3 and B2's dW kernels).
+* otherwise (the CLI's default): a per-step loop (the JAX package's T=1
+  ``convlstm_apply`` per step), whose cells differentiate through the
+  per-cell Function ``FusedCell`` (B1's emit_gates mode, then B3 and B2's
+  dW kernels).  Both routes and the closed loop (evalx/evaluate.py) share
+  the step ``feedback_step``.
 
 The Bernoulli draws come from an explicit ``torch.Generator`` (uniform <
 teacher_prob, as ``jax.random.bernoulli`` draws); ``external_draws=True``
@@ -34,18 +36,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
+from nasa_niswan_tpu_torch.core.padding import pad_geo
 from nasa_niswan_tpu_torch.data.dataset import Normalizer
 from nasa_niswan_tpu_torch.data.pipeline import batch_iterator
-from nasa_niswan_tpu_torch.models.convlstm import (
-    CellFn,
-    ConvLSTMConfig,
-    GradsFn,
-    convlstm_apply,
-)
+from nasa_niswan_tpu_torch.models.convlstm import CellFn, ConvLSTMConfig, GradsFn
 from nasa_niswan_tpu_torch.ops.convgrad import cell_grads
+from nasa_niswan_tpu_torch.ops.convlstm_bptt import combined_cells
 from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward
-from nasa_niswan_tpu_torch.ops.seq2seq_bptt import scan_seq2seq
+from nasa_niswan_tpu_torch.ops.seq2seq_bptt import feedback_step, scan_seq2seq
 from nasa_niswan_tpu_torch.train.checkpoint import param_leaves, save_checkpoint
 from nasa_niswan_tpu_torch.train.loop import make_optimizer
 
@@ -131,15 +129,15 @@ def _make_forward_chunk(
             loss = torch.mean(err**2) + torch.mean(torch.abs(err))
             return loss, _chunk_stats(ys, preds)
 
+        head_w, head_b = params["head"]["w"], params["head"]["b"]
         prev, losses, preds = prev0n, [], []
         for t in range(T):
-            fb = pad_geo(prev, padded_shape)  # (B, H, W) normalized
-            frame = torch.cat([xs[t], fb[..., None]], dim=-1)[:, None]
-            pred_pad, state = convlstm_apply(
-                params, frame, config, initial_state=state, return_state=True,
-                cell_fn=cell_fn, grads_fn=grads_fn,
+            # the weights are combined and cast every step, as by a T=1
+            # convlstm_apply: their gradients then sum over the steps in f32
+            state, pred = feedback_step(
+                combined_cells(params, dt), head_w, head_b, xs[t], prev, state,
+                dt, padded_shape, grid_shape, cell_fn,
             )
-            pred = crop_to_grid(pred_pad[..., 0], grid_shape)  # (B, h, w)
             losses.append(torch.mean((ys[t] - pred) ** 2)
                           + torch.mean(torch.abs(ys[t] - pred)))
             # next step's feedback: scheduled sampling per (t, sample)
