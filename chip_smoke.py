@@ -27,9 +27,12 @@ Phases, each printing its own lines:
   (f) backward kernels vs plain: the fused cell backward (B2) and the SAME
       data-gradient conv (B3) against their plain PyTorch versions at the
       three training layer shapes (B=8, 100x154) and one ragged shape, bf16
-      and f32, with the bounds in BWD_BOUNDS; B2's dW kernels on their own
-      (conv_dw) at every dW shape of the main paths (DW_SHAPES), bf16; two
-      runs bit-identical; kernel, plain and library times (CUDA events);
+      and f32, with the bounds in BWD_BOUNDS; B3 alone also at config #3's
+      layer 1 (Cout 70) and the 20-level fusion's (Cout 126); B2's dW
+      kernels on their own (conv_dw) at every dW shape of the main paths
+      (DW_SHAPES), bf16, each on the tensor-core plan; two runs
+      bit-identical; per shape kernel, plain, library and bound times (CUDA
+      events);
   (g) train: the canonical training step (bs 8, T 48, 8 input channels,
       hidden 64/32/16, kernels 5/3/3, bf16, 100x154, Adam lr 1e-3 betas
       (0.5, 0.999)) on the synthetic fixture (T=720, 90x144, seed 0): one
@@ -70,7 +73,9 @@ Then one JSON line describing each kernel (launches summed over the counted
 main-path runs, a launch with two modes on counted once; the largest error
 against the plain version, kernel, plain and library times, and the least
 time the card could take for the same work; the cell_bwd entry holds the
-same for B2's dW kernels launched on their own, under "dw"), and last the
+same for B2's dW kernels launched on their own, under "dw", with a row per
+dW shape under "by_shape"; the conv_same entry a row per B3 shape under
+"by_shape"), and last the
 device line ``{"ok": true, "device": {...}}``.  Any failed check raises:
 the script exits non-zero and prints no result.  It
 also exits non-zero when no CUDA device is visible.
@@ -183,9 +188,9 @@ S2S_STEPS = 2
 TOL_S2S_STEP2 = 1e-4
 
 # (B, H, W, Cin, N, k) of every dW launch shape on the main paths: the
-# three per-cell training layers, config #3's layer 1 (Cin 70: the FP32
-# pipes), the hoisted layer 0's h-conv, and the hoisted input conv over
-# all T*B frames
+# three per-cell training layers, config #3's layer 1 (Cin 70, a ragged
+# channel count), the hoisted layer 0's h-conv, and the hoisted input conv
+# over all T*B frames
 DW_SHAPES = (
     (TRAIN_BS, 100, 154, TRAIN_C + 64, 256, 5),
     (TRAIN_BS, 100, 154, 64 + 32, 128, 3),
@@ -193,6 +198,14 @@ DW_SHAPES = (
     (TRAIN_BS, 100, 154, S2S_C + 64, 256, 5),
     (TRAIN_BS, 100, 154, 64, 256, 5),
     (TRAIN_T * TRAIN_BS, 100, 154, TRAIN_C, 256, 5),
+)
+
+# (B, H, W, Cin, Cout, k) of B3 as a data gradient beyond the three
+# training layers: config #3's layer 1 (Cout 70) and the 20-level fusion's
+# layer 1 (Cout 126), on dgates of hidden 64
+B3_SHAPES = (
+    (TRAIN_BS, 100, 154, 256, S2S_C + 64, 5),
+    (TRAIN_BS, 100, 154, 256, C + 64, 5),
 )
 
 KERNEL_SOURCES = {
@@ -472,6 +485,7 @@ def phase_backward(device) -> dict:
     times = {"cell_bwd": [0.0, 0.0], "conv_same": [0.0, 0.0]}
     work = {"cell_bwd": [0.0, 0.0], "conv_same": [0.0, 0.0]}
     library_ms = 0.0
+    b3_rows = []  # B3 per shape: the three training layers, then B3_SHAPES
     for B, H, W, cin, hid, k in BWD_SHAPES:
         rand = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
         xh32, c, dh, dc = rand(B, H, W, cin), rand(B, H, W, hid), rand(B, H, W, hid), rand(B, H, W, hid)
@@ -531,8 +545,11 @@ def phase_backward(device) -> dict:
                                         + px * 4 * hid * 2 + px * hid * 4 + kk * 4
                                         + 2 * 16 * hid)
                 # B3: dgates (B,H,W,4h) bf16 x w' (k,k,4h,Cin) bf16 -> f32
-                work["conv_same"][0] += 2.0 * px * kk
-                work["conv_same"][1] += px * 4 * hid * 2 + kk * 2 + px * cin * 4
+                b3 = conv_work(B, H, W, 4 * hid, cin, k)
+                work["conv_same"][0] += b3[0]
+                work["conv_same"][1] += b3[1]
+                b3_rows.append(_b3_row((B, H, W, 4 * hid, cin, k), d["dxh"], ms[2:], b3))
+    err["conv_same"] = max(err["conv_same"], _b3_alone(device, gen, b3_rows))
     out = {}
     for name, (ms, plain_ms) in times.items():
         print(f"[f] {name}, the three training layers, bf16: kernel {ms:.4f} ms, "
@@ -541,22 +558,68 @@ def phase_backward(device) -> dict:
         out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     out["conv_same"]["library_ms"] = library_ms
+    out["conv_same"]["by_shape"] = b3_rows
     print(f"[f] conv_same, the three training layers: library (bf16 F.conv2d) "
           f"{library_ms:.4f} ms")
     out["cell_bwd"]["dw"] = phase_dw(device)
     return out
 
 
+def conv_work(B, H, W, cin, cout, k):
+    """(FLOPs, bytes) of B3 with bf16 operands: x and w read once, the f32
+    output written once."""
+    px, kk = B * H * W, k * k * cin * cout
+    return 2.0 * px * kk, px * cin * 2 + kk * 2 + px * cout * 4
+
+
+def _b3_row(shape, rel, ms, work) -> dict:
+    bound_ms, bound_by = least_time(*work)
+    return {"shape": list(shape), "rel_err": rel, "ms": ms[0], "plain_ms": ms[1],
+            "library_ms": ms[2], "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _b3_alone(device, gen, rows) -> float:
+    """(f) B3 alone at B3_SHAPES, bf16: against the plain version within
+    BWD_BOUNDS["dxh"] of the largest entry, reruns bit-identical; kernel,
+    plain, library (bf16 F.conv2d) and bound times.  Appends to ``rows``;
+    returns the largest |error|."""
+    err = 0.0
+    for B, H, W, cin, cout, k in B3_SHAPES:
+        x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
+        w = (torch.randn((k, k, cin, cout), generator=gen, device=device)
+             / (k * k * cin) ** 0.5).bfloat16()
+        got, again, want = conv_same(x, w), conv_same(x, w), conv_same_plain(x, w)
+        torch.cuda.synchronize()
+        tag = f"B={B} H={H} W={W} Cin={cin} Cout={cout} k={k} bfloat16"
+        check(torch.equal(got, again), f"conv_same not deterministic at {tag}")
+        rel = _rel_max(got, want)
+        check(rel <= BWD_BOUNDS["dxh"], f"conv_same {rel:.3e} at {tag}")
+        err = max(err, (got - want).abs().max().item())
+        ms = [cuda_ms(lambda: conv_same(x, w), 5), cuda_ms(lambda: conv_same_plain(x, w), 5),
+              cuda_ms(lambda: conv2d(x, w, padding=k // 2), 5)]
+        row = _b3_row((B, H, W, cin, cout, k), rel, ms, conv_work(B, H, W, cin, cout, k))
+        rows.append(row)
+        print(f"[f] conv_same {tag}: rel max |d| {rel:.3e} (<= {BWD_BOUNDS['dxh']:g}), "
+              f"bit-identical reruns; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, library "
+              f"(bf16 F.conv2d) {ms[2]:.4f} ms, bound {row['bound_ms']:.4f} ms")
+        del x, w, got, again, want
+    torch.cuda.empty_cache()
+    return err
+
+
 def phase_dw(device) -> dict:
     """(f) B2's dW kernels on their own (``conv_dw``, the per-cell and
     hoisted routes' weight gradient) against one f32 matmul per tap, bf16,
-    at every dW shape of the main paths (DW_SHAPES): relative to the largest
-    entry <= BWD_BOUNDS["dw"], reruns bit-identical.  Kernel, plain and
-    library (cuDNN's bf16 weight gradient) times; the entry's sums are over
-    the three training layers."""
+    at every dW shape of the main paths (DW_SHAPES), each planned on the
+    tensor cores: relative to the largest entry <= BWD_BOUNDS["dw"], reruns
+    bit-identical.  Kernel, plain, library (cuDNN's bf16 weight gradient)
+    and bound times per shape (``by_shape``); the entry's sums are over the
+    three training layers."""
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    err, sums, work = 0.0, [0.0, 0.0, 0.0], [0.0, 0.0]
+    err, sums, work, rows = 0.0, [0.0, 0.0, 0.0], [0.0, 0.0], []
     for i, (B, H, W, cin, n, k) in enumerate(DW_SHAPES):
+        check(convgrad.dw_uses_mma(torch.bfloat16, B, H, W, cin, n, k),
+              f"conv_dw at {(B, H, W, cin, n, k)} bf16 is not on the tensor cores")
         x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
         g = torch.randn((B, H, W, n), generator=gen, device=device).bfloat16()
         got, again = convgrad.conv_dw(x, g, k), convgrad.conv_dw(x, g, k)
@@ -574,22 +637,30 @@ def phase_dw(device) -> dict:
               cuda_ms(lambda: convlstm_cell.dw_per_tap(x, g, k), reps),
               cuda_ms(lambda: torch.nn.grad.conv2d_weight(
                   xn, (n, cin, k, k), gn, padding=k // 2), reps)]
-        print(f"[f] conv_dw {tag}: rel max |d dw| {rel:.3e} (<= "
+        # in: x and dgates bf16, out: dw f32
+        px, kk = B * H * W, k * k * cin * n
+        flops, nbytes = 2.0 * px * kk, px * cin * 2 + px * n * 2 + kk * 4
+        bound = least_time(flops, nbytes)
+        print(f"[f] conv_dw {tag}: tensor-core plan; rel max |d dw| {rel:.3e} (<= "
               f"{BWD_BOUNDS['dw']:g}), bit-identical reruns; kernel {ms[0]:.4f} ms, "
-              f"plain {ms[1]:.4f} ms, library (bf16 conv2d_weight) {ms[2]:.4f} ms")
+              f"plain {ms[1]:.4f} ms, library (bf16 conv2d_weight) {ms[2]:.4f} ms, "
+              f"bound {bound[0]:.4f} ms")
         check(rel <= BWD_BOUNDS["dw"], f"conv_dw {rel:.3e} at {tag}")
+        rows.append({"shape": [B, H, W, cin, n, k], "rel_err": rel, "ms": ms[0],
+                     "plain_ms": ms[1], "library_ms": ms[2], "bound_ms": bound[0],
+                     "bound_by": bound[1]})
         if i < 3:
             sums = [a + b for a, b in zip(sums, ms)]
-            px, kk = B * H * W, k * k * cin * n
-            work[0] += 2.0 * px * kk
-            work[1] += px * cin * 2 + px * n * 2 + kk * 4
+            work[0] += flops
+            work[1] += nbytes
         del x, g, got, want
         torch.cuda.empty_cache()
     bound_ms, bound_by = least_time(*work)
     print(f"[f] conv_dw, the three training layers, bf16: kernel {sums[0]:.4f} ms, "
           f"plain {sums[1]:.4f} ms, library {sums[2]:.4f} ms, bound {bound_ms:.4f} ms")
     return {"max_abs_err": err, "ms": sums[0], "plain_ms": sums[1],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sums[2]}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sums[2],
+            "by_shape": rows}
 
 
 COUNTERS = {
@@ -1053,7 +1124,9 @@ def main() -> None:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          # B2's dW kernels launched on their own (niswan::conv_dw)
          **({"dw": dict(launches=LAUNCHED["conv_dw"], **stats[name]["dw"])}
-            if name == "cell_bwd" else {})}
+            if name == "cell_bwd" else {}),
+         # B3 per shape: the three training layers, then B3_SHAPES
+         **({"by_shape": stats[name]["by_shape"]} if name == "conv_same" else {})}
         for name, (src, replaces) in KERNEL_SOURCES.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

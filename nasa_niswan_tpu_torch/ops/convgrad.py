@@ -7,12 +7,14 @@ Replaces the TPU kernels of ``nasa_niswan_tpu/ops/convgrad_pallas.py``:
   recomputes the gates of one cell step from (xh, w, b), applies the
   elementwise backward of the nonlinearities and the state update, and
   reduces the weight and bias gradients over every pixel.  Kernel:
-  ``csrc/cell_bwd.cu`` (gate recompute on the forward's mainloop, dW split
-  over a fixed number of pixel slots and summed in a fixed order; no
-  atomics, so reruns are bit-identical).
+  ``csrc/cell_bwd.cu`` (gate recompute on the forward's mainloop; dW on the
+  tensor cores for every bf16 shape, split over a fixed number of pixel
+  slots and summed in a fixed order; no atomics, so reruns are
+  bit-identical).
 * ``conv_same`` (B3, ``_conv_same_kernel`` via ``conv_same_v2``): a SAME
   k x k conv with an f32 output; on the flipped, transposed cell kernel it is
-  the data gradient dxh.  Kernel: ``csrc/conv_same.cu``.
+  the data gradient dxh.  Kernel: ``csrc/conv_same.cu``, whose bf16 entry
+  takes channel counts padded to a multiple of 8 (``_mma_operands``).
 * ``cell_grads``: B2 then B3 on ``w_flip = flip(w, (0, 1)).swapaxes(2, 3)``,
   the complete per-cell backward (``cell_grads_pallas``).  With B1 in plain
   mode it is also the counterpart of the v1 cell's VJP ``_fused_bwd``
@@ -43,6 +45,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from nasa_niswan_tpu_torch.ops import _build
 from nasa_niswan_tpu_torch.ops.convlstm_cell import (
@@ -173,17 +176,32 @@ def _check_conv_args(x, w) -> None:
         raise ValueError("x and w must be contiguous on one device")
 
 
+def _mma_operands(x: torch.Tensor, w: torch.Tensor):
+    """bf16 operands as the tensor-core kernel takes them: x's channels and
+    w's input channels zero-padded to a multiple of 8, w's output channels
+    likewise (the kernel's weight row pitch), both 16-byte aligned.  A copy
+    is made only where that is not so already: w' of a cell with Cin 70 or
+    126 (0.9 MB), or the frames of the hoisted conv at C = 62."""
+    pc, po = -x.shape[-1] % 8, -w.shape[-1] % 8
+    if pc or x.data_ptr() % 16:
+        x = F.pad(x, (0, pc)) if pc else x.clone()
+    if pc or po or w.data_ptr() % 16:
+        w = F.pad(w, (0, po, 0, pc)) if pc or po else w.clone()
+    return x, w
+
+
 @torch.library.custom_op("niswan::conv_same", mutates_args=(), device_types="cuda")
 def _conv_same_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     global conv_same_launches
     lib = _build.load_kernels()
-    B, H, W, cin = x.shape
+    B, H, W, _ = x.shape
     k, cout = w.shape[0], w.shape[-1]
     out = torch.empty((B, H, W, cout), dtype=torch.float32, device=x.device)
-    fn = (
-        lib.niswan_conv_same_bf16 if x.dtype == torch.bfloat16
-        else lib.niswan_conv_same_f32
-    )
+    fn = lib.niswan_conv_same_f32
+    if x.dtype == torch.bfloat16:
+        x, w = _mma_operands(x, w)
+        fn = lib.niswan_conv_same_bf16
+    cin = x.shape[-1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
@@ -238,11 +256,23 @@ def _(x, dgates, k):
     return x.new_empty((k, k, x.shape[-1], dgates.shape[-1]), dtype=torch.float32)
 
 
+def dw_uses_mma(dtype: torch.dtype, B, H, W, cin, n, k) -> bool:
+    """Whether the dW kernels (``conv_dw`` and B2's) take these shapes on the
+    tensor cores, as the library plans them (builds the library); raises if
+    no kernel takes them."""
+    plan = _build.load_kernels().niswan_conv_dw_uses_mma(
+        int(dtype == torch.bfloat16), B, H, W, cin, n, k)
+    if plan < 0:
+        raise ValueError(f"no dw kernel for B={B} H={H} W={W} Cin={cin} N={n} k={k}")
+    return plan == 1
+
+
 def conv_dw(x: torch.Tensor, dgates: torch.Tensor, k: int) -> torch.Tensor:
     """f32 weight gradient (k,k,Cin,N) of the SAME k x k conv of x
     (B,H,W,Cin) for the output cotangent dgates (B,H,W,N) of x's dtype.
     CPU tensors run the plain version (one f32 matmul per tap), every other
-    device the kernel."""
+    device the kernel: the tensor cores for bf16 at any Cin and N, the FP32
+    pipes for f32."""
     if x.dim() != 4 or dgates.dim() != 4 or x.shape[:3] != dgates.shape[:3]:
         raise ValueError(
             f"expected x (B,H,W,Cin), dgates (B,H,W,N); got {tuple(x.shape)}, "

@@ -51,6 +51,11 @@ def _prep_frame(x, normalizer, static, padded_shape, cast_dtype=None):
     return torch.movedim(x, -3, -1)
 
 
+def _device(params, device) -> torch.device:
+    """``device``, or where the parameters live when it is None."""
+    return torch.device(device) if device is not None else params["head"]["w"].device
+
+
 def make_rollout_fn(
     config: ConvLSTMConfig,
     normalizer: Normalizer,
@@ -69,7 +74,8 @@ def make_rollout_fn(
     final_state)``: ``forcings`` raw (B, T, C, H, W) (tensor or numpy),
     ``preds`` (B, T, h, w) f32 (physical units when ``unnormalize``), and
     ``final_state`` the carry to hand to the next chunk.  Runs under
-    ``torch.inference_mode()`` on ``device`` (default: the forcings').
+    ``torch.inference_mode()`` on ``device`` (default: the parameters'; the
+    forcings are moved there).
     ``cell_fn`` is passed to ``convlstm_apply``.
 
     ``precompute_input_conv``: True hoists layer 0's input conv out of the
@@ -89,7 +95,7 @@ def make_rollout_fn(
 
     def rollout(params, forcings, initial_state=None):
         with torch.inference_mode():
-            forcings = torch.as_tensor(forcings, device=device)
+            forcings = torch.as_tensor(forcings, device=_device(params, device))
             st = None
             if static_np is not None:
                 st = torch.as_tensor(static_np, device=forcings.device)
@@ -123,12 +129,14 @@ def make_streaming_rollout(
     """Stateful wrapper for in-line serving inside a host model: call
     ``step(forcing_frame)`` with one raw (B, C, H, W) frame per model
     timestep; it returns that step's (B, h, w) prediction and keeps the
-    carry on the device between calls."""
+    carry on the device between calls (``device``, default the
+    parameters')."""
     rollout = make_rollout_fn(
         config, normalizer, padded_shape=padded_shape, grid_shape=grid_shape,
         static=static, device=device,
     )
     state = {"carry": None}
+    device = _device(params, device)
 
     def step(frame) -> torch.Tensor:
         frame = torch.as_tensor(frame, device=device)

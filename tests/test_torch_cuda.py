@@ -157,6 +157,29 @@ def test_conv_dw_matches_plain(device, dtype, B, H, W, cin, n, k):
     assert _rel(got, want) <= 1e-3
 
 
+@pytest.mark.parametrize("cin", [6, 70, 126])
+def test_conv_dw_bf16_ragged_cin_on_the_tensor_cores(device, cin):
+    """bf16 dW at channel counts that are not multiples of 8 (config #3's
+    layer 1 takes 70, the 20-level fusion 126) takes the tensor-core plan and
+    holds the per-tap f32 matmul within 1e-3 of the largest entry; reruns
+    bit-identical.  Also through a 2-byte-misaligned xh (a padded copy)."""
+    B, H, W, n, k = 2, 13, 21, 256, 5
+    assert convgrad.dw_uses_mma(torch.bfloat16, B, H, W, cin, n, k)
+    assert not convgrad.dw_uses_mma(torch.float32, B, H, W, cin, n, k)
+    rng = np.random.default_rng(cin)
+    x = torch.tensor(rng.standard_normal((B, H, W, cin)), dtype=torch.bfloat16)
+    g = torch.tensor(rng.standard_normal((B, H, W, n)), dtype=torch.bfloat16)
+    x, g = x.to(device), g.to(device)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+    x_odd = flat[1:].view(x.shape)
+    x_odd.copy_(x)
+    got, again, odd = conv_dw(x, g, k), conv_dw(x, g, k), conv_dw(x_odd, g, k)
+    want = dw_per_tap(x, g, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, odd)
+    assert _rel(got, want) <= 1e-3
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("with_xg", [False, True])
 def test_fused_cell_grads_match_autograd(device, dtype, with_xg):
@@ -274,8 +297,9 @@ def test_rollout_kernel_matches_plain(device):
 
 
 # hid 4 runs the gate recompute on the FP32 pipes in bf16 too; 8, 16, 32
-# and 64 on the tensor cores.  dW runs on the tensor cores in bf16 when Cin
-# is a multiple of 8, else on the FP32 pipes.
+# and 64 on the tensor cores.  dW runs on the tensor cores for every bf16
+# shape (a ragged Cin through a zero-padded copy of xh), on the FP32 pipes
+# for f32.
 BWD_SHAPES = [
     (1, 16, 24, 9, 8, 3),
     (2, 20, 28, 13, 16, 5),
@@ -326,7 +350,10 @@ def test_cell_bwd_matches_plain(device, dtype, B, H, W, cin, hid, k):
     "B,H,W,cin,cout,k",
     [(1, 16, 24, 32, 9, 3), (2, 20, 28, 64, 13, 5), (1, 10, 12, 16, 5, 1),
      (1, 9, 37, 256, 126, 7), (2, 12, 20, 256, 72, 5), (1, 13, 21, 128, 96, 3),
-     (2, 9, 17, 64, 48, 3)],
+     (2, 9, 17, 64, 48, 3),
+     # config #3's layer 1 (Cout 70), the 20-level fusion's (126), and the
+     # hoisted conv of C = 62 frames (a ragged Cin, padded by the wrapper)
+     (2, 12, 20, 256, 70, 5), (1, 11, 35, 256, 126, 5), (2, 10, 18, 62, 256, 5)],
 )
 def test_conv_same_matches_plain(device, dtype, B, H, W, cin, cout, k):
     """B3 against an f32 conv of the same operands: f32 sums in another
@@ -344,6 +371,22 @@ def test_conv_same_matches_plain(device, dtype, B, H, W, cin, cout, k):
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert torch.equal(got, again)
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_conv_same_misaligned_operands(device):
+    """bf16 operands that start 2 bytes off a 16-byte boundary are copied
+    once by the wrapper: the result equals that of the aligned operands."""
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.standard_normal((2, 12, 20, 64)), dtype=torch.bfloat16).to(device)
+    w = torch.tensor(rng.standard_normal((3, 3, 64, 72)) / 24.0,
+                     dtype=torch.bfloat16).to(device)
+    odd = []
+    for t in (x, w):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+        odd.append(flat[1:].view(t.shape))
+        odd[-1].copy_(t)
+    assert odd[0].data_ptr() % 16 and odd[1].data_ptr() % 16
+    assert torch.equal(conv_same(*odd), conv_same(x, w))
 
 
 def test_cell_grads_matches_plain(device):
