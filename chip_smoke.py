@@ -13,7 +13,9 @@ Phases, each printing its own lines:
   (c) kernel vs plain: the fused ConvLSTM cell kernel against its plain
       PyTorch version (f32 conv, TF32 off) at the three serving layer shapes
       and one ragged shape, bf16 and f32; max |dh|, |dc| <= 1e-3 and two
-      runs bit-identical; kernel and plain times (CUDA events);
+      runs bit-identical; every bf16 shape planned on the wgmma mainloop
+      (``cell_plan``); kernel, plain and bound times per shape (CUDA
+      events);
   (d) serve: the canonical C=62 model (20-level fusion, hidden 64/32/16,
       kernels 5/3/3, 100x154 padded grid), random weights from a seed, bf16,
       B=1: four 48-step requests chained through the carry, with exactly
@@ -30,9 +32,10 @@ Phases, each printing its own lines:
       and f32, with the bounds in BWD_BOUNDS; B3 alone also at config #3's
       layer 1 (Cout 70) and the 20-level fusion's (Cout 126); B2's dW
       kernels on their own (conv_dw) at every dW shape of the main paths
-      (DW_SHAPES), bf16, each on the tensor-core plan; two runs
-      bit-identical; per shape kernel, plain, library and bound times (CUDA
-      events);
+      (DW_SHAPES), bf16, each on the tensor-core plan; B2's gate recompute
+      (a) alone (``cell_bwd_recompute``), bit-identical to B2's own dgates,
+      dc_prev and db, on the wgmma mainloop; two runs bit-identical; per
+      shape kernel, plain, library and bound times (CUDA events);
   (g) train: the canonical training step (bs 8, T 48, 8 input channels,
       hidden 64/32/16, kernels 5/3/3, bf16, 100x154, Adam lr 1e-3 betas
       (0.5, 0.999)) on the synthetic fixture (T=720, 90x144, seed 0): one
@@ -48,8 +51,9 @@ Phases, each printing its own lines:
       at the three training layer shapes (B=8), xg at serving layer 0 (B=1,
       the hoisted h-conv) and at training layer 0 with both modes on; gates
       within one bf16 step plus 1e-5, h' and c' <= 1e-3, reruns
-      bit-identical; kernel and plain times, and the plain mode's time at
-      the serving shapes beside (c)'s;
+      bit-identical; every bf16 shape on the wgmma mainloop; kernel, plain
+      and bound times per shape, and the plain mode's time at the serving
+      shapes beside (c)'s;
   (j) the per-cell route (remat off) on the canonical training step: 3
       steps with exact launch counts (B1 emit_gates 3 x 48 per step, B2 and
       B1 plain none, B3 3 x 48 - 1 per step: layer 0's first step has no
@@ -72,9 +76,10 @@ Phases, each printing its own lines:
 Then one JSON line describing each kernel (launches summed over the counted
 main-path runs, a launch with two modes on counted once; the largest error
 against the plain version, kernel, plain and library times, and the least
-time the card could take for the same work; the cell_bwd entry holds the
-same for B2's dW kernels launched on their own, under "dw", with a row per
-dW shape under "by_shape"; the conv_same entry a row per B3 shape under
+time the card could take for the same work; the three B1 entries and the
+conv_same entry a row per timed shape under "by_shape"; the cell_bwd entry
+the same for B2's dW kernels launched on their own, under "dw", and for its
+gate recompute (a) alone, under "recompute", each with rows under
 "by_shape"), and last the
 device line ``{"ok": true, "device": {...}}``.  Any failed check raises:
 the script exits non-zero and prints no result.  It
@@ -248,6 +253,21 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+def check_wgmma(shape, tag: str) -> str:
+    """A bf16 shape of the cell kernels (every B1 mode, B2's gate
+    recompute) must be planned on the wgmma mainloop."""
+    plan = convlstm_cell.cell_plan(torch.bfloat16, *shape)
+    check(plan == "wgmma", f"{tag}: bf16 {shape} planned on {plan}, not wgmma")
+    return plan
+
+
+def _row(shape, ms, plain_ms, work, **extra) -> dict:
+    """One timed shape of a kernel entry: ms, plain ms and the bound."""
+    bound_ms, bound_by = least_time(*work)
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, **extra}
+
+
 def cuda_ms(fn, n: int = 20) -> float:
     """Mean device time of ``fn`` over ``n`` launches, after a warm-up."""
     for _ in range(3):
@@ -286,15 +306,19 @@ def phase_build() -> None:
         f"[b] {lib_path.name} built by nvcc ({' '.join(_build.NVCC_FLAGS)}) "
         f"from {_build.CSRC_DIR.name}/*.cu in {time.perf_counter() - t0:.1f} s"
     )
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
+    log = lib_path.with_suffix(".log").read_text().splitlines()
+    for line in log:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"[b] {line.strip()}")
+    serialized = [line for line in log if "wgmma.mma_async instructions are serialized" in line]
+    print(f"[b] ptxas serialized the wgmma pipeline in {len(serialized)} kernels")
 
 
 def phase_kernel_vs_plain(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED)
-    max_err, ms_step, plain_ms_step, by_shape = 0.0, 0.0, 0.0, {}
+    max_err, ms_step, plain_ms_step, by_shape, rows = 0.0, 0.0, 0.0, {}, []
     for B, H, W, cin, hid, k in CELL_SHAPES:
+        plan = check_wgmma((B, H, W, cin, hid, k), "[c]")
         xh32 = torch.randn((B, H, W, cin), generator=gen, device=device)
         c = torch.randn((B, H, W, hid), generator=gen, device=device)
         w32 = torch.randn((k, k, cin, 4 * hid), generator=gen, device=device)
@@ -312,11 +336,14 @@ def phase_kernel_vs_plain(device) -> dict:
             dc = (c1 - c2).abs().max().item()
             ms = cuda_ms(lambda: fused_cell_forward(xh, c, w, b))
             plain_ms = cuda_ms(lambda: fused_cell_forward_plain(xh, c, w, b))
+            bound = least_time(*cell_work(B, H, W, cin, hid, k))
             print(
                 f"[c] B={B} H={H} W={W} Cin={cin} hid={hid} k={k} "
                 f"{str(dtype).split('.')[-1]}: max|dh|={dh:.3e} max|dc|={dc:.3e} "
                 f"(tol {TOL_CELL:g}), bit-identical reruns; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                + (f", bound {bound[0]:.4f} ms, {plan} mainloop"
+                   if dtype == torch.bfloat16 else "")
             )
             check(dh <= TOL_CELL and dc <= TOL_CELL,
                   f"kernel vs plain {dh:.3e}/{dc:.3e} > {TOL_CELL:g}")
@@ -325,6 +352,9 @@ def phase_kernel_vs_plain(device) -> dict:
                 ms_step += ms
                 plain_ms_step += plain_ms
                 by_shape[(B, H, W, cin, hid, k)] = ms
+                rows.append(_row((B, H, W, cin, hid, k), ms, plain_ms,
+                                 cell_work(B, H, W, cin, hid, k), plan=plan,
+                                 launches_per_step="1 per serving step"))
     print(
         f"[c] one serving step's three cells, bf16: kernel {ms_step:.4f} ms, "
         f"plain {plain_ms_step:.4f} ms"
@@ -332,8 +362,8 @@ def phase_kernel_vs_plain(device) -> dict:
     works = [cell_work(*shape) for shape in by_shape]
     bound_ms, bound_by = least_time(sum(f for f, _ in works), sum(b for _, b in works))
     return {"max_abs_err": max_err, "ms": ms_step, "plain_ms": plain_ms_step,
-            "by_shape": by_shape, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "ms_by_shape": by_shape, "by_shape": rows, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def phase_serve(device) -> dict:
@@ -486,7 +516,9 @@ def phase_backward(device) -> dict:
     work = {"cell_bwd": [0.0, 0.0], "conv_same": [0.0, 0.0]}
     library_ms = 0.0
     b3_rows = []  # B3 per shape: the three training layers, then B3_SHAPES
+    rec_rows, rec_err = [], 0.0  # B2 (a) alone, per training layer
     for B, H, W, cin, hid, k in BWD_SHAPES:
+        check_wgmma((B, H, W, cin, hid, k), "[f] cell_bwd")
         rand = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
         xh32, c, dh, dc = rand(B, H, W, cin), rand(B, H, W, hid), rand(B, H, W, hid), rand(B, H, W, hid)
         w32 = rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5
@@ -549,6 +581,7 @@ def phase_backward(device) -> dict:
                 work["conv_same"][0] += b3[0]
                 work["conv_same"][1] += b3[1]
                 b3_rows.append(_b3_row((B, H, W, 4 * hid, cin, k), d["dxh"], ms[2:], b3))
+                rec_rows.append(_recompute_alone(args, got, tag))
     err["conv_same"] = max(err["conv_same"], _b3_alone(device, gen, b3_rows))
     out = {}
     for name, (ms, plain_ms) in times.items():
@@ -562,7 +595,52 @@ def phase_backward(device) -> dict:
     print(f"[f] conv_same, the three training layers: library (bf16 F.conv2d) "
           f"{library_ms:.4f} ms")
     out["cell_bwd"]["dw"] = phase_dw(device)
+    out["cell_bwd"]["recompute"] = _recompute_entry(rec_rows)
     return out
+
+
+def recompute_work(B, H, W, cin, hid, k):
+    """(FLOPs, bytes) of B2's part (a): the gate conv; in xh, w, b, c, dh,
+    dc; out dgates (bf16), dc_prev and one db."""
+    px, kk = B * H * W, k * k * cin * 4 * hid
+    return 2.0 * px * kk, (px * cin * 2 + kk * 2 + 16 * hid + 4 * px * hid * 4
+                           + px * 4 * hid * 2 + 16 * hid)
+
+
+def _recompute_alone(args, got, tag) -> dict:
+    """(f) B2's gate recompute (a) alone (``cell_bwd_recompute``, no dW) at
+    a training layer, bf16: bit-identical to B2's own dgates, dc_prev and
+    db; its largest error against its plain version, and kernel, plain and
+    bound times."""
+    xh, c = args[0], args[1]
+    rec = convgrad.cell_bwd_recompute(*args)
+    want = convgrad.cell_bwd_recompute_plain(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(rec, (got[0], got[1], got[3]))),
+          f"B2 (a) alone differs from B2 at {tag}")
+    err = max((x.float() - y.float()).abs().max().item() for x, y in zip(rec, want))
+    ms = cuda_ms(lambda: convgrad.cell_bwd_recompute(*args), 5)
+    plain_ms = cuda_ms(lambda: convgrad.cell_bwd_recompute_plain(*args), 5)
+    shape = (*xh.shape, c.shape[-1], args[4].shape[0])
+    row = _row(shape, ms, plain_ms, recompute_work(*shape), plan="wgmma", max_abs_err=err,
+               launches_per_step=f"{TRAIN_T} per remat step (one per B2 launch)")
+    print(f"[f] cell_bwd (a) alone, {tag}: bit-identical to B2's dgates, dc_prev, db; "
+          f"max |d| vs plain {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms")
+    return row
+
+
+def _recompute_entry(rows) -> dict:
+    """The three training layers of B2 (a) alone, summed."""
+    bound_ms, bound_by = least_time(*(sum(v) for v in zip(*(
+        recompute_work(*r["shape"]) for r in rows))))
+    ms = sum(r["ms"] for r in rows)
+    print(f"[f] cell_bwd (a) alone, the three training layers, bf16: kernel {ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms")
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows), "ms": ms,
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "by_shape": rows}
 
 
 def conv_work(B, H, W, cin, cout, k):
@@ -804,7 +882,9 @@ def phase_modes(device, cell) -> dict:
     # per entry: max |err|, then over its timed shapes kernel ms, plain ms,
     # FLOPs and bytes
     stats = {"gates": [0.0] * 5, "xg": [0.0] * 5}
+    rows = {"gates": [], "xg": []}
     for mode, (B, H, W, cin, hid, k) in cases:
+        plan = check_wgmma((B, H, W, cin, hid, k), f"[i] {mode}")
         xh32, c = rand(B, H, W, cin), rand(B, H, W, hid)
         w32 = rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5
         b, xg32 = 0.1 * rand(4 * hid), rand(B, H, W, 4 * hid)
@@ -835,7 +915,14 @@ def phase_modes(device, cell) -> dict:
                 check(excess <= 1e-5, f"{tag}: gates excess {excess:.3e}")
             if dtype == torch.bfloat16:
                 ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain, 10)
-                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                work = cell_work(B, H, W, cin, hid, k, gates="gates" in mode,
+                                 xg="xg" in mode)
+                row = _row((B, H, W, cin, hid, k), ms, plain_ms, work, plan=plan, mode=mode,
+                           launches_per_step=("1 per hoisted serving step" if mode == "xg"
+                                              else f"{TRAIN_T} per per-cell step"))
+                rows["xg" if mode == "xg" else "gates"].append(row)
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                         f"{row['bound_ms']:.4f} ms, {plan} mainloop")
                 if mode in stats:  # the entry's timed shapes
                     flops, nbytes = cell_work(B, H, W, cin, hid, k, gates=mode == "gates",
                                               xg=mode == "xg")
@@ -850,14 +937,15 @@ def phase_modes(device, cell) -> dict:
         err, ms, plain_ms, flops, nbytes = stats[name]
         bound_ms, bound_by = least_time(flops, nbytes)
         out[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                    "by_shape": rows[name]}
     print(f"[i] emit_gates, the three training layers (B={TRAIN_BS}), bf16: kernel "
           f"{out['convlstm_cell_gates']['ms']:.4f} ms, plain "
           f"{out['convlstm_cell_gates']['plain_ms']:.4f} ms; xg, serving layer 0: "
           f"kernel {out['convlstm_cell_xg']['ms']:.4f} ms, plain "
           f"{out['convlstm_cell_xg']['plain_ms']:.4f} ms")
     # the plain mode reads no xg and writes no gates: its time as in (c)
-    for shape, ms_c in cell["by_shape"].items():
+    for shape, ms_c in cell["ms_by_shape"].items():
         B, H, W, cin, hid, k = shape
         xh, c, b = rand(B, H, W, cin).bfloat16(), rand(B, H, W, hid), rand(4 * hid)
         w = (rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5).bfloat16()
@@ -1122,11 +1210,13 @@ def main() -> None:
          "launches": LAUNCHED[name],
          **{key: stats[name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-         # B2's dW kernels launched on their own (niswan::conv_dw)
-         **({"dw": dict(launches=LAUNCHED["conv_dw"], **stats[name]["dw"])}
+         # B2's dW kernels launched on their own (niswan::conv_dw), and its
+         # gate recompute (a) alone, run once in every B2 launch
+         **({"dw": dict(launches=LAUNCHED["conv_dw"], **stats[name]["dw"]),
+             "recompute": dict(launches=LAUNCHED["cell_bwd"], **stats[name]["recompute"])}
             if name == "cell_bwd" else {}),
-         # B3 per shape: the three training layers, then B3_SHAPES
-         **({"by_shape": stats[name]["by_shape"]} if name == "conv_same" else {})}
+         # per timed shape (B3: the three training layers, then B3_SHAPES)
+         **({"by_shape": stats[name]["by_shape"]} if "by_shape" in stats[name] else {})}
         for name, (src, replaces) in KERNEL_SOURCES.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,13 @@
 // in three launches, none with atomics, so reruns are bit-identical:
 //
 //  (a) cell_*_kernel with BackwardEpi: the gates are recomputed with the
-//      forward's implicit-GEMM mainloop (cell_mainloop.cuh: tensor cores for
-//      bf16 with hid in {8, 16, 32, 64}, FP32 pipes otherwise), and the
-//      epilogue applies the elementwise backward of the nonlinearities and
-//      the state update (convgrad_pallas.py:147-163) in registers.  It writes
-//      dgates rounded to the compute dtype, dc_prev, and per block the f32
-//      sums of its dgates (the db partials, one row per block).
+//      forward's implicit-GEMM mainloop (cell_mainloop.cuh: wgmma for bf16
+//      with hid in {8, 16, 32, 64}, reading the caller's packed weights
+//      `wpack`; FP32 pipes otherwise), and the epilogue applies the
+//      elementwise backward of the nonlinearities and the state update
+//      (convgrad_pallas.py:147-163) in registers.  It writes dgates rounded
+//      to the compute dtype, dc_prev, and per block the f32 sums of its
+//      dgates (the db partials, one row per block of the plan's grid).
 //  (b) dw as a GEMM of M = k*k*Cin rows (tap, channel) by N = 4*hid columns
 //      over K = B*H*W pixels, split over the pixels into a fixed number of
 //      slots; each block owns a tile of dw and one slot and writes its f32
@@ -69,6 +70,24 @@ namespace {
 
 using namespace niswan;
 
+// The elementwise backward of one (pixel, channel): pre-activation gates p,
+// state c, cotangents dh, dc -> gate cotangents d (i, f, g, o), dc_prev.
+__device__ __forceinline__ float cell_backward(const float (&p)[4], float c32,
+                                               float dhv, float dcv,
+                                               float (&d)[4]) {
+  const float i = sigmoid(p[0]);
+  const float f = sigmoid(p[1]);
+  const float g = tanhf(p[2]);
+  const float og = sigmoid(p[3]);
+  const float tc = tanhf(c32 * f + i * g);
+  const float dct = dcv + dhv * og * (1.0f - tc * tc);
+  d[0] = dct * g * i * (1.0f - i);
+  d[1] = dct * c32 * f * (1.0f - f);
+  d[2] = dct * i * (1.0f - g * g);
+  d[3] = dhv * tc * og * (1.0f - og);
+  return dct * f;
+}
+
 template <typename T>
 struct BackwardEpi {
   const float* c;
@@ -84,28 +103,36 @@ struct BackwardEpi {
                                         float pg, float po,
                                         float (&sum)[4]) const {
     const size_t o = pix * hid + j;
-    const float i = sigmoid(pi);
-    const float f = sigmoid(pf);
-    const float g = tanhf(pg);
-    const float og = sigmoid(po);
-    const float c32 = c[o];
-    const float tc = tanhf(c32 * f + i * g);
-    const float dhv = dh[o];
-    const float dct = dc[o] + dhv * og * (1.0f - tc * tc);
-    const float d_i = dct * g * i * (1.0f - i);
-    const float d_f = dct * c32 * f * (1.0f - f);
-    const float d_g = dct * i * (1.0f - g * g);
-    const float d_o = dhv * tc * og * (1.0f - og);
+    const float p[4] = {pi, pf, pg, po};
+    float d[4];
+    dc_prev[o] = cell_backward(p, c[o], dh[o], dc[o], d);
     T* dg = dgates + pix * 4 * hid + j;
-    dg[0] = from_f32<T>(d_i);
-    dg[hid] = from_f32<T>(d_f);
-    dg[2 * hid] = from_f32<T>(d_g);
-    dg[3 * hid] = from_f32<T>(d_o);
-    dc_prev[o] = dct * f;
-    sum[0] += d_i;
-    sum[1] += d_f;
-    sum[2] += d_g;
-    sum[3] += d_o;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      dg[g * hid] = from_f32<T>(d[g]);
+      sum[g] += d[g];
+    }
+  }
+
+  // channels j, j + 1 (j even; bf16 only): f32 and bf16 pairs
+  __device__ __forceinline__ void apply2(size_t pix, int j, const float (&p)[2][4],
+                                         float (&sum)[2][4]) const {
+    const size_t o = pix * hid + j;
+    const float2 cv = *reinterpret_cast<const float2*>(c + o);
+    const float2 dhv = *reinterpret_cast<const float2*>(dh + o);
+    const float2 dcv = *reinterpret_cast<const float2*>(dc + o);
+    float d0[4], d1[4];
+    float2 prev;
+    prev.x = cell_backward(p[0], cv.x, dhv.x, dcv.x, d0);
+    prev.y = cell_backward(p[1], cv.y, dhv.y, dcv.y, d1);
+    *reinterpret_cast<float2*>(dc_prev + o) = prev;
+    T* dg = dgates + pix * 4 * hid + j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      *reinterpret_cast<__nv_bfloat162*>(dg + g * hid) = __floats2bfloat162_rn(d0[g], d1[g]);
+      sum[0][g] += d0[g];
+      sum[1][g] += d1[g];
+    }
   }
 };
 
@@ -609,10 +636,10 @@ struct BwdPlan {
   long long floats;  // workspace: dw's (slots and padded copies), then db rows
 };
 
-bool plan_bwd(bool bf16, const void* xh, const void* w, int B, int H, int W,
-              int Cin, int hid, int k, BwdPlan* out) {
+bool plan_bwd(bool bf16, const void* xh, int B, int H, int W, int Cin, int hid,
+              int k, BwdPlan* out) {
   BwdPlan p;
-  if (!plan_cell(bf16, w, B, H, W, Cin, hid, k, true, &p.cell)) return false;
+  if (!plan_cell(bf16, xh, B, H, W, Cin, hid, k, true, &p.cell)) return false;
   if (!plan_dw(bf16, xh, nullptr, B, H, W, Cin, 4 * hid, k, &p.dw)) return false;
   p.db_rows = (long long)p.cell.grid.x * p.cell.grid.y * p.cell.grid.z;
   p.floats = p.dw.floats() + p.db_rows * 4 * hid;
@@ -623,10 +650,10 @@ bool plan_bwd(bool bf16, const void* xh, const void* w, int B, int H, int W,
 template <typename T>
 int backward(const void* xh, const void* w, const void* b, const void* c,
              const void* dh, const void* dc, void* dgates, void* dc_prev,
-             void* dw, void* db, void* work, int B, int H, int W, int Cin,
-             int hid, int k, void* stream) {
+             void* dw, void* db, void* work, const void* wpack, int B, int H,
+             int W, int Cin, int hid, int k, void* stream) {
   BwdPlan p;
-  if (!plan_bwd(std::is_same<T, __nv_bfloat16>::value, xh, w, B, H, W, Cin,
+  if (!plan_bwd(std::is_same<T, __nv_bfloat16>::value, xh, B, H, W, Cin,
                 hid, k, &p))
     return (int)cudaErrorInvalidValue;
   // the plan took dgates as aligned (it is this call's output)
@@ -641,11 +668,13 @@ int backward(const void* xh, const void* w, const void* b, const void* c,
       static_cast<const float*>(c), static_cast<const float*>(dh),
       static_cast<const float*>(dc), static_cast<T*>(dgates),
       static_cast<float*>(dc_prev), hid, db_part};
-  int err = launch_cell<T>(p.cell, xh, w, b, epi, H, W, Cin, hid, k, stream);
+  int err = launch_cell<T>(p.cell, xh, w, wpack, b, epi, H, W, Cin, hid, k, stream);
   if (err) return err;
 
-  err = launch_dw<T>(p.dw, xh, dgates, dw_work, dw, B, H, W, Cin, N, k, s);
-  if (err) return err;
+  if (dw != nullptr) {  // a null dw runs (a) and db alone
+    err = launch_dw<T>(p.dw, xh, dgates, dw_work, dw, B, H, W, Cin, N, k, s);
+    if (err) return err;
+  }
   sum_rows_kernel<<<N, kRowThreads, 0, s>>>(db_part, static_cast<float*>(db),
                                             p.db_rows, N);
   return (int)cudaGetLastError();
@@ -656,13 +685,12 @@ int backward(const void* xh, const void* w, const void* b, const void* c,
 extern "C" {
 
 // Floats of workspace niswan_cell_bwd_{f32,bf16} needs for these shapes and
-// these xh and weight pointers (their alignment picks the kernels and the
-// padded copies); -1 if no kernel takes them.
-long long niswan_cell_bwd_workspace(int bf16, const void* xh, const void* w,
-                                    int B, int H, int W, int Cin, int hid,
-                                    int k) {
+// this xh pointer (its alignment picks the copies and the padded copy of
+// dw); -1 if no kernel takes them.
+long long niswan_cell_bwd_workspace(int bf16, const void* xh, int B, int H,
+                                    int W, int Cin, int hid, int k) {
   BwdPlan p;
-  if (!plan_bwd(bf16 != 0, xh, w, B, H, W, Cin, hid, k, &p)) return -1;
+  if (!plan_bwd(bf16 != 0, xh, B, H, W, Cin, hid, k, &p)) return -1;
   return p.floats;
 }
 
@@ -702,23 +730,26 @@ int niswan_conv_dw_bf16(const void* xh, const void* dgates, void* dw,
 }
 
 // Each returns the cudaError_t of its launches (0 = success).  They are
-// asynchronous on `stream`; nothing is synchronised or allocated here.
+// asynchronous on `stream`; nothing is synchronised or allocated here.  A
+// null `dw` skips (b): the gate recompute (a) and db alone, for timing.
+// `wpack` is w's packed image (niswan_pack_cell_weights) where the wgmma
+// mainloop takes the shapes, else null.
 int niswan_cell_bwd_f32(const void* xh, const void* w, const void* b,
                         const void* c, const void* dh, const void* dc,
                         void* dgates, void* dc_prev, void* dw, void* db,
-                        void* work, int B, int H, int W, int Cin, int hid,
+                        void* work, const void* wpack, int B, int H, int W, int Cin, int hid,
                         int k, void* stream) {
-  return backward<float>(xh, w, b, c, dh, dc, dgates, dc_prev, dw, db, work, B,
-                         H, W, Cin, hid, k, stream);
+  return backward<float>(xh, w, b, c, dh, dc, dgates, dc_prev, dw, db, work, wpack,
+                         B, H, W, Cin, hid, k, stream);
 }
 
 int niswan_cell_bwd_bf16(const void* xh, const void* w, const void* b,
                          const void* c, const void* dh, const void* dc,
                          void* dgates, void* dc_prev, void* dw, void* db,
-                         void* work, int B, int H, int W, int Cin, int hid,
+                         void* work, const void* wpack, int B, int H, int W, int Cin, int hid,
                          int k, void* stream) {
   return backward<__nv_bfloat16>(xh, w, b, c, dh, dc, dgates, dc_prev, dw, db,
-                                 work, B, H, W, Cin, hid, k, stream);
+                                 work, wpack, B, H, W, Cin, hid, k, stream);
 }
 
 }  // extern "C"

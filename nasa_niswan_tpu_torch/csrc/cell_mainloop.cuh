@@ -3,43 +3,97 @@
 //
 //   gates = conv_same(xh, w) + b      xh (B,H,W,Cin), w (k,k,Cin,4*hid) HWIO
 //
-// Two mainloops compute the gates and hand each (pixel, hidden channel j)
-// its four pre-activation gates (i, f, g, o) in registers; an epilogue
-// functor decides what to do with them:
+// It replaces the gate conv of three TPU kernels: B1
+// nasa_niswan_tpu/ops/convlstm_pallas2.py::_cell_kernel_v2 (all modes), the
+// gate recompute of B2 nasa_niswan_tpu/ops/convgrad_pallas.py::
+// _cell_bwd_kernel, and B4 nasa_niswan_tpu/ops/convlstm_pallas.py::
+// _cell_kernel (the same cell as B1's plain mode).  Two mainloops hand the
+// four pre-activation gates (i, f, g, o) of a (pixel, hidden channel) to an
+// epilogue functor, which decides what to do with them:
 //
 //   struct Epi {
-//     static constexpr bool kReduce;     // also reduce 4 sums over the block
+//     static constexpr bool kReduce;     // also reduce 4*hid sums over the block
 //     float* db_part;                    // [block][4*hid], when kReduce
+//     // FP32 pipes: channel j of pixel pix
 //     __device__ void apply(size_t pix, int j, float i, float f, float g,
 //                           float o, float (&sum)[4]) const;
+//     // wgmma: channels j, j + 1 (j even) of pixel pix, p[e][gate]
+//     __device__ void apply2(size_t pix, int j, const float (&p)[2][4],
+//                            float (&sum)[2][4]) const;
 //   };
 //
 // `pix` is the flat NHWC pixel index (b*H + row)*W + col.  With kReduce the
-// kernel sums each thread's `sum` over the block's pixels in a fixed order
-// and writes one row of 4*hid partial sums per block, so a second pass can
-// finish the sum without atomics and reruns stay bit-identical.
+// kernel sums `sum` over the block's pixels in a fixed order and writes one
+// row of 4*hid partial sums per block, so a second pass finishes the sum
+// without atomics and reruns stay bit-identical.
 //
 //  * cell_fp32_kernel (any operand type T, hid <= 128, FP32 pipes): one block
 //    per (batch, row tile, 16-column tile); each thread owns one hidden
-//    channel j and kPix = 4 consecutive columns and keeps the four gate
-//    accumulators (j, hid+j, 2hid+j, 3hid+j) of each pixel in registers; the
-//    haloed input tile is staged in shared memory (as f32) in chunks of
-//    kChunk input channels, so shared memory stays under 48 KB for any Cin
-//    (41 KB at most, k = 7) and the ragged channel tail is the last chunk.
-//  * cell_mma_kernel (bf16 operands, hid in {8, 16, 32, 64}, tensor cores,
-//    mma.sync m16n8k16 with f32 accumulate): M = pixels, N = 4*hid gate
-//    columns, K = k*k*Cin.  A block computes an 8-row (hid 64) or 4-row x
-//    16-column pixel tile and all N columns with 16 or 8 warps: 4 or 2 along
-//    M (two 16-pixel rows each) x 4 along N (hid columns each).  Per chunk of 32 input channels the haloed
-//    input tile is staged once; per (chunk, tap) the 32 x N weight slice is
-//    staged with its columns interleaved as n = 4*j + g, so that an m16n8
-//    accumulator holds gates (i, f) of channel j in even lanes and (g, o) in
-//    odd lanes: one shuffle with the neighbouring lane gives each thread all
-//    four gates of one (pixel, j).  A fragments are read straight from the
-//    staged halo tile (the implicit GEMM's im2col).  Shared-memory rows are
-//    padded to 40 bf16 so fragment loads are free of bank conflicts.
+//    channel j and kPix = 4 consecutive columns; the haloed input is staged
+//    (as f32) in chunks of kChunk channels.  f32 operands, and bf16 at a hid
+//    that is not 8, 16, 32 or 64 (no main path has one), run here.
+//  * cell_wgmma_kernel (bf16 operands, hid in {8, 16, 32, 64}): M = pixels,
+//    N = 4*hid gate columns in block order, K = k*k*Cin, f32 accumulate.
 //
-// The SAME zero padding is applied at every frame edge by the tile loaders.
+// What bounds the gate conv on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s,
+// 50 MB L2), at the main-path shapes (100x154 padded grid; FLOPs of the
+// conv, bytes of every operand once):
+//   training B = 8: layer 1 (Cin 72, hid 64, k 5) 113.5 GFLOP, 0.115 ms;
+//     layer 2 (Cin 96, hid 32, k 3) 0.028 ms; layer 3 (Cin 48, hid 16,
+//     k 3) 0.008 ms, all bound by operations (xh, c, h', c' ~25-60 MB);
+//   serving B = 1: layer 1 (Cin 126) 0.025 ms, layers 2-3 0.004 ms.
+// So the operands must reach the tensor cores at their full rate, fed from
+// shared memory with every copy overlapped.  The old mma.sync kernel
+// restaged a 32 x N weight slice per (chunk, tap) with two barriers and no
+// copy in flight, and reached 7-10% of the bound.  This one:
+//  1. Weights through a ring of kRing shared-memory stages fed by
+//     cp.async.bulk and mbarriers (full: bytes landed; empty: every consumer
+//     warp is done), kept full by one producer warp; no block-wide barrier
+//     in the K loop.  The caller packs w once per weight tensor
+//     (pack_cell_weights_kernel, ~1 MB at layer 1; ops/convlstm_cell.py
+//     keeps it while the tensor is unchanged) into the byte image each
+//     stage must hold: per k16 step a K-major, unswizzled wgmma B tile, so a
+//     stage is one 1-D bulk copy and needs no tensor map.  Columns stay in
+//     gate-block order: a warpgroup's accumulator spans all N columns, so a
+//     thread holds all four gates of its channels and no interleave is
+//     needed (the old kernel split N over warps, hence its n = 4j + g).
+//  2. Weight bytes from L2 per launch = blocks x packed bytes.  Training:
+//     layer 1 1040 blocks x 1.02 MB = 1065 MB (old kernel 958 MB: 72 of
+//     the 80 padded channels), layer 2 1040 x 221 KB = 230 MB (442), layer
+//     3 1040 x 55 KB = 58 MB (111); serving: layer 1 130 x 1.64 MB = 213 MB
+//     (210), layers 2-3 29 and 7 MB (55 and 14).  Sharing each stage
+//     between two blocks of a cluster by multicast halved the hid-64 bytes
+//     but cost 8% of layer 1's time (remote barrier arrivals, the pair in
+//     lockstep; measured on an H100, PERF.md): at ~30% of the bound the
+//     mainloop is not bound by L2 bytes, so blocks stay alone.
+//  3. The haloed input tile ((8+k-1) x (16+k-1) pixels x up to 128
+//     channels) is staged once per block (per 128-channel group beyond
+//     that) by asynchronous copies, zero-filled outside the frame (the SAME
+//     padding) and past Cin.  The copy is as wide as Cin and xh allow: 16
+//     bytes when Cin % 8 == 0, else 8 or 4 bytes (Cin 70, 126), else 2.
+//     Copying a ragged row's contiguous run in aligned 16-byte pieces and
+//     placing its channel pairs was tried: Cin 126 cost as much over Cin
+//     128 (15-17%), and the extra code slowed every layer (PERF.md).  Pixels
+//     are cp + 8 bf16 apart (cp = channels rounded up to 16), an odd number
+//     of 16-byte units, so ldmatrix reads are conflict-free.
+//  4. K in steps of 16 channels: a ragged Cin wastes at most 15 (Cin 72 ->
+//     80, 126 -> 128, 70 -> 80).  The packed B rows past Cin are zero and
+//     so are the halo's channels past Cin.
+//  5. wgmma.m64nNk16 (sm_90a): two consumer warpgroups, each 4 rows x 16
+//     columns of the 8 x 16 pixel tile (one image row of 16 pixels per
+//     warp, the m16n8k16 A fragment), N = 4*hid (256/128/64/32).  A comes
+//     from registers, ldmatrix'ed from the halo at the tap-shifted address
+//     (every tap from one staged halo); B from the ring.  A is double
+//     buffered: step s+1's ldmatrix overlaps step s's wgmma
+//     (wgmma.wait_group 1).  ptxas still reports the wgmma pipeline
+//     serialized (C7513, "non wgmma instructions defining input registers");
+//     neither fencing the operands nor grouping the steps removed it, and
+//     grouping with wait_group 0 measured slower (PERF.md).
+//  6. Epilogue: each thread holds channel pairs (j, j + 1) of two pixels,
+//     so c, h', c', dh, dc, dc_prev move as 8-byte pairs and gates and
+//     dgates as bf16 pairs, each quad of lanes covering 32 contiguous bytes.
+//     The db partials are reduced by a fixed butterfly over the lanes, then
+//     over the 8 consumer warps in order.
 
 #pragma once
 
@@ -59,17 +113,6 @@ constexpr int kChunk = 32;             // input channels staged per pass
 constexpr int kStride = kChunk + 1;    // padded pixel stride in shared memory
 constexpr int kMaxThreads = 512;
 
-constexpr int kMmaCols = 16;              // output columns per block (m16)
-constexpr int kMmaChunk = 32;             // input channels per stage
-constexpr int kMmaStride = kMmaChunk + 8; // bf16 per staged row
-
-// Output rows per block of the tensor-core kernel, by NT = hid / 8: the
-// 32 x 256 weight slice of hid 64 is amortized over 8 rows (measured faster
-// at B = 1 and 8); the narrower layers keep 4 rows, and enough blocks.
-__host__ __device__ constexpr int mma_rows(int nt) { return nt == 8 ? 8 : 4; }
-// two rows per warp along M, 4 warps along N
-__host__ __device__ constexpr int mma_threads(int nt) { return 32 * (mma_rows(nt) / 2) * 4; }
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -86,10 +129,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -251,190 +290,458 @@ cell_fp32_kernel(const T* __restrict__ xh, const T* __restrict__ w,
   }
 }
 
-// NT = hid / 8: the n8 tiles of one warp's hid columns.
+
+// ---- the bf16 mainloop on wgmma ----------------------------------------------
+
+constexpr int kCellRows = 8;           // output rows per block: 4 per warpgroup
+constexpr int kCellCols = 16;          // output columns per block: one m16 per warp
+constexpr int kCellConsumers = 256;    // two consumer warpgroups
+constexpr int kCellThreads = kCellConsumers + 32;  // + one producer warp
+constexpr int kRing = 4;               // weight stages in the ring
+constexpr int kStageBytes = 16384;     // bytes per stage: 1024 / N k16 steps
+constexpr int kGroupCh = 128;          // input channels per staged halo
+constexpr int kRingOffset = 128;       // the ring follows 2 * kRing mbarriers
+constexpr int kMaxSmem = 232448;       // dynamic shared memory a block may use
+// wgmma B descriptor, K-major without swizzle: core matrices of 8 gate
+// columns x 8 channels (128 contiguous bytes); the two along K (channels
+// 0-7, 8-15) are kLbo apart, the next 8 columns kSbo apart
+constexpr int kLbo = 128;
+constexpr int kSbo = 256;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 8 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// `bytes` from global to shared, completing on the mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// named barrier over the consumer warps only (the producer warp may be gone)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kCellConsumers) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// d (m64 x N, f32) += a (m64 x k16 bf16, registers, the m16n8k16 A fragment
+// of each warp's 16 rows) x B (k16 x N bf16 in shared memory, descriptor)
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<32> {
+  __device__ static __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<256> {
+  __device__ static __forceinline__ void mma(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+
+// Steps of the K loop: for each group of kGroupCh input channels, for each
+// tap, for each 16-channel chunk of the group.  The packed weights hold one
+// k16 x N tile per step, in that order.
+__host__ __device__ inline int cell_chunks(int Cin, int g) {
+  const int left = Cin - g * kGroupCh;
+  return ((left < kGroupCh ? left : kGroupCh) + 15) / 16;
+}
+
+__host__ __device__ inline int cell_steps(int Cin, int k) {
+  int s = 0;
+  for (int g = 0; g * kGroupCh < Cin; ++g) s += k * k * cell_chunks(Cin, g);
+  return s;
+}
+
+// w (k,k,Cin,N) HWIO -> the wgmma B image: per step s a k16 x N tile of
+// 16-byte units [N/8][2][8] (columns 8nb..8nb+7, channels 8kh..8kh+7 of
+// the chunk), channels past Cin zero.  One thread per 16-byte unit.
+static __global__ void pack_cell_weights_kernel(const __nv_bfloat16* __restrict__ w,
+                                         __nv_bfloat16* __restrict__ out, int K,
+                                         int Cin, int N, long long units) {
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= units) return;
+  const int r = (int)(u & 7), kh = (int)((u >> 3) & 1);
+  const long long t = u >> 4;
+  const int nb = (int)(t % (N / 8));
+  const int s = (int)(t / (N / 8));
+  const int g = s / (K * K * (kGroupCh / 16));
+  const int rem = s - g * K * K * (kGroupCh / 16);
+  const int nch = cell_chunks(Cin, g);
+  const int tap = rem / nch, c = rem % nch;
+  const int ch0 = g * kGroupCh + c * 16 + 8 * kh;
+  const int n = 8 * nb + r;
+  const __nv_bfloat16* src = w + ((size_t)tap * Cin) * N + n;
+  uint32_t v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int ch = ch0 + 2 * q;
+    const uint32_t lo = ch < Cin ? __bfloat16_as_ushort(src[(size_t)ch * N]) : 0u;
+    const uint32_t hi = ch + 1 < Cin ? __bfloat16_as_ushort(src[(size_t)(ch + 1) * N]) : 0u;
+    v[q] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(out + u * 8) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// The haloed tile ((kCellRows + K - 1) x (kCellCols + K - 1) pixels, pixel
+// stride cp + 8) of channels [c0, c0 + cp) of image b (xh_b), by copies of
+// vec channels: 16-byte cp.async for vec 8, 8- and 4-byte for 4 and 2, one
+// element at a time for 1; zero outside the frame and past Cin.
+template <int K>
+__device__ __forceinline__ void stage_halo(
+    const __nv_bfloat16* __restrict__ xh_b, __nv_bfloat16* halo, int H, int W, int Cin,
+    int cp, int vec, int c0, int row0, int col0, int tid) {
+  constexpr int P = K / 2;
+  constexpr int kHaloW = kCellCols + K - 1;
+  constexpr int kHaloPix = (kCellRows + K - 1) * kHaloW;
+  const int ps = cp + 8;
+  const int cend = min(Cin, c0 + kGroupCh);
+  const int units = cp / vec;
+  for (int e = tid; e < kHaloPix * units; e += kCellConsumers) {
+    const int pix = e / units, u = e - pix * units;
+    const int y = row0 - P + pix / kHaloW;
+    const int x = col0 - P + pix % kHaloW;
+    const int ch = c0 + u * vec;
+    const bool ok = y >= 0 && y < H && x >= 0 && x < W && ch < cend;
+    const __nv_bfloat16* src = ok ? xh_b + ((size_t)y * W + x) * Cin + ch : xh_b;
+    __nv_bfloat16* dst = halo + pix * ps + u * vec;
+    if (vec == 8) cp_async16(dst, src, ok);
+    else if (vec == 4) cp_async8(dst, src, ok);
+    else if (vec == 2) cp_async4(dst, src, ok);
+    else *dst = ok ? *src : __float2bfloat16(0.0f);
+  }
+}
+
+// NT = hid / 8.
 template <int K, int NT, class Epi>
-__global__ void __launch_bounds__(mma_threads(NT))
-cell_mma_kernel(const __nv_bfloat16* __restrict__ xh,
-                const __nv_bfloat16* __restrict__ w,
-                const float* __restrict__ bias, const Epi epi, int H, int W,
-                int Cin) {
+__global__ void __launch_bounds__(kCellThreads, 1)
+cell_wgmma_kernel(const __nv_bfloat16* __restrict__ xh,
+                  const __nv_bfloat16* __restrict__ wpack,
+                  const float* __restrict__ bias, const Epi epi, int H, int W,
+                  int Cin, int vec, int cp, int steps, int ks, int ring) {
   constexpr int hid = NT * 8;
   constexpr int N = 4 * hid;
   constexpr int P = K / 2;
-  constexpr int kRows = mma_rows(NT);
-  constexpr int kWarpsM = kRows / 2;
-  constexpr int kThreads = mma_threads(NT);
-  constexpr int kHaloW = kMmaCols + K - 1;
-  constexpr int kHaloPixels = (kRows + K - 1) * kHaloW;
-  __shared__ __align__(16) __nv_bfloat16 a_tile[kHaloPixels * kMmaStride];
-  __shared__ __align__(16) __nv_bfloat16 b_tile[N * kMmaStride];
+  constexpr int kHaloW = kCellCols + K - 1;
+  constexpr int kHaloPix = (kCellRows + K - 1) * kHaloW;
+  constexpr int kStepBytes = N * 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t bars = smem_u32(smem);  // full[kRing], then empty[kRing]
+  const uint32_t ring_u32 = bars + kRingOffset;
+  const int stage_bytes = ks * kStepBytes;
+  __nv_bfloat16* halo =
+      reinterpret_cast<__nv_bfloat16*>(smem + kRingOffset + ring * stage_bytes);
+  const int ps = cp + 8;  // bf16 per halo pixel: 16 * odd bytes, no ldmatrix conflicts
+  const int n_stages = (steps + ks - 1) / ks;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 2;  // tile rows 2*wm, 2*wm + 1
-  const int wn = warp & 3;   // interleaved columns [wn*hid, (wn+1)*hid)
-  const int grp = lane >> 2, quad = lane & 3;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      mbar_init(bars + 8 * i, 1);                       // the local producer
+      mbar_init(bars + 8 * (kRing + i), 8);             // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
   const int b = blockIdx.z;
-  const int row0 = blockIdx.y * kRows;
-  const int col0 = blockIdx.x * kMmaCols;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  const __nv_bfloat16* xh_b = xh + (size_t)b * H * W * Cin;
+  const int row0 = blockIdx.y * kCellRows;
+  const int col0 = blockIdx.x * kCellCols;
 
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += kMmaChunk) {
-    const int cn = min(kMmaChunk, Cin - ci0);
-    __syncthreads();  // every warp is done with the previous chunk
-    for (int e = threadIdx.x; e < kHaloPixels * kMmaChunk; e += kThreads) {
-      const int cc = e % kMmaChunk;
-      const int pix = e / kMmaChunk;
-      const int r = row0 - P + pix / kHaloW;
-      const int col = col0 - P + pix % kHaloW;
-      __nv_bfloat16 v = zero;
-      if (cc < cn && r >= 0 && r < H && col >= 0 && col < W)
-        v = xh_b[((size_t)r * W + col) * Cin + ci0 + cc];
-      a_tile[pix * kMmaStride + cc] = v;
+  if (tid >= kCellConsumers) {
+    // producer: one thread keeps the ring full
+    if (tid == kCellConsumers) {
+      const char* src = reinterpret_cast<const char*>(wpack);
+      for (int st = 0; st < n_stages; ++st) {
+        const int slot = st % ring;
+        if (st >= ring) mbar_wait(bars + 8 * (kRing + slot), ((st / ring) - 1) & 1);
+        const uint32_t bytes = (uint32_t)(min(ks, steps - st * ks) * kStepBytes);
+        mbar_expect_tx(bars + 8 * slot, bytes);
+        bulk_copy(ring_u32 + slot * stage_bytes, src + (size_t)st * stage_bytes, bytes,
+                  bars + 8 * slot);
+      }
     }
-    for (int tap = 0; tap < K * K; ++tap) {
+    __syncwarp();
+  } else {
+    const int lane = tid & 31;
+    const int cw = tid >> 5;          // consumer warp 0..7
+    const int rl = cw;                // its tile row: warpgroup cw / 4 owns rows 4(cw/4)..
+    const int grp = lane >> 2, q = lane & 3;
+    const __nv_bfloat16* xh_b = xh + (size_t)b * H * W * Cin;
+    // ldmatrix.x4 rows: matrix lane / 8 = (pixels 0-7 | 8-15) x (channels 0-7 | 8-15)
+    const int a_off = (rl * kHaloW + (lane & 7) + 8 * ((lane >> 3) & 1)) * ps + 8 * (lane >> 4);
+
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+
+    int slot = 0, in = 0, rel_slot = 0, tap = 0, c = 0, nch = 0;
+    uint32_t phase = 0;
+    bool release = false;
+    const uint64_t desc0 = (uint64_t)((kLbo >> 4) & 0x3FFF) << 16 |
+                           (uint64_t)((kSbo >> 4) & 0x3FFF) << 32 |
+                           (uint64_t)((ring_u32 >> 4) & 0x3FFF);
+    uint32_t a0[4], a1[4];
+    // one k16 step: A of (tap, chunk c) from the halo, B from the ring
+    auto step = [&](uint32_t (&a)[4]) {
+      if (in == 0) mbar_wait(bars + 8 * slot, phase);
       const int dy = tap / K, dx = tap % K;
-      __syncthreads();  // the previous tap's weights are consumed
-      // weight slice w[dy, dx, ci0 + cc, g*hid + j] -> b_tile[4*j + g][cc],
-      // moved as 8 consecutive columns x 2 consecutive channels per item
-      const __nv_bfloat16* wt = w + ((size_t)tap * Cin + ci0) * N;
-      for (int e = threadIdx.x; e < (kMmaChunk / 2) * (N / 8);
-           e += kThreads) {
-        const int pair = e % (kMmaChunk / 2);
-        const int col = (e / (kMmaChunk / 2)) * 8;
-        const int cc = 2 * pair;
-        uint4 lo = make_uint4(0, 0, 0, 0), hi = make_uint4(0, 0, 0, 0);
-        if (cc < cn)
-          lo = *reinterpret_cast<const uint4*>(wt + (size_t)cc * N + col);
-        if (cc + 1 < cn)
-          hi = *reinterpret_cast<const uint4*>(wt + (size_t)(cc + 1) * N + col);
-        const __nv_bfloat16* l = reinterpret_cast<const __nv_bfloat16*>(&lo);
-        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&hi);
-        const int g = col / hid, j0 = col % hid;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          __nv_bfloat162 v;
-          v.x = l[q];
-          v.y = h[q];
-          *reinterpret_cast<__nv_bfloat162*>(
-              b_tile + (4 * (j0 + q) + g) * kMmaStride + cc) = v;
-        }
+      ldmatrix_x4(a, halo + a_off + (dy * kHaloW + dx) * ps + 16 * c);
+      wgmma_fence();
+      WgmmaRS<N>::mma(acc, a, desc0 + (uint64_t)((slot * stage_bytes + in * kStepBytes) >> 4));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous step is done: its A registers and stage are free
+      if (release) {
+        if (lane == 0) mbar_arrive(bars + 8 * (kRing + rel_slot));
+        release = false;
       }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kMmaChunk; kk += 16) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const __nv_bfloat16* base =
-              a_tile + ((wm * 2 + mt + dy) * kHaloW + dx) * kMmaStride + kk +
-              quad * 2;
-          a[mt][0] = ld_pair(base + grp * kMmaStride);
-          a[mt][1] = ld_pair(base + (grp + 8) * kMmaStride);
-          a[mt][2] = ld_pair(base + grp * kMmaStride + 8);
-          a[mt][3] = ld_pair(base + (grp + 8) * kMmaStride + 8);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const __nv_bfloat16* bb =
-              b_tile + (wn * hid + nt * 8 + grp) * kMmaStride + kk + quad * 2;
-          const uint32_t b0 = ld_pair(bb), b1 = ld_pair(bb + 8);
-          mma_bf16(acc[0][nt], a[0], b0, b1);
-          mma_bf16(acc[1][nt], a[1], b0, b1);
-        }
+      if (++in == ks) {
+        in = 0;
+        release = true;
+        rel_slot = slot;
+        if (++slot == ring) { slot = 0; phase ^= 1; }
       }
-    }
-  }
+      if (++c == nch) { c = 0; ++tap; }
+    };
 
-  // accumulator (row, n): d0,d1 -> (grp, 2*quad + {0,1}); d2,d3 -> (grp + 8,
-  // same).  n = 4*j + g, so even lanes hold gates (i, f), odd lanes (g, o).
-  const bool odd = lane & 1;
-  float sum[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) sum[nt][g] = 0.0f;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int r = row0 + wm * 2 + mt;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float* d = acc[mt][nt];
-      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? d[0] : d[2], 1);
-      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? d[1] : d[3], 1);
-      const int col = col0 + grp + (odd ? 8 : 0);
-      const int j = (wn * hid + nt * 8) / 4 + quad / 2;
-      if (r >= H || col >= W) continue;
-      const size_t pix = ((size_t)b * H + r) * W + col;
-      epi.apply(pix, j, (odd ? r0 : d[0]) + bias[j],
-                (odd ? r1 : d[1]) + bias[hid + j],
-                (odd ? d[2] : r0) + bias[2 * hid + j],
-                (odd ? d[3] : r1) + bias[3 * hid + j], sum[nt]);
-    }
-  }
-  if constexpr (Epi::kReduce) {
-    // lanes holding channel j differ in bits 0, 2, 3, 4 of the lane index
-    // (bit 1 picks j or j + 1): a butterfly over those bits, then the warps
-    // along M in order, through shared memory that held the weight slices
-    __syncthreads();  // every warp is done with b_tile
-    float* red = reinterpret_cast<float*>(b_tile);  // [kWarpsM][N]
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float v = sum[nt][g];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if ((lane & ~2) == 0)
-          red[wm * N + g * hid + (wn * hid + nt * 8) / 4 + quad / 2] = v;
+    for (int g = 0; g * kGroupCh < Cin; ++g) {
+      // stage the haloed tile of this channel group: zero outside the frame
+      // and past Cin, by the widest copy Cin and xh's alignment allow
+      if (g > 0) consumers_sync();  // every warp is done with the last group's halo
+      const int c0 = g * kGroupCh;
+      stage_halo<K>(xh_b, halo, H, W, Cin, cp, vec, c0, row0, col0, tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      consumers_sync();
+
+      nch = cell_chunks(Cin, g);
+      tap = 0;
+      c = 0;
+      const int n = K * K * nch;
+      for (int t = 0; t < n; t += 2) {
+        step(a0);
+        if (t + 1 < n) step(a1);
       }
-    __syncthreads();
-    float* out = epi.db_part + block_index() * N;
-    for (int t = threadIdx.x; t < N; t += kThreads) {
-      float v = red[t];
+      wgmma_wait<0>();  // the next group starts again from a0
+    }
+
+    // epilogue: warp cw holds pixels (row0 + rl, col0 + grp + 8h) and, in
+    // n8 tile i of N, columns 8i + 2q + {0, 1}; the gates of channels
+    // j, j + 1 = 8i' + 2q + {0, 1} sit in tiles i' + g*NT, g = i, f, g, o
+    float* red = reinterpret_cast<float*>(smem + kRingOffset);  // [8][N], reusing the ring
+    if constexpr (Epi::kReduce) consumers_sync();  // every wgmma has read the ring
+    const int r = row0 + rl;
 #pragma unroll
-      for (int q = 1; q < kWarpsM; ++q) v += red[q * N + t];
-      out[t] = v;
+    for (int i = 0; i < NT; ++i) {
+      const int j = 8 * i + 2 * q;
+      float sum[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = col0 + grp + 8 * h;
+        float p[2][4];
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            p[e][gt] = acc[4 * (i + gt * NT) + 2 * h + e] + bias[gt * hid + j + e];
+        if (r < H && col < W) epi.apply2(((size_t)b * H + r) * W + col, j, p, sum);
+      }
+      if constexpr (Epi::kReduce) {
+        // lanes of one q differ in grp (bits 2-4 of the lane): fixed butterfly
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = sum[e][gt];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (grp == 0) red[cw * N + gt * hid + j + e] = v;
+          }
+      }
+    }
+    if constexpr (Epi::kReduce) {
+      consumers_sync();
+      float* out = epi.db_part + block_index() * N;
+      for (int t = tid; t < N; t += kCellConsumers) {
+        float v = red[t];
+#pragma unroll
+        for (int w8 = 1; w8 < 8; ++w8) v += red[w8 * N + t];
+        out[t] = v;
+      }
     }
   }
 }
 
-// ---- launch helpers ---------------------------------------------------------
+// ---- planning and launching --------------------------------------------------
 
 struct CellLaunch {
   dim3 grid;
   int threads = 0;
-  int tile_h = 0;
   size_t smem = 0;
-  bool mma = false;
+  int tile_h = 0;      // FP32 pipes: output rows per block
+  bool wgmma = false;  // the bf16 mainloop above
+  int vec = 0, cp = 0, steps = 0, ks = 0, ring = 0;
+  long long pack_elems = 0;  // bf16 of the packed weights (caller's workspace)
+  long long pack_floats() const { return (pack_elems / 2 + 3) / 4 * 4; }
 };
 
-// The tensor-core kernel takes bf16 operands, hid in {8, 16, 32, 64} and a
-// 16-byte aligned weight tensor; everything else runs on the FP32 pipes.
-// Returns false for shapes no kernel takes.
-inline bool plan_cell(bool bf16, const void* w, int B, int H, int W, int Cin,
+// bf16 with hid in {8, 16, 32, 64} takes the wgmma mainloop (any Cin, any
+// alignment: xh's alignment only picks the halo copy width); everything
+// else the FP32 pipes.  Returns false for shapes no kernel takes.  A null
+// xh plans as if it were 16-byte aligned.
+inline bool plan_cell(bool bf16, const void* xh, int B, int H, int W, int Cin,
                       int hid, int k, bool reduce, CellLaunch* out) {
   if (B < 1 || B > 65535 || H < 1 || W < 1 || Cin < 1 || hid < 1 ||
       hid * kGroupsW > kMaxThreads || (k != 1 && k != 3 && k != 5 && k != 7))
     return false;
   CellLaunch L;
-  L.mma = bf16 && (hid == 8 || hid == 16 || hid == 32 || hid == 64) &&
-          reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  if (L.mma) {
-    const int rows = mma_rows(hid / 8);
-    L.grid = dim3((W + kMmaCols - 1) / kMmaCols, (H + rows - 1) / rows, B);
-    L.threads = mma_threads(hid / 8);
+  L.wgmma = bf16 && (hid == 8 || hid == 16 || hid == 32 || hid == 64);
+  if (L.wgmma) {
+    const int N = 4 * hid;
+    L.grid = dim3((W + kCellCols - 1) / kCellCols, (H + kCellRows - 1) / kCellRows, B);
+    L.threads = kCellThreads;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(xh);
+    L.vec = 1;
+    for (int v = 8; v > 1; v /= 2)
+      if (Cin % v == 0 && a % (2 * v) == 0) { L.vec = v; break; }
+    L.cp = (std::min(Cin, kGroupCh) + 15) / 16 * 16;
+    L.steps = cell_steps(Cin, k);
+    L.ks = kStageBytes / (N * 32);
+    const int n_stages = (L.steps + L.ks - 1) / L.ks;
+    L.ring = std::min(kRing, n_stages);
+    const size_t halo = (size_t)(kCellRows + k - 1) * (kCellCols + k - 1) * (L.cp + 8) * 2;
+    L.smem = kRingOffset + (size_t)L.ring * L.ks * N * 32 + halo;
+    L.pack_elems = (long long)L.steps * N * 16;
   } else {
     L.tile_h = std::max(1, std::min(8, kMaxThreads / (hid * kGroupsW)));
     L.threads = hid * kGroupsW * L.tile_h;
@@ -448,26 +755,51 @@ inline bool plan_cell(bool bf16, const void* w, int B, int H, int W, int Cin,
   return true;
 }
 
+template <int K, int NT, class Epi>
+int launch_cell_wgmma_k(const CellLaunch& L, const __nv_bfloat16* x,
+                        const __nv_bfloat16* wpack, const float* bb,
+                        const Epi& epi, int H, int W, int Cin, cudaStream_t s) {
+  auto kernel = cell_wgmma_kernel<K, NT, Epi>;
+  // once per kernel, to the card's most, so a CUDA graph capture makes no
+  // attribute call
+  static int ready = 0;
+  if (!ready) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err) return err;
+    ready = 1;
+  }
+  if (L.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  kernel<<<L.grid, kCellThreads, L.smem, s>>>(x, wpack, bb, epi, H, W, Cin, L.vec, L.cp,
+                                              L.steps, L.ks, L.ring);
+  return (int)cudaGetLastError();
+}
+
 template <int K, class Epi>
-int launch_cell_mma_k(const CellLaunch& L, const __nv_bfloat16* x,
-                      const __nv_bfloat16* wt, const float* bb, const Epi& epi,
+int launch_cell_wgmma(const CellLaunch& L, const __nv_bfloat16* x,
+                      const __nv_bfloat16* wpack, const float* bb, const Epi& epi,
                       int H, int W, int Cin, int hid, cudaStream_t s) {
   switch (hid) {
-    case 8:
-      cell_mma_kernel<K, 1, Epi><<<L.grid, L.threads, 0, s>>>(x, wt, bb, epi, H, W, Cin);
-      break;
-    case 16:
-      cell_mma_kernel<K, 2, Epi><<<L.grid, L.threads, 0, s>>>(x, wt, bb, epi, H, W, Cin);
-      break;
-    case 32:
-      cell_mma_kernel<K, 4, Epi><<<L.grid, L.threads, 0, s>>>(x, wt, bb, epi, H, W, Cin);
-      break;
-    case 64:
-      cell_mma_kernel<K, 8, Epi><<<L.grid, L.threads, 0, s>>>(x, wt, bb, epi, H, W, Cin);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 8: return launch_cell_wgmma_k<K, 1>(L, x, wpack, bb, epi, H, W, Cin, s);
+    case 16: return launch_cell_wgmma_k<K, 2>(L, x, wpack, bb, epi, H, W, Cin, s);
+    case 32: return launch_cell_wgmma_k<K, 4>(L, x, wpack, bb, epi, H, W, Cin, s);
+    case 64: return launch_cell_wgmma_k<K, 8>(L, x, wpack, bb, epi, H, W, Cin, s);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// w's packed image for the wgmma mainloop into `out` (pack_elems bf16,
+// 16-byte aligned), for any B, H and W.
+inline int pack_cell_weights(const void* w, void* out, int Cin, int hid, int k,
+                             cudaStream_t s) {
+  CellLaunch L;
+  if (!plan_cell(true, nullptr, 1, 1, 1, Cin, hid, k, false, &L) || !L.wgmma ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long units = L.pack_elems / 8;
+  pack_cell_weights_kernel<<<(unsigned)((units + 255) / 256), 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out), k, Cin,
+      4 * hid, units);
   return (int)cudaGetLastError();
 }
 
@@ -480,26 +812,30 @@ int launch_cell_fp32_k(const CellLaunch& L, const T* x, const T* wt,
   return (int)cudaGetLastError();
 }
 
-// One launch of the gate conv with epilogue `epi`, on the kernel `L` names.
+// One launch of the gate conv with epilogue `epi`, on the kernel `L` names:
+// the wgmma mainloop reads the packed weights `wpack` (pack_cell_weights,
+// 16-byte aligned), the FP32 pipes `w`.
 template <typename T, class Epi>
 int launch_cell(const CellLaunch& L, const void* xh, const void* w,
-                const void* b, const Epi& epi, int H, int W, int Cin, int hid,
-                int k, void* stream) {
+                const void* wpack, const void* b, const Epi& epi, int H, int W,
+                int Cin, int hid, int k, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bb = static_cast<const float*>(b);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (L.mma) {
+    if (L.wgmma) {
       const auto* x = static_cast<const __nv_bfloat16*>(xh);
-      const auto* wt = static_cast<const __nv_bfloat16*>(w);
+      const auto* wp = static_cast<const __nv_bfloat16*>(wpack);
+      if (wp == nullptr || reinterpret_cast<uintptr_t>(wp) % 16) return (int)cudaErrorInvalidValue;
       switch (k) {
-        case 1: return launch_cell_mma_k<1>(L, x, wt, bb, epi, H, W, Cin, hid, s);
-        case 3: return launch_cell_mma_k<3>(L, x, wt, bb, epi, H, W, Cin, hid, s);
-        case 5: return launch_cell_mma_k<5>(L, x, wt, bb, epi, H, W, Cin, hid, s);
-        case 7: return launch_cell_mma_k<7>(L, x, wt, bb, epi, H, W, Cin, hid, s);
+        case 1: return launch_cell_wgmma<1>(L, x, wp, bb, epi, H, W, Cin, hid, s);
+        case 3: return launch_cell_wgmma<3>(L, x, wp, bb, epi, H, W, Cin, hid, s);
+        case 5: return launch_cell_wgmma<5>(L, x, wp, bb, epi, H, W, Cin, hid, s);
+        case 7: return launch_cell_wgmma<7>(L, x, wp, bb, epi, H, W, Cin, hid, s);
         default: return (int)cudaErrorInvalidValue;
       }
     }
   }
+  if (L.wgmma) return (int)cudaErrorInvalidValue;
   const T* x = static_cast<const T*>(xh);
   const T* wt = static_cast<const T*>(w);
   switch (k) {

@@ -24,32 +24,29 @@
 //               are written (B,H,W,4*hid) in block order i, f, g, o: the
 //               residual of the per-cell training route, whose backward
 //               then needs no gate recompute.
-// Both may be on at once.  The gates are written in block order from the
-// mainloop's de-interleaved (i, f, g, o) of channel j, not in the tensor-core
-// path's interleaved column order n = 4j + g.
+// Both may be on at once.
 //
-// The gate conv is one of the two mainloops of cell_mainloop.cuh: bf16
-// operands with hid in {8, 16, 32, 64} run on the tensor cores (mma.sync),
-// everything else on the FP32 pipes.  The epilogue below is the state
-// update; the four gates of a (pixel, j) meet in one thread, so it is
-// thread-local and the 4*hid gate tensor reaches device memory only in the
-// emit_gates mode.  No atomics: reruns are bit-identical.
-//
-// What bounds it: at the serving shapes (B=1, 100x154, layer 1 Cin=126,
-// hid=64, k=5) the gate conv is an M=15,400 x N=256 x K=3,150 product, about
-// 25 GFLOP of the step's 29, against ~17 MB of traffic: compute-bound on
-// paper.  The FP32 kernel issues 4 weight loads and 4 shared loads per 16
-// FMAs, so its load/store unit is the limit.  The tensor-core kernel
-// restages a 32 x N weight slice from L2 for every (channel chunk, tap),
-// ~200 MB of L2 reads per layer-1 step over 130 blocks of 8 rows, with two
-// barriers per stage; that staging, not the mma rate, is its limit.  wgmma
-// with TMA-fed, multi-stage tiles is the later, fast version.
+// The gate conv is one of the two mainloops of cell_mainloop.cuh, whose
+// source note says what bounds it and how the design answers: bf16 operands
+// with hid in {8, 16, 32, 64} run on the tensor cores (wgmma, weights
+// through an asynchronous ring from their packed image, which the caller
+// makes once per weight tensor with niswan_pack_cell_weights), everything
+// else on the FP32 pipes.  The epilogue below is
+// the state update; the four gates of a (pixel, j) meet in one thread, so
+// it is thread-local and the 4*hid gate tensor reaches device memory only
+// in the emit_gates mode.  No atomics: reruns are bit-identical.
 
 #include "cell_mainloop.cuh"
 
 namespace {
 
 using namespace niswan;
+
+__device__ __forceinline__ void cell_update(float pi, float pf, float pg, float po,
+                                            float c, float& h_new, float& c_new) {
+  c_new = c * sigmoid(pf) + sigmoid(pi) * tanhf(pg);
+  h_new = sigmoid(po) * tanhf(c_new);
+}
 
 // The state update, with a nullable hoisted-gate input and a nullable gate
 // output, both in the compute dtype T; with both null it reads and writes
@@ -82,54 +79,107 @@ struct CellEpi {
       gates[g0 + 3 * hid] = from_f32<T>(po);
     }
     const size_t o = pix * hid + j;
-    const float ig = sigmoid(pi);
-    const float fg = sigmoid(pf);
-    const float gg = tanhf(pg);
-    const float og = sigmoid(po);
-    const float c_new = c[o] * fg + ig * gg;
-    c_out[o] = c_new;
-    h_out[o] = og * tanhf(c_new);
+    cell_update(pi, pf, pg, po, c[o], h_out[o], c_out[o]);
+  }
+
+  // channels j, j + 1 (j even; bf16 only): f32 and bf16 pairs
+  __device__ __forceinline__ void apply2(size_t pix, int j, const float (&p)[2][4],
+                                         float (&)[2][4]) const {
+    float q[2][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) q[e][g] = p[e][g];
+    const size_t g0 = pix * 4 * hid + j;
+    if (xg != nullptr) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(xg + g0 + g * hid));
+        q[0][g] += v.x;
+        q[1][g] += v.y;
+      }
+    }
+    if (gates != nullptr) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        *reinterpret_cast<__nv_bfloat162*>(gates + g0 + g * hid) =
+            __floats2bfloat162_rn(q[0][g], q[1][g]);
+    }
+    const size_t o = pix * hid + j;
+    const float2 cv = *reinterpret_cast<const float2*>(c + o);
+    float2 h, cn;
+    cell_update(q[0][0], q[0][1], q[0][2], q[0][3], cv.x, h.x, cn.x);
+    cell_update(q[1][0], q[1][1], q[1][2], q[1][3], cv.y, h.y, cn.y);
+    *reinterpret_cast<float2*>(c_out + o) = cn;
+    *reinterpret_cast<float2*>(h_out + o) = h;
   }
 };
 
 template <typename T>
 int forward(const void* xh, const void* w, const void* b, const void* c,
-            const void* xg, void* h_out, void* c_out, void* gates, int B, int H,
-            int W, int Cin, int hid, int k, void* stream) {
+            const void* xg, void* h_out, void* c_out, void* gates, const void* wpack,
+            int B, int H, int W, int Cin, int hid, int k, void* stream) {
   CellLaunch L;
-  if (!plan_cell(std::is_same<T, __nv_bfloat16>::value, w, B, H, W, Cin, hid,
+  if (!plan_cell(std::is_same<T, __nv_bfloat16>::value, xh, B, H, W, Cin, hid,
                  k, false, &L))
     return (int)cudaErrorInvalidValue;
   const CellEpi<T> epi{static_cast<const float*>(c), static_cast<float*>(h_out),
                        static_cast<float*>(c_out), hid,
                        static_cast<const T*>(xg), static_cast<T*>(gates),
                        nullptr};
-  return launch_cell<T>(L, xh, w, b, epi, H, W, Cin, hid, k, stream);
+  return launch_cell<T>(L, xh, w, wpack, b, epi, H, W, Cin, hid, k, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of the launch (0 = success).  The launch is
+// Which mainloop takes these shapes: 1 the tensor cores (wgmma), 0 the
+// FP32 pipes, -1 none.  The same plan serves the gate recompute of
+// niswan_cell_bwd_*.
+int niswan_cell_plan(int bf16, int B, int H, int W, int Cin, int hid, int k) {
+  CellLaunch L;
+  if (!plan_cell(bf16 != 0, nullptr, B, H, W, Cin, hid, k, false, &L)) return -1;
+  return L.wgmma ? 1 : 0;
+}
+
+// Floats of the packed weights of the wgmma mainloop for these shapes
+// (0 where the FP32 pipes take them: no packing); -1 if no kernel takes them.
+long long niswan_cell_pack_floats(int bf16, int Cin, int hid, int k) {
+  CellLaunch L;
+  if (!plan_cell(bf16 != 0, nullptr, 1, 1, 1, Cin, hid, k, false, &L)) return -1;
+  return L.wgmma ? L.pack_floats() : 0;
+}
+
+// w (k,k,Cin,4*hid) bf16 -> its packed image `out` (niswan_cell_pack_floats
+// floats, 16-byte aligned), which niswan_convlstm_cell_bf16 and
+// niswan_cell_bwd_bf16 read as `wpack`; valid as long as w is unchanged.
+int niswan_pack_cell_weights(const void* w, void* out, int Cin, int hid, int k,
+                             void* stream) {
+  return pack_cell_weights(w, out, Cin, hid, k, static_cast<cudaStream_t>(stream));
+}
+
+// Each returns the cudaError_t of its launch (0 = success).  It is
 // asynchronous on `stream`; nothing is synchronised or allocated here.
 // `xg` (hoisted input gates, compute dtype) and `gates` (gate output,
 // compute dtype) are each null when their mode is off; with both null the
-// launch is the plain mode.  The xg sum is (conv + b) + xg in f32.
+// launch is the plain mode.  The xg sum is (conv + b) + xg in f32.  `wpack`
+// is w's packed image where the wgmma mainloop takes the shapes, else null.
 int niswan_convlstm_cell_f32(const void* xh, const void* w, const void* b,
                              const void* c, const void* xg, void* h_out,
-                             void* c_out, void* gates, int B, int H, int W,
-                             int Cin, int hid, int k, void* stream) {
-  return forward<float>(xh, w, b, c, xg, h_out, c_out, gates, B, H, W, Cin,
-                        hid, k, stream);
+                             void* c_out, void* gates, const void* wpack, int B,
+                             int H, int W, int Cin, int hid, int k, void* stream) {
+  return forward<float>(xh, w, b, c, xg, h_out, c_out, gates, wpack, B, H, W,
+                        Cin, hid, k, stream);
 }
 
 int niswan_convlstm_cell_bf16(const void* xh, const void* w, const void* b,
                               const void* c, const void* xg, void* h_out,
-                              void* c_out, void* gates, int B, int H, int W,
-                              int Cin, int hid, int k, void* stream) {
-  return forward<__nv_bfloat16>(xh, w, b, c, xg, h_out, c_out, gates, B, H, W,
-                                Cin, hid, k, stream);
+                              void* c_out, void* gates, const void* wpack, int B,
+                              int H, int W, int Cin, int hid, int k, void* stream) {
+  return forward<__nv_bfloat16>(xh, w, b, c, xg, h_out, c_out, gates, wpack, B,
+                                H, W, Cin, hid, k, stream);
 }
 
 const char* niswan_error_string(int err) {

@@ -119,17 +119,20 @@ def load_kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     signatures = {
-        # (xh, w, b, c, xg or null, h_out, c_out, gates or null),
+        # (xh, w, b, c, xg or null, h_out, c_out, gates or null,
+        # packed w or null),
         # (B, H, W, Cin, hid, k), stream
-        "niswan_convlstm_cell_f32": [ptr] * 8 + [i32] * 6 + [ptr],
-        "niswan_convlstm_cell_bf16": [ptr] * 8 + [i32] * 6 + [ptr],
+        "niswan_convlstm_cell_f32": [ptr] * 9 + [i32] * 6 + [ptr],
+        "niswan_convlstm_cell_bf16": [ptr] * 9 + [i32] * 6 + [ptr],
         # (xh, dgates, dw, work), (B, H, W, Cin, N, k), stream
         "niswan_conv_dw_f32": [ptr] * 4 + [i32] * 6 + [ptr],
         "niswan_conv_dw_bf16": [ptr] * 4 + [i32] * 6 + [ptr],
-        # (xh, w, b, c, dh, dc, dgates, dc_prev, dw, db, work),
-        # (B, H, W, Cin, hid, k), stream
-        "niswan_cell_bwd_f32": [ptr] * 11 + [i32] * 6 + [ptr],
-        "niswan_cell_bwd_bf16": [ptr] * 11 + [i32] * 6 + [ptr],
+        # (xh, w, b, c, dh, dc, dgates, dc_prev, dw or null, db, work,
+        # packed w or null), (B, H, W, Cin, hid, k), stream
+        "niswan_cell_bwd_f32": [ptr] * 12 + [i32] * 6 + [ptr],
+        "niswan_cell_bwd_bf16": [ptr] * 12 + [i32] * 6 + [ptr],
+        # (w, packed w), (Cin, hid, k), stream
+        "niswan_pack_cell_weights": [ptr] * 2 + [i32] * 3 + [ptr],
         # (x, w, out), (B, H, W, Cin, Cout, k), stream
         "niswan_conv_same_f32": [ptr] * 3 + [i32] * 6 + [ptr],
         "niswan_conv_same_bf16": [ptr] * 3 + [i32] * 6 + [ptr],
@@ -138,10 +141,17 @@ def load_kernels() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i32
-    # (bf16, xh, w, B, H, W, Cin, hid, k) -> floats of workspace, -1 if
-    # no kernel takes them
-    lib.niswan_cell_bwd_workspace.argtypes = [i32, ptr, ptr] + [i32] * 6
+    # (bf16, xh, B, H, W, Cin, hid, k) -> floats of workspace, -1 if no
+    # kernel takes them
+    lib.niswan_cell_bwd_workspace.argtypes = [i32, ptr] + [i32] * 6
     lib.niswan_cell_bwd_workspace.restype = ctypes.c_longlong
+    # (bf16, Cin, hid, k) -> floats of the packed weights (0: not packed,
+    # -1: no kernel); (bf16, B, H, W, Cin, hid, k) -> the cell kernels'
+    # mainloop: 1 wgmma, 0 FP32 pipes, -1 none
+    lib.niswan_cell_pack_floats.argtypes = [i32] * 4
+    lib.niswan_cell_pack_floats.restype = ctypes.c_longlong
+    lib.niswan_cell_plan.argtypes = [i32] * 7
+    lib.niswan_cell_plan.restype = i32
     # (bf16, xh, dgates, B, H, W, Cin, N, k) -> floats of workspace, -1 if
     # no kernel takes them
     lib.niswan_conv_dw_workspace.argtypes = [i32, ptr, ptr] + [i32] * 6

@@ -54,6 +54,7 @@ from nasa_niswan_tpu_torch.ops.convlstm_cell import (
     check_cell_args,
     dw_per_tap,
     elementwise_bwd,
+    packed_weights,
 )
 from nasa_niswan_tpu_torch.ops.conv import conv2d
 
@@ -62,22 +63,29 @@ from nasa_niswan_tpu_torch.ops.conv import conv2d
 cell_bwd_launches = 0
 conv_same_launches = 0
 dw_launches = 0
+recompute_launches = 0  # B2's part (a) alone: timing only, on no main path
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 # ---- B2: fused cell backward ------------------------------------------------
 
-def fused_cell_bwd_plain(xh, c, dh, dc, w, b) -> Grads:
-    """The kernel's math in plain PyTorch (``_cell_bwd_reference``):
-    operands upcast to f32, an f32 gate conv, the elementwise backward, then
-    the f32 weight gradient of the compute-dtype operands.  Returns (dgates
-    in xh's dtype, dc_prev f32, dw (k,k,Cin,4h) f32, db (4h,) f32)."""
-    k = w.shape[0]
-    gates = conv2d(xh.float(), w.float(), padding=k // 2) + b.float()
+def cell_bwd_recompute_plain(xh, c, dh, dc, w, b):
+    """B2's part (a) in plain PyTorch: operands upcast to f32, an f32 gate
+    conv, the elementwise backward.  Returns (dgates in xh's dtype, dc_prev
+    f32, db (4h,) f32, the sum of the f32 dgates)."""
+    gates = conv2d(xh.float(), w.float(), padding=w.shape[0] // 2) + b.float()
     dgates32, dc_prev = elementwise_bwd(gates, c, dh, dc)
-    dgates = dgates32.to(xh.dtype)
-    return dgates, dc_prev, dw_per_tap(xh, dgates, k), dgates32.sum(dim=(0, 1, 2))
+    return dgates32.to(xh.dtype), dc_prev, dgates32.sum(dim=(0, 1, 2))
+
+
+def fused_cell_bwd_plain(xh, c, dh, dc, w, b) -> Grads:
+    """The kernel's math in plain PyTorch (``_cell_bwd_reference``): part
+    (a), then the f32 weight gradient of the compute-dtype operands.
+    Returns (dgates in xh's dtype, dc_prev f32, dw (k,k,Cin,4h) f32, db
+    (4h,) f32)."""
+    dgates, dc_prev, db = cell_bwd_recompute_plain(xh, c, dh, dc, w, b)
+    return dgates, dc_prev, dw_per_tap(xh, dgates, w.shape[0]), db
 
 
 def _check_bwd_args(xh, c, dh, dc, w, b) -> None:
@@ -92,19 +100,16 @@ def _check_bwd_args(xh, c, dh, dc, w, b) -> None:
             raise ValueError(f"{name} must be contiguous on xh's device")
 
 
-@torch.library.custom_op("niswan::cell_bwd", mutates_args=(), device_types="cuda")
-def _cell_bwd_cuda(
-    xh: torch.Tensor, c: torch.Tensor, dh: torch.Tensor, dc: torch.Tensor,
-    w: torch.Tensor, b: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    global cell_bwd_launches
+def _cell_bwd_launch(xh, c, dh, dc, w, b, with_dw: bool):
+    """One call of the B2 library function: (dgates, dc_prev, dw or None,
+    db); without dw only the gate recompute (a) and db run."""
     lib = _build.load_kernels()
     bf16 = xh.dtype == torch.bfloat16
     B, H, W, cin = xh.shape
     hid = c.shape[-1]
     k = w.shape[0]
     n_work = lib.niswan_cell_bwd_workspace(
-        int(bf16), xh.data_ptr(), w.data_ptr(), B, H, W, cin, hid, k
+        int(bf16), xh.data_ptr(), B, H, W, cin, hid, k
     )
     if n_work < 0:
         raise ValueError(
@@ -112,7 +117,8 @@ def _cell_bwd_cuda(
         )
     dgates = torch.empty((B, H, W, 4 * hid), dtype=xh.dtype, device=xh.device)
     dc_prev = torch.empty_like(c)
-    dw = torch.empty(w.shape, dtype=torch.float32, device=xh.device)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=xh.device) if with_dw else None
+    wpack = packed_weights(w)
     db = torch.empty((4 * hid,), dtype=torch.float32, device=xh.device)
     work = torch.empty((n_work,), dtype=torch.float32, device=xh.device)
     fn = lib.niswan_cell_bwd_bf16 if bf16 else lib.niswan_cell_bwd_f32
@@ -121,12 +127,23 @@ def _cell_bwd_cuda(
         err = fn(
             xh.data_ptr(), w.data_ptr(), b.data_ptr(), c.data_ptr(),
             dh.data_ptr(), dc.data_ptr(), dgates.data_ptr(), dc_prev.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), work.data_ptr(),
+            None if dw is None else dw.data_ptr(), db.data_ptr(), work.data_ptr(),
+            None if wpack is None else wpack.data_ptr(),
             B, H, W, cin, hid, k, stream,
         )
     _raise_on(err, "cell_bwd", lib)
-    cell_bwd_launches += 1
     return dgates, dc_prev, dw, db
+
+
+@torch.library.custom_op("niswan::cell_bwd", mutates_args=(), device_types="cuda")
+def _cell_bwd_cuda(
+    xh: torch.Tensor, c: torch.Tensor, dh: torch.Tensor, dc: torch.Tensor,
+    w: torch.Tensor, b: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    global cell_bwd_launches
+    out = _cell_bwd_launch(xh, c, dh, dc, w, b, True)
+    cell_bwd_launches += 1
+    return out
 
 
 @_cell_bwd_cuda.register_fake
@@ -149,6 +166,21 @@ def fused_cell_bwd(xh, c, dh, dc, w, b) -> Grads:
     if xh.device.type == "cpu":
         return fused_cell_bwd_plain(xh, c, dh, dc, w, b)
     return torch.ops.niswan.cell_bwd(xh, c, dh, dc, w, b)
+
+
+def cell_bwd_recompute(xh, c, dh, dc, w, b):
+    """B2's part (a) alone: (dgates, dc_prev, db), the gate recompute on the
+    cell's mainloop and the elementwise backward, without dW.  No training
+    route calls it; ``chip_smoke.py`` and ``scripts/time_cell.py`` time
+    it.  CPU tensors run the plain version, every other device the kernel
+    (each launch counted in ``recompute_launches``)."""
+    global recompute_launches
+    _check_bwd_args(xh, c, dh, dc, w, b)
+    if xh.device.type == "cpu":
+        return cell_bwd_recompute_plain(xh, c, dh, dc, w, b)
+    dgates, dc_prev, _, db = _cell_bwd_launch(xh, c, dh, dc, w, b, False)
+    recompute_launches += 1
+    return dgates, dc_prev, db
 
 
 # ---- B3: SAME conv, f32 out --------------------------------------------------

@@ -29,10 +29,10 @@ What bounds it on an H100: at the serving shapes (B=1, 100x154) layer 1 is
 an M = 15,400 x N = 256 x K = 3,150 product, about 25 of the ~29 GFLOP of a
 step, against ~17 MB of traffic, so the cell is compute-bound; the gate
 output adds 4*hidden compute-dtype values per pixel (7.9 MB at layer 1,
-B=1, bf16).  bf16 operands run on the tensor cores (``mma.sync``, f32
-accumulate), held back by their per-tap weight staging; f32 operands run on
-the FP32 pipes (see the .cu file).  ``wgmma`` with TMA-fed tiles is later
-work.
+B=1, bf16).  bf16 operands at hidden 8/16/32/64 run on the tensor cores
+(``wgmma``, the weights streamed through an asynchronous shared-memory
+ring; ``csrc/cell_mainloop.cuh`` says how), f32 operands on the FP32 pipes.
+``cell_plan`` says which a shape takes.
 
 Dispatch goes by device: a tensor on the CPU runs the plain version; any
 other device goes through the custom ops ``niswan::convlstm_cell``,
@@ -56,6 +56,8 @@ package): ``elementwise_bwd`` and ``dw_per_tap``.
 
 from __future__ import annotations
 
+import functools
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -198,6 +200,61 @@ def check_cell_args(xh, c, w, b, xg=None) -> None:
         raise ValueError("xh, c, w, b and xg must be contiguous")
 
 
+def cell_plan(dtype: torch.dtype, B, H, W, cin, hid, k) -> str:
+    """Which mainloop of ``csrc/cell_mainloop.cuh`` the cell kernels (every
+    B1 mode and B2's gate recompute) take for these shapes, as the library
+    plans them (builds the library): ``"wgmma"`` (bf16, hid 8/16/32/64) or
+    ``"fp32"`` (the FP32 pipes); raises if no kernel takes them."""
+    plan = _build.load_kernels().niswan_cell_plan(
+        int(dtype == torch.bfloat16), B, H, W, cin, hid, k)
+    if plan < 0:
+        raise ValueError(f"no cell kernel for B={B} H={H} W={W} Cin={cin} hid={hid} k={k}")
+    return "wgmma" if plan == 1 else "fp32"
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_floats(bf16: bool, cin: int, hid: int, k: int) -> int:
+    n = _build.load_kernels().niswan_cell_pack_floats(int(bf16), cin, hid, k)
+    if n < 0:
+        raise ValueError(f"no cell kernel for Cin {cin}, hid {hid}, k {k}")
+    return n
+
+
+# id(w) -> (w's version, its data pointer, its packed image)
+_PACKED = {}
+
+
+def packed_weights(w: torch.Tensor) -> Optional[torch.Tensor]:
+    """w's packed image for the wgmma mainloop (``pack_cell_weights_kernel``:
+    one wgmma B tile per K step, in the order the ring streams them), or
+    None where the FP32 pipes take the shapes.  Made once per weight tensor
+    and kept while it lives and is unchanged (same version and storage): a
+    serving model packs each layer once, the whole-scan BPTT its combined
+    kernel once per chunk, for every launch of the forward and the backward.
+    An inference tensor has no version counter and counts as unchanged
+    while it lives.  The pack runs on the current stream, which later
+    launches share."""
+    k, _, cin, n4 = w.shape
+    n = _pack_floats(w.dtype == torch.bfloat16, cin, n4 // 4, k)
+    if not n:
+        return None
+    key, version = id(w), 0 if w.is_inference() else w._version
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0] == version and hit[1] == w.data_ptr():
+        return hit[2]
+    out = torch.empty((n,), dtype=torch.float32, device=w.device)
+    lib = _build.load_kernels()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = lib.niswan_pack_cell_weights(w.data_ptr(), out.data_ptr(), cin, n4 // 4, k,
+                                           stream)
+    _raise_on(err, "pack_cell_weights", lib)
+    if hit is None:
+        weakref.finalize(w, _PACKED.pop, key, None)
+    _PACKED[key] = (version, w.data_ptr(), out)
+    return out
+
+
 def _raise_on(err: int, what: str, lib) -> None:
     if err:
         raise RuntimeError(
@@ -220,6 +277,7 @@ def _launch(xh, c, w, b, xg, emit_gates: bool):
     )
     B, H, W, cin = xh.shape
     hid = c.shape[-1]
+    wpack = packed_weights(w)
     h_out = torch.empty_like(c)
     c_out = torch.empty_like(c)
     gates = (
@@ -233,6 +291,7 @@ def _launch(xh, c, w, b, xg, emit_gates: bool):
             None if xg is None else xg.data_ptr(),
             h_out.data_ptr(), c_out.data_ptr(),
             None if gates is None else gates.data_ptr(),
+            None if wpack is None else wpack.data_ptr(),
             B, H, W, cin, hid, w.shape[0], stream,
         )
     _raise_on(err, "convlstm_cell", lib)

@@ -430,3 +430,163 @@ def test_bptt_kernel_path_matches_eager_autograd(device, dtype):
     tol = 1e-4 if dtype == "float32" else 2e-2
     for g, p in zip(got, want):
         assert _rel(g, p) <= tol
+
+
+# ---- the wgmma mainloop at the main-path shapes ------------------------------
+
+# (H, W, Cin, hid, k) of every layer shape of B1 and B2 on the main paths:
+# serving layer 1 (Cin 126), training layer 1 (72), config #3's layer 1
+# (70), the hoisted layer 0's h-conv (64), layers 2 and 3
+LAYER_SHAPES = [(100, 154, 126, 64, 5), (100, 154, 72, 64, 5), (100, 154, 70, 64, 5),
+                (100, 154, 64, 64, 5), (100, 154, 96, 32, 3), (100, 154, 48, 16, 3)]
+# each at B = 1 and 8, then the ragged check shapes of chip_smoke.py
+MAIN_SHAPES = [(B, *s) for B in (1, 8) for s in LAYER_SHAPES] + [
+    (2, 20, 28, 13, 16, 5), (2, 37, 45, 126, 64, 5)]
+
+
+def test_cell_plan_puts_bf16_main_path_shapes_on_wgmma(device):
+    """The library's plan: every bf16 shape above on the wgmma mainloop,
+    f32 and bf16 at a hid outside 8/16/32/64 on the FP32 pipes, and no
+    kernel for an even k."""
+    for shape in MAIN_SHAPES:
+        assert convlstm_cell.cell_plan(torch.bfloat16, *shape) == "wgmma", shape
+        assert convlstm_cell.cell_plan(torch.float32, *shape) == "fp32", shape
+    assert convlstm_cell.cell_plan(torch.bfloat16, 1, 10, 12, 5, 4, 1) == "fp32"
+    assert convlstm_cell.cell_plan(torch.bfloat16, 1, 10, 12, 5, 128, 3) == "fp32"
+    with pytest.raises(ValueError):
+        convlstm_cell.cell_plan(torch.bfloat16, 1, 10, 12, 5, 8, 4)
+
+
+# the modes at the shapes where the main paths run them: the plain mode and
+# emit_gates at every shape, xg (serving) and xg with emit_gates (training)
+# where Cin = hid, the hoisted layer 0's h-conv
+MODE_CASES = [(mode, shape) for shape in MAIN_SHAPES for mode in ("plain", "gates", "xg", "gates+xg")
+              if "xg" not in mode or shape[3] == shape[4]]
+
+
+@pytest.mark.parametrize("mode,shape", MODE_CASES)
+def test_wgmma_cell_modes_at_main_path_shapes(device, mode, shape):
+    """B1 in each mode, bf16, against its plain version: h', c' within 1e-3
+    (f32 sums in another order over K <= 3,150 terms), the gates within one
+    bf16 step plus 1e-5; reruns bit-identical."""
+    B, H, W, cin, hid, k = shape
+    xh, c, w, b = _cell_inputs(device, torch.bfloat16, B, H, W, cin, hid, k, seed=B + cin)
+    xg = None
+    if "xg" in mode:
+        rng = np.random.default_rng(6)
+        xg = torch.tensor(rng.standard_normal((B, H, W, 4 * hid)),
+                          dtype=torch.float32).to(device, torch.bfloat16)
+    if mode.startswith("gates"):
+        fn, plain = fused_cell_gates, fused_cell_gates_plain
+    else:
+        fn, plain = fused_cell_forward, fused_cell_forward_plain
+    got, again, want = fn(xh, c, w, b, xg), fn(xh, c, w, b, xg), plain(xh, c, w, b, xg)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-3
+    assert (got[1] - want[1]).abs().max().item() <= 1e-3
+    if mode.startswith("gates"):
+        torch.testing.assert_close(got[2].float(), want[2].float(), rtol=2.0**-7, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,W,cin,hid,k", MAIN_SHAPES)
+def test_wgmma_cell_bwd_at_main_path_shapes(device, B, H, W, cin, hid, k):
+    """B2, bf16, against its plain version with the bounds of
+    test_cell_bwd_matches_plain; its gate recompute alone
+    (``cell_bwd_recompute``) gives B2's dgates, dc_prev and db bit for bit;
+    reruns bit-identical."""
+    xh, c, w, b = _cell_inputs(device, torch.bfloat16, B, H, W, cin, hid, k, seed=B + cin)
+    rng = np.random.default_rng(1)
+    dh, dc = (torch.tensor(rng.standard_normal(c.shape), dtype=torch.float32,
+                           device=device) for _ in range(2))
+    got = fused_cell_bwd(xh, c, dh, dc, w, b)
+    again = fused_cell_bwd(xh, c, dh, dc, w, b)
+    alone = convgrad.cell_bwd_recompute(xh, c, dh, dc, w, b)
+    want = fused_cell_bwd_plain(xh, c, dh, dc, w, b)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    for g, a in zip((got[0], got[1], got[3]), alone):
+        assert torch.equal(g, a)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2.0**-7, atol=1e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+    assert _rel(got[2], want[2]) <= 1e-3
+    assert _rel(got[3], want[3]) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("route", ["remat", "per-cell", "hoisted"])
+def test_training_routes_match_eager_at_t8(device, route, dtype, tol):
+    """The T = 8 parameter gradients of each training route (whole-scan
+    BPTT, per-cell Functions, hoisted input conv) at the canonical widths
+    (8 inputs, hidden 64/32/16, kernels 5/3/3) against eager autograd
+    through the plain cell without cuDNN, per leaf relative to its norm:
+    chip_smoke.py's TOL_GRAD."""
+    cfg = ConvLSTMConfig(in_channels=8, hidden_channels=(64, 32, 16), kernel_sizes=(5, 3, 3),
+                         compute_dtype=dtype, remat=route == "remat")
+    params = convlstm_init(torch.Generator().manual_seed(4), cfg, device=device)
+    leaves = [t.requires_grad_(True) for cell in params["cells"] for t in cell.values()]
+    x = torch.tensor(np.random.default_rng(10).standard_normal((2, 8, 40, 56, 8)),
+                     dtype=torch.float32, device=device)
+    hoist = dict(precompute_input_conv=True) if route == "hoisted" else {}
+
+    def grads(**kw):
+        pred = convlstm_apply(params, x, cfg, **hoist, **kw)
+        return torch.autograd.grad((pred**2).sum(), leaves)
+
+    got = grads()
+    with torch.backends.cudnn.flags(enabled=False):
+        want = grads(cell_fn=fused_cell_forward_plain, grads_fn=None)
+    for g, p in zip(got, want):
+        assert ((g - p).norm() / p.norm()).item() <= tol
+
+
+def test_packed_weights_follow_the_weight_tensor(device):
+    """The wgmma mainloop's packed weights are made once per weight tensor
+    and reused while it is unchanged; an in-place update packs anew, and
+    the cell then computes with the new weights."""
+    xh, c, w, b = _cell_inputs(device, torch.bfloat16, 1, 12, 20, 24, 16, 3)
+    packed = convlstm_cell.packed_weights(w)
+    assert convlstm_cell.packed_weights(w) is packed
+    h1, _ = fused_cell_forward(xh, c, w, b)
+    w.mul_(0.5)
+    assert convlstm_cell.packed_weights(w) is not packed
+    h2, _ = fused_cell_forward(xh, c, w, b)
+    want, _ = fused_cell_forward_plain(xh, c, w, b)
+    assert not torch.equal(h1, h2)
+    assert (h2 - want).abs().max().item() <= 1e-3
+    assert convlstm_cell.packed_weights(w.float()) is None
+
+
+def test_packed_weights_of_inference_tensors(device):
+    """Weights made under inference mode (no version counter), as serving
+    makes them, are packed once and used as they are."""
+    xh, c, w, b = _cell_inputs(device, torch.bfloat16, 1, 12, 20, 24, 16, 3)
+    with torch.inference_mode():
+        wi = w.clone()
+        packed = convlstm_cell.packed_weights(wi)
+        assert convlstm_cell.packed_weights(wi) is packed
+        h, _ = fused_cell_forward(xh, c, wi, b)
+    want, _ = fused_cell_forward_plain(xh, c, w, b)
+    assert (h - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("cin", [70, 126, 72])
+def test_cell_halo_at_every_xh_alignment(device, cin):
+    """xh starting 2, 4, 8 or 12 bytes off a 16-byte boundary (element-wise,
+    4-byte raw-run and 16-byte halo copies) gives the aligned result bit
+    for bit, in the plain mode and in B2."""
+    xh, c, w, b = _cell_inputs(device, torch.bfloat16, 1, 20, 37, cin, 64, 5)
+    dh = torch.ones_like(c)
+    want = fused_cell_forward(xh, c, w, b)
+    want_bwd = fused_cell_bwd(xh, c, dh, dh, w, b)
+    for shift in (1, 2, 4, 6):
+        flat = torch.empty(xh.numel() + 8, dtype=xh.dtype, device=device)
+        odd = flat[shift : shift + xh.numel()].view(xh.shape)
+        odd.copy_(xh)
+        assert odd.data_ptr() % 16 == 2 * shift
+        for g, a in zip(fused_cell_forward(odd, c, w, b), want):
+            assert torch.equal(g, a), shift
+        for g, a in zip(fused_cell_bwd(odd, c, dh, dh, w, b), want_bwd):
+            assert torch.equal(g, a), shift
