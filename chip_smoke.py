@@ -30,7 +30,7 @@ Phases, each printing its own lines:
       data-gradient conv (B3) against their plain PyTorch versions at the
       three training layer shapes (B=8, 100x154) and one ragged shape, bf16
       and f32, with the bounds in BWD_BOUNDS; B3 alone also at config #3's
-      layer 1 (Cout 70) and the 20-level fusion's (Cout 126); B2's dW
+      layer 1 (Cout 70); B2's dW
       kernels on their own (conv_dw) at every dW shape of the main paths
       (DW_SHAPES), bf16, each on the tensor-core plan; B2's gate recompute
       (a) alone (``cell_bwd_recompute``), bit-identical to B2's own dgates,
@@ -52,8 +52,10 @@ Phases, each printing its own lines:
       the hoisted h-conv) and at training layer 0 with both modes on; gates
       within one bf16 step plus 1e-5, h' and c' <= 1e-3, reruns
       bit-identical; every bf16 shape on the wgmma mainloop; kernel, plain
-      and bound times per shape, and the plain mode's time at the serving
-      shapes beside (c)'s;
+      and bound times per shape; the plain mode at the remat step's three
+      layers (B=8) and emit_gates at config #3's layer 1 (Cin 70) against
+      their plain versions, timed beside them; and the plain mode's time at
+      the serving shapes beside (c)'s;
   (j) the per-cell route (remat off) on the canonical training step: 3
       steps with exact launch counts (B1 emit_gates 3 x 48 per step, B2 and
       B1 plain none, B3 3 x 48 - 1 per step: layer 0's first step has no
@@ -61,8 +63,10 @@ Phases, each printing its own lines:
       eager autograd with (g)'s bounds; ms/step and peak memory beside (h)'s;
   (k) the hoisted input conv: four C=62 serving requests with
       precompute_input_conv against the unhoisted kernel path (RMS <= 2e-2 of
-      the std, as (d)) with exact launch counts, ms/step beside (e)'s; one
-      counted training step with the hoist (after a warm-up), and a T=8
+      the std, as (d)) with exact launch counts, ms/step beside (e)'s; the
+      device time per serving step with the hoist off and on (profiler
+      kernel sum, in turns), the reading behind make_rollout_fn's default;
+      one counted training step with the hoist (after a warm-up), and a T=8
       training gradient check with the hoist against eager autograd;
   (l) config #3 (seq2seq scheduled sampling) at full width: in_channels 6,
       hidden 64/32/16, kernels 5/3/3, bf16, bs 8, T 48, 100x154, on
@@ -71,7 +75,30 @@ Phases, each printing its own lines:
       losses agreeing within 1e-5 at step 1 and TOL_S2S_STEP2 at step 2;
       T=8 gradients of each route vs eager autograd; a 48-step closed-loop
       chunk chained through its carry (equal to two 24-step chunks, and
-      against the plain path); one CLI epoch of ``--mode seq2seq``.
+      against the plain path); one CLI epoch of ``--mode seq2seq``;
+      fit_seq2seq end to end on both routes (two epochs of 7 steps, batches
+      streamed by async_batches: exact launch counts, every batch tensor
+      copied from pinned memory on a side stream), ms/step, split on the
+      host clock into set-up, first-batch waits, later waits and steps;
+  (m) config #2 (20-level fusion, C = 62) from netCDF: a packed
+      E33OMA-90Days-style netCDF3 file (T 192, u/v/omega on 20 levels,
+      ~0.8 GB) written with write_nc and read back by load_90days_nc
+      bit-equal, through the native reader (a scipy fallback fails); fused
+      to 62 channels; 3 counted steps of the remat and per-cell routes (bs
+      8, T 48, bf16) and their T=8 gradients against eager autograd; B1
+      (plain, emit_gates), B2's gate recompute (a), dW and B3 alone at
+      layer 1's 126 channels, B = 8, against their plain versions with
+      (c)'s, (i)'s and (f)'s tolerances, with kernel, plain, library and
+      bound times; one CLI epoch with ``--data-path <file>.nc --levels 20``;
+  (n) streamed training: the canonical 8-channel step from a daily netCDF
+      tree (90 x 144, 3 days of 48 steps, 3 static channels) through
+      LazyE33OMASequence and fit(device_resident=False): exact launch
+      counts, every batch tensor copied from pinned memory on a side
+      stream (the pipeline's counters, and a profiler trace of two steps
+      that puts the copies on a stream that runs none of the step's
+      kernels), the batches in batch_iterator's order, losses, R^2 and
+      weights equal to the same batches fed synchronously (bit-equal);
+      streamed and staged ms/step and host_input_wait_frac.
 
 Then one JSON line describing each kernel (launches summed over the counted
 main-path runs, a launch with two modes on counted once; the largest error
@@ -80,7 +107,7 @@ time the card could take for the same work; the three B1 entries and the
 conv_same entry a row per timed shape under "by_shape"; the cell_bwd entry
 the same for B2's dW kernels launched on their own, under "dw", and for its
 gate recompute (a) alone, under "recompute", each with rows under
-"by_shape"), and last the
+"by_shape"; (m)'s rows at 126 channels join them), and last the
 device line ``{"ok": true, "device": {...}}``.  Any failed check raises:
 the script exits non-zero and prints no result.  It
 also exits non-zero when no CUDA device is visible.
@@ -100,12 +127,23 @@ import time
 import numpy as np
 import torch
 
+from nasa_niswan_tpu_torch.data import ncio_native, pipeline
 from nasa_niswan_tpu_torch.data.dataset import (
     Normalizer,
     Seq2SeqDataset,
     SequenceDataset,
+    preprocess_batch,
     zscore_static,
 )
+from nasa_niswan_tpu_torch.data.fusion import fuse_levels
+from nasa_niswan_tpu_torch.data.ncfixture import write_fixture_tree, write_static_attrs_inputs
+from nasa_niswan_tpu_torch.data.ncio import write_nc
+from nasa_niswan_tpu_torch.data.netcdf import (
+    LazyE33OMASequence,
+    build_static_attrs,
+    load_90days_nc,
+)
+from nasa_niswan_tpu_torch.data.pipeline import async_batches, batch_iterator
 from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
 from nasa_niswan_tpu_torch.evalx.evaluate import (
     make_closed_loop_chunk,
@@ -129,21 +167,28 @@ from nasa_niswan_tpu_torch.ops.convlstm_cell import (
     fused_cell_gates,
     fused_cell_gates_plain,
 )
-from nasa_niswan_tpu_torch.rollout.seq2seq import _make_forward_chunk, make_seq2seq_train_step
+from nasa_niswan_tpu_torch.rollout import seq2seq as seq2seq_mod
+from nasa_niswan_tpu_torch.rollout.seq2seq import (
+    _make_forward_chunk,
+    fit_seq2seq,
+    make_seq2seq_train_step,
+)
 from nasa_niswan_tpu_torch.rollout.autoregressive import (
     make_rollout_fn,
     make_streaming_rollout,
     model_days_per_min,
 )
 from nasa_niswan_tpu_torch.train import __main__ as train_cli
+from nasa_niswan_tpu_torch.train import loop as train_loop
 from nasa_niswan_tpu_torch.train.checkpoint import load_checkpoint, param_leaves
 from nasa_niswan_tpu_torch.train.config import TrainConfig
 from nasa_niswan_tpu_torch.train.loop import (
     DeviceWindowSource,
-    _device_preprocess,
+    fit,
     make_device_train_step,
     make_loss_fn,
     make_optimizer,
+    make_train_step,
 )
 
 SEED = 0
@@ -191,6 +236,9 @@ S2S_STEPS = 2
 # relative |d loss| of config #3's two routes after one update (1.3e-7
 # measured on an H100): far below what a wrong or missing update moves
 TOL_S2S_STEP2 = 1e-4
+# fit_seq2seq timing: the fixture repeated S2S_REPEAT times gives
+# S2S_FIT_STEPS steps an epoch
+S2S_REPEAT, S2S_FIT_STEPS = 6, 7
 
 # (B, H, W, Cin, N, k) of every dW launch shape on the main paths: the
 # three per-cell training layers, config #3's layer 1 (Cin 70, a ragged
@@ -206,12 +254,13 @@ DW_SHAPES = (
 )
 
 # (B, H, W, Cin, Cout, k) of B3 as a data gradient beyond the three
-# training layers: config #3's layer 1 (Cout 70) and the 20-level fusion's
-# layer 1 (Cout 126), on dgates of hidden 64
-B3_SHAPES = (
-    (TRAIN_BS, 100, 154, 256, S2S_C + 64, 5),
-    (TRAIN_BS, 100, 154, 256, C + 64, 5),
-)
+# training layers: config #3's layer 1 (Cout 70), on dgates of hidden 64;
+# config #2's layer 1 (Cout 126) is held in (m)
+B3_SHAPES = ((TRAIN_BS, 100, 154, 256, S2S_C + 64, 5),)
+
+# config #2 (20-level fusion) training: layer 1 reads C + 64 = 126 channels
+C2_LAYER1 = (TRAIN_BS, 100, 154, C + 64, HIDDEN[0], KERNELS[0])
+C2_T = 192  # steps in the packed netCDF file: 134 training windows of 48
 
 KERNEL_SOURCES = {
     "convlstm_cell": ("nasa_niswan_tpu_torch/csrc/convlstm_cell.cu",
@@ -607,7 +656,7 @@ def recompute_work(B, H, W, cin, hid, k):
                            + px * 4 * hid * 2 + 16 * hid)
 
 
-def _recompute_alone(args, got, tag) -> dict:
+def _recompute_alone(args, got, tag, tag0="[f]") -> dict:
     """(f) B2's gate recompute (a) alone (``cell_bwd_recompute``, no dW) at
     a training layer, bf16: bit-identical to B2's own dgates, dc_prev and
     db; its largest error against its plain version, and kernel, plain and
@@ -624,7 +673,7 @@ def _recompute_alone(args, got, tag) -> dict:
     shape = (*xh.shape, c.shape[-1], args[4].shape[0])
     row = _row(shape, ms, plain_ms, recompute_work(*shape), plan="wgmma", max_abs_err=err,
                launches_per_step=f"{TRAIN_T} per remat step (one per B2 launch)")
-    print(f"[f] cell_bwd (a) alone, {tag}: bit-identical to B2's dgates, dc_prev, db; "
+    print(f"{tag0} cell_bwd (a) alone, {tag}: bit-identical to B2's dgates, dc_prev, db; "
           f"max |d| vs plain {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {row['bound_ms']:.4f} ms")
     return row
@@ -656,13 +705,13 @@ def _b3_row(shape, rel, ms, work) -> dict:
             "library_ms": ms[2], "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def _b3_alone(device, gen, rows) -> float:
-    """(f) B3 alone at B3_SHAPES, bf16: against the plain version within
+def _b3_alone(device, gen, rows, shapes=B3_SHAPES, tag0="[f]", **extra) -> float:
+    """B3 alone at ``shapes``, bf16: against the plain version within
     BWD_BOUNDS["dxh"] of the largest entry, reruns bit-identical; kernel,
-    plain, library (bf16 F.conv2d) and bound times.  Appends to ``rows``;
-    returns the largest |error|."""
+    plain, library (bf16 F.conv2d) and bound times.  Appends to ``rows``
+    (with ``extra``); returns the largest |error|."""
     err = 0.0
-    for B, H, W, cin, cout, k in B3_SHAPES:
+    for B, H, W, cin, cout, k in shapes:
         x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
         w = (torch.randn((k, k, cin, cout), generator=gen, device=device)
              / (k * k * cin) ** 0.5).bfloat16()
@@ -676,8 +725,8 @@ def _b3_alone(device, gen, rows) -> float:
         ms = [cuda_ms(lambda: conv_same(x, w), 5), cuda_ms(lambda: conv_same_plain(x, w), 5),
               cuda_ms(lambda: conv2d(x, w, padding=k // 2), 5)]
         row = _b3_row((B, H, W, cin, cout, k), rel, ms, conv_work(B, H, W, cin, cout, k))
-        rows.append(row)
-        print(f"[f] conv_same {tag}: rel max |d| {rel:.3e} (<= {BWD_BOUNDS['dxh']:g}), "
+        rows.append(dict(row, **extra))
+        print(f"{tag0} conv_same {tag}: rel max |d| {rel:.3e} (<= {BWD_BOUNDS['dxh']:g}), "
               f"bit-identical reruns; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, library "
               f"(bf16 F.conv2d) {ms[2]:.4f} ms, bound {row['bound_ms']:.4f} ms")
         del x, w, got, again, want
@@ -685,54 +734,60 @@ def _b3_alone(device, gen, rows) -> float:
     return err
 
 
+def _dw_alone(device, gen, shape, tag0="[f]", **extra) -> dict:
+    """B2's dW kernels on their own (``conv_dw``) at one shape, bf16, on
+    the tensor-core plan, against one f32 matmul per tap: relative to the
+    largest entry <= BWD_BOUNDS["dw"], reruns bit-identical.  The shape's
+    row: error, kernel, plain, library (cuDNN's bf16 weight gradient) and
+    bound times, with ``extra``."""
+    B, H, W, cin, n, k = shape
+    check(convgrad.dw_uses_mma(torch.bfloat16, B, H, W, cin, n, k),
+          f"conv_dw at {shape} bf16 is not on the tensor cores")
+    x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
+    g = torch.randn((B, H, W, n), generator=gen, device=device).bfloat16()
+    got, again = convgrad.conv_dw(x, g, k), convgrad.conv_dw(x, g, k)
+    want = convlstm_cell.dw_per_tap(x, g, k)
+    torch.cuda.synchronize()
+    tag = f"B={B} H={H} W={W} Cin={cin} N={n} k={k} bfloat16"
+    check(torch.equal(got, again), f"conv_dw not deterministic at {tag}")
+    rel = _rel_max(got, want)
+    err = (got - want).abs().max().item()
+    del again
+    # the one PyTorch call computing the same function (bf16 out)
+    xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    reps = 3 if B > TRAIN_BS else 5
+    ms = [cuda_ms(lambda: convgrad.conv_dw(x, g, k), reps),
+          cuda_ms(lambda: convlstm_cell.dw_per_tap(x, g, k), reps),
+          cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+              xn, (n, cin, k, k), gn, padding=k // 2), reps)]
+    # in: x and dgates bf16, out: dw f32
+    px, kk = B * H * W, k * k * cin * n
+    flops, nbytes = 2.0 * px * kk, px * cin * 2 + px * n * 2 + kk * 4
+    bound = least_time(flops, nbytes)
+    print(f"{tag0} conv_dw {tag}: tensor-core plan; rel max |d dw| {rel:.3e} (<= "
+          f"{BWD_BOUNDS['dw']:g}), bit-identical reruns; kernel {ms[0]:.4f} ms, "
+          f"plain {ms[1]:.4f} ms, library (bf16 conv2d_weight) {ms[2]:.4f} ms, "
+          f"bound {bound[0]:.4f} ms")
+    check(rel <= BWD_BOUNDS["dw"], f"conv_dw {rel:.3e} at {tag}")
+    del x, g, got, want
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "rel_err": rel, "max_abs_err": err, "ms": ms[0],
+            "plain_ms": ms[1], "library_ms": ms[2], "bound_ms": bound[0],
+            "bound_by": bound[1], "flops": flops, "bytes": nbytes, **extra}
+
+
 def phase_dw(device) -> dict:
     """(f) B2's dW kernels on their own (``conv_dw``, the per-cell and
-    hoisted routes' weight gradient) against one f32 matmul per tap, bf16,
-    at every dW shape of the main paths (DW_SHAPES), each planned on the
-    tensor cores: relative to the largest entry <= BWD_BOUNDS["dw"], reruns
-    bit-identical.  Kernel, plain, library (cuDNN's bf16 weight gradient)
-    and bound times per shape (``by_shape``); the entry's sums are over the
-    three training layers."""
+    hoisted routes' weight gradient) at every dW shape of the main paths
+    (DW_SHAPES), as ``_dw_alone``; per-shape rows under ``by_shape``, the
+    entry's sums over the three training layers."""
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    err, sums, work, rows = 0.0, [0.0, 0.0, 0.0], [0.0, 0.0], []
-    for i, (B, H, W, cin, n, k) in enumerate(DW_SHAPES):
-        check(convgrad.dw_uses_mma(torch.bfloat16, B, H, W, cin, n, k),
-              f"conv_dw at {(B, H, W, cin, n, k)} bf16 is not on the tensor cores")
-        x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
-        g = torch.randn((B, H, W, n), generator=gen, device=device).bfloat16()
-        got, again = convgrad.conv_dw(x, g, k), convgrad.conv_dw(x, g, k)
-        want = convlstm_cell.dw_per_tap(x, g, k)
-        torch.cuda.synchronize()
-        tag = f"B={B} H={H} W={W} Cin={cin} N={n} k={k} bfloat16"
-        check(torch.equal(got, again), f"conv_dw not deterministic at {tag}")
-        rel = _rel_max(got, want)
-        err = max(err, (got - want).abs().max().item())
-        del again
-        # the one PyTorch call computing the same function (bf16 out)
-        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-        reps = 3 if B > TRAIN_BS else 5
-        ms = [cuda_ms(lambda: convgrad.conv_dw(x, g, k), reps),
-              cuda_ms(lambda: convlstm_cell.dw_per_tap(x, g, k), reps),
-              cuda_ms(lambda: torch.nn.grad.conv2d_weight(
-                  xn, (n, cin, k, k), gn, padding=k // 2), reps)]
-        # in: x and dgates bf16, out: dw f32
-        px, kk = B * H * W, k * k * cin * n
-        flops, nbytes = 2.0 * px * kk, px * cin * 2 + px * n * 2 + kk * 4
-        bound = least_time(flops, nbytes)
-        print(f"[f] conv_dw {tag}: tensor-core plan; rel max |d dw| {rel:.3e} (<= "
-              f"{BWD_BOUNDS['dw']:g}), bit-identical reruns; kernel {ms[0]:.4f} ms, "
-              f"plain {ms[1]:.4f} ms, library (bf16 conv2d_weight) {ms[2]:.4f} ms, "
-              f"bound {bound[0]:.4f} ms")
-        check(rel <= BWD_BOUNDS["dw"], f"conv_dw {rel:.3e} at {tag}")
-        rows.append({"shape": [B, H, W, cin, n, k], "rel_err": rel, "ms": ms[0],
-                     "plain_ms": ms[1], "library_ms": ms[2], "bound_ms": bound[0],
-                     "bound_by": bound[1]})
-        if i < 3:
-            sums = [a + b for a, b in zip(sums, ms)]
-            work[0] += flops
-            work[1] += nbytes
-        del x, g, got, want
-        torch.cuda.empty_cache()
+    rows = [_dw_alone(device, gen, shape) for shape in DW_SHAPES]
+    err = max(r.pop("max_abs_err") for r in rows)
+    sums = [sum(r[key] for r in rows[:3]) for key in ("ms", "plain_ms", "library_ms")]
+    work = [sum(r[key] for r in rows[:3]) for key in ("flops", "bytes")]
+    for r in rows:
+        del r["flops"], r["bytes"]
     bound_ms, bound_by = least_time(*work)
     print(f"[f] conv_dw, the three training layers, bf16: kernel {sums[0]:.4f} ms, "
           f"plain {sums[1]:.4f} ms, library {sums[2]:.4f} ms, bound {bound_ms:.4f} ms")
@@ -776,6 +831,20 @@ def _expect_counts(tag: str, **want) -> dict:
     return got
 
 
+COPY_COUNTERS = ("h2d_copies", "h2d_pinned", "h2d_side_stream")
+
+
+def _reset_copies() -> None:
+    for name in COPY_COUNTERS:
+        setattr(pipeline, name, 0)
+
+
+def _copies() -> tuple:
+    """(batch tensors copied to the card, from pinned memory, on a side
+    stream) since ``_reset_copies``."""
+    return tuple(getattr(pipeline, name) for name in COPY_COUNTERS)
+
+
 def _train_run(step, params, n_steps, order):
     """n_steps optimizer steps on the windows of ``order``; returns the
     seconds (host clock, synchronised) and the last metrics."""
@@ -812,7 +881,7 @@ def phase_train(device) -> dict:
     # parameter gradients at T=GRAD_T against eager autograd through the
     # plain cell, from the same weights and batch, before any update
     x_raw, y_raw = src.gather(order[:TRAIN_BS])
-    x, y = _device_preprocess(
+    x, y = preprocess_batch(
         x_raw[:, :GRAD_T], y_raw, ds.normalizer, PADDED,
         torch.as_tensor(zscore_static(static), device=device))
     grad_check("[g] remat route", params, lambda dtype, eager: make_loss_fn(
@@ -944,6 +1013,15 @@ def phase_modes(device, cell) -> dict:
           f"{out['convlstm_cell_gates']['plain_ms']:.4f} ms; xg, serving layer 0: "
           f"kernel {out['convlstm_cell_xg']['ms']:.4f} ms, plain "
           f"{out['convlstm_cell_xg']['plain_ms']:.4f} ms")
+    # the plain mode at the remat step's layers and emit_gates at config
+    # #3's layer 1 (Cin 70), with their plain versions' times
+    entries = dict(out, convlstm_cell=cell)
+    for shape in BWD_SHAPES[:3]:
+        _cell_alone(device, gen, entries, shape, "[i]",
+                    {"plain": f"{TRAIN_T} per remat step"}, modes=("plain",))
+    _cell_alone(device, gen, entries, (TRAIN_BS, *PADDED, S2S_C + HIDDEN[0], HIDDEN[0],
+                                       KERNELS[0]),
+                "[i]", {"gates": f"{TRAIN_T} per config #3 per-cell step"}, modes=("gates",))
     # the plain mode reads no xg and writes no gates: its time as in (c)
     for shape, ms_c in cell["ms_by_shape"].items():
         B, H, W, cin, hid, k = shape
@@ -1013,6 +1091,7 @@ def phase_hoist(device, serve, train, smi) -> dict:
           f"{worst:.3e} (tol {TOL_PLAIN_REL:g}); {1000 * t / n:.4f} ms/step "
           f"(unhoisted, (e): {1000 * serve['t_kernel'] / n:.4f}) on {smi}")
     check(worst <= TOL_PLAIN_REL, f"hoisted vs unhoisted rms/std {worst:.3e}")
+    _hoist_device_time(device, serve, smi)
 
     # one counted training step with the hoist, then gradients vs eager
     kw, order = train["kw"], train["order"]
@@ -1038,6 +1117,36 @@ def phase_hoist(device, serve, train, smi) -> dict:
                     **dict(kw, compute_dtype=dtype), **(EAGER if eager else {})),
         GRID)(p_train, None, x, y)[0])
     return {"t": t}
+
+
+def _request_device_ms(rollout, params, forcings) -> float:
+    """Device time per step of one request: the sum of the kernels' device
+    time under torch.profiler, after a warm-up request."""
+    rollout(params, forcings)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        rollout(params, forcings)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / 1e3 / forcings.shape[1]
+
+
+def _hoist_device_time(device, serve, smi) -> None:
+    """(k) the reading behind ``make_rollout_fn(precompute_input_conv=None)``:
+    device time per serving step (C = 62, B = 1, bf16, one 48-step request)
+    with the hoist off and on, in turns (off, on, on, off)."""
+    cfg, params, norm = serve["cfg"], serve["params"], serve["norm"]
+    ms = {False: [], True: []}
+    for hoist in (False, True, True, False):
+        rollout = make_rollout_fn(cfg, norm, padded_shape=PADDED, grid_shape=GRID,
+                                  device=device, precompute_input_conv=hoist)
+        ms[hoist].append(_request_device_ms(rollout, params, serve["forcings"][0]))
+    check(all(v > 0 for v in ms[False] + ms[True]), f"[k] no device time profiled: {ms}")
+    print(f"[k] serving device time (profiler kernel sum, one {STEPS}-step request each, in "
+          f"turns): unhoisted {ms[False]} ms/step, hoisted {ms[True]} ms/step; "
+          f"precompute_input_conv=None is off on {smi}")
 
 
 def phase_seq2seq(device, smi) -> dict:
@@ -1129,7 +1238,424 @@ def phase_seq2seq(device, smi) -> dict:
     check(d_chunk <= TOL_CHUNK, "closed loop: chunked != one-shot")
     check(rms <= TOL_PLAIN_REL, f"closed loop vs plain rms/std {rms:.3e}")
     phase_cli(device, mode="seq2seq")
-    return {"times": times}
+    return {"times": times, "fit": _fit_seq2seq_times(device, smi, cfg, ds, init)}
+
+
+def _feed_timeline(module):
+    """Wrap ``module.async_batches`` so that each epoch's generator records,
+    on the host clock, when the loop first asks it for a batch and how long
+    each ask waits (the last, the end of the epoch, included).  Returns the
+    list of records and a function that undoes the wrap."""
+    real, epochs = module.async_batches, []
+
+    def timed(*args, **kwargs):
+        rec = {"start": time.perf_counter(), "waits": []}
+        epochs.append(rec)
+        it = real(*args, **kwargs)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                rec["waits"].append(time.perf_counter() - t0)
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            it.close()
+
+    module.async_batches = timed
+    return epochs, lambda: setattr(module, "async_batches", real)
+
+
+def _fit_seq2seq_times(device, smi, cfg, ds, init) -> dict:
+    """(l) ``fit_seq2seq`` end to end on both routes, its batches streamed
+    by ``async_batches`` (pinned buffers, a side stream): two epochs of
+    S2S_FIT_STEPS steps over the fixture repeated S2S_REPEAT times, after a
+    one-epoch warm-up call, with exact launch counts and every batch tensor
+    copied from pinned memory on a side stream.  The call's time is split
+    on the host clock into its set-up (until the loop first asks for a
+    batch) and, for each epoch, the wait for its first batch, the waits for
+    the others and the rest (the steps, the epoch's closing sync).
+    (scripts/time_seq2seq_feed.py compares this feed with staged and
+    synchronous ones.)"""
+    ds_long = Seq2SeqDataset((np.concatenate([ds._xs] * S2S_REPEAT),
+                              np.concatenate([ds._y] * S2S_REPEAT)),
+                             period="train", sequence_length=TRAIN_T)
+    steps = len(ds_long) // TRAIN_BS
+    check(steps == S2S_FIT_STEPS, f"[l] {len(ds_long)} chunks: {steps} steps an epoch")
+    epochs = 2
+    n = len(HIDDEN) * TRAIN_T * steps * epochs
+    want = {False: dict(convlstm_cell_gates=n, conv_same=n - steps * epochs, conv_dw=n),
+            True: dict(convlstm_cell=n, cell_bwd=n, conv_same=n)}
+    out = {}
+    for remat in (False, True):
+        rcfg = dataclasses.replace(cfg, remat=remat)
+        route = "whole-chunk BPTT" if remat else "per-cell"
+        kw = dict(padded_shape=PADDED, grid_shape=GRID, batch_size=TRAIN_BS, seed=SEED,
+                  verbose=False)
+        fit_seq2seq(rcfg, _copy_params(init), ds_long, num_epochs=1, **kw)  # warm-up
+        params = _copy_params(init)
+        torch.cuda.synchronize()
+        _set_counts(0)
+        _reset_copies()
+        timeline, undo = _feed_timeline(seq2seq_mod)
+        try:
+            t0 = time.perf_counter()
+            _, _, history = fit_seq2seq(rcfg, params, ds_long, num_epochs=epochs, **kw)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        finally:
+            undo()
+        _expect_counts(f"[l] fit_seq2seq, {route} route", **want[remat])
+        copies = _copies()
+        check(copies == (3 * steps * epochs,) * 3,
+              f"[l] batch copies (all, pinned, side) {copies}")
+        check(len(timeline) == epochs and all(len(r["waits"]) == steps + 1 for r in timeline),
+              f"[l] fit_seq2seq asked for {[len(r['waits']) for r in timeline]} batches")
+        check(all(np.isfinite(h["loss"]) for h in history), f"[l] fit_seq2seq loss {history}")
+        t = t_end - t0
+        ends = [r["start"] for r in timeline[1:]] + [t_end]
+        split = []
+        for r, end in zip(timeline, ends):
+            span, first = end - r["start"], r["waits"][0]
+            split.append({"span_ms": 1000 * span, "first_wait_ms": 1000 * first,
+                          "later_wait_ms": 1000 * sum(r["waits"][1:]),
+                          "steady_ms_step": 1000 * (span - first) / steps})
+        out[route] = {"ms_step": 1000 * t / (steps * epochs),
+                      "setup_ms": 1000 * (timeline[0]["start"] - t0), "epochs": split}
+        print(f"[l] fit_seq2seq, {route} route, batches streamed (async_batches): "
+              f"{out[route]['ms_step']:.1f} ms/step over {epochs} epochs of {steps} steps, "
+              f"{copies[1]} of {copies[0]} batch tensors pinned, {copies[2]} on a side "
+              f"stream; losses {[h['loss'] for h in history]} (bs {TRAIN_BS}, T {TRAIN_T}, "
+              f"C={S2S_C}, bf16) on {smi}")
+        print(f"[l] fit_seq2seq, {route} route, split on the host clock: set-up "
+              f"{out[route]['setup_ms']:.1f} ms; per epoch " + "; ".join(
+                  f"{e['span_ms']:.1f} ms, first batch waited {e['first_wait_ms']:.1f} ms, "
+                  f"later batches {e['later_wait_ms']:.1f} ms, "
+                  f"{e['steady_ms_step']:.1f} ms/step without the first wait"
+                  for e in split))
+    return out
+
+
+def _packed_config2(root):
+    """Write a packed E33OMA-90Days-style netCDF3 file of config #2's
+    forcings (u, v, omega on 20 levels, prec, the BCB source and
+    concentration) with the port's write_nc; returns its path and the
+    arrays written."""
+    data = synthetic_e33oma_90d(T=C2_T, nlev=20, H=GRID[0], W=GRID[1], seed=SEED)
+    names = ("u", "v", "omega", "prec", "bcb_src", "bcb_conc")
+    dims4, dims3 = ("time", "level", "lat", "lon"), ("time", "lat", "lon")
+    path = os.path.join(root, "E33OMA-90Days-L20.nc")
+    write_nc(path, {"time": C2_T, "level": 20, "lat": GRID[0], "lon": GRID[1]},
+             {k: (dims4 if data[k].ndim == 4 else dims3, data[k]) for k in names},
+             time_values=np.arange(C2_T) * 0.5)
+    return path, {k: data[k] for k in names}
+
+
+def _cell_alone(device, gen, stats, shape, tag0, launches, modes=("plain", "gates"),
+                recompute=None) -> None:
+    """B1 in ``modes`` (plain, emit_gates) and, with ``recompute`` (its
+    launches), B2's gate recompute (a) alone at ``shape``, bf16, against
+    their plain versions with (c)'s, (i)'s and (f)'s tolerances; each row
+    (kernel, plain and bound times, ``launches`` per step of the named
+    route) joins its entry's ``by_shape``."""
+    B, H, W, cin, hid, k = shape
+    plan = check_wgmma(shape, tag0)
+    rand = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa: E731
+    xh, c = rand(B, H, W, cin).bfloat16(), rand(B, H, W, hid)
+    w = (rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5).bfloat16()
+    b = 0.1 * rand(4 * hid)
+    tag = f"B={B} H={H} W={W} Cin={cin} hid={hid} k={k} bfloat16"
+    kernels = {"plain": ("convlstm_cell", fused_cell_forward, fused_cell_forward_plain),
+               "gates": ("convlstm_cell_gates", fused_cell_gates, fused_cell_gates_plain)}
+    for mode in modes:
+        name, fn, plain = kernels[mode]
+        with torch.no_grad():
+            got, again, want = fn(xh, c, w, b), fn(xh, c, w, b), plain(xh, c, w, b)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, a) for g, a in zip(got, again)), f"{tag0} {name}: reruns differ")
+        err = [(g.float() - p.float()).abs().max().item() for g, p in zip(got, want)]
+        check(max(err[:2]) <= TOL_CELL, f"{tag0} {name} h/c {err[:2]} at {tag}")
+        line = f"{tag0} {name} {tag}: max|dh|={err[0]:.3e} max|dc|={err[1]:.3e}"
+        if mode == "gates":
+            excess = _max_excess(got[2], want[2], 2.0**-7)
+            check(excess <= 1e-5, f"{tag0} gates excess {excess:.3e} at {tag}")
+            line += f", gates |d|-2^-7|ref| max {excess:.3e} (<= 1e-5)"
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fn(xh, c, w, b), 10)
+            plain_ms = cuda_ms(lambda: plain(xh, c, w, b), 3)
+        row = _row(shape, ms, plain_ms, cell_work(*shape, gates=mode == "gates"), plan=plan,
+                   max_abs_err=max(err), launches_per_step=launches[mode])
+        stats[name]["by_shape"].append(row)
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], *err)
+        print(line + f"; bit-identical reruns; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {plan} mainloop, "
+              "library: none")
+    if recompute:
+        dh, dc = rand(B, H, W, hid), rand(B, H, W, hid)
+        args = (xh, c, dh, dc, w, b)
+        rec = _recompute_alone(args, fused_cell_bwd(*args), tag, tag0=tag0)
+        rec["launches_per_step"] = recompute
+        entry = stats["cell_bwd"]["recompute"]
+        entry["by_shape"].append(rec)
+        entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
+    torch.cuda.empty_cache()
+
+
+def phase_config2(device, smi, stats) -> dict:
+    """(m) config #2 (20-level fusion, C = 62) trained from netCDF at full
+    width: a packed netCDF3 file written and read back bit-equal through the
+    native reader, fused to 62 channels, 3 counted steps of the remat and
+    per-cell routes, T = GRAD_T gradients of both against eager autograd,
+    the layer-1 kernels (Cin / Cout 126, B = 8) alone against their plain
+    versions, and one CLI epoch with ``--data-path ... --levels 20``."""
+    root = tempfile.mkdtemp(prefix="niswan_c2_")
+    try:
+        t0 = time.perf_counter()
+        path, written = _packed_config2(root)
+        t_write = time.perf_counter() - t0
+        check(ncio_native.available(), "[m] the native netCDF3 reader did not build")
+        reads = ncio_native.reads
+        t0 = time.perf_counter()
+        data = load_90days_nc(path, levels=20)
+        t_read = time.perf_counter() - t0
+        check(ncio_native.reads == reads + 1,
+              "[m] the packed file was not read by the native reader (a scipy fallback)")
+        for name, arr in written.items():
+            check(data[name].dtype == np.float32 and np.array_equal(data[name], arr),
+                  f"[m] {name} read back differs from what was written")
+        print(f"[m] wrote {os.path.basename(path)} ({os.path.getsize(path) / 2**30:.3f} GiB: "
+              f"u/v/omega {tuple(written['u'].shape)}, prec, bcb_src, bcb_conc) in "
+              f"{t_write:.1f} s; load_90days_nc(levels=20) through the native reader in "
+              f"{t_read:.2f} s, bit-equal to the written arrays")
+        del written
+        xs, y = fuse_levels(data, "bcb", levels=20)
+        del data
+        check(xs.shape == (C2_T, C, *GRID), f"[m] fused stack {xs.shape}")
+        ds = SequenceDataset((xs, y), period="train", sequence_length=TRAIN_T)
+        src = DeviceWindowSource(ds, device)
+        order = np.random.default_rng(SEED).permutation(src.n)
+        kw = dict(in_channels=C, hidden_channels=HIDDEN, kernel_sizes=KERNELS,
+                  compute_dtype="bfloat16")
+        init, _ = build_model("LSTM-c2", **kw).init(torch.Generator().manual_seed(SEED), device)
+        n = len(HIDDEN) * TRAIN_T * TRAIN_STEPS
+        want = {True: dict(convlstm_cell=n, cell_bwd=n, conv_same=n),
+                # layer 0's first step needs no input gradient: no B3 there
+                False: dict(convlstm_cell_gates=n, conv_same=n - TRAIN_STEPS, conv_dw=n)}
+        x_raw, y_raw = src.gather(order[:TRAIN_BS])
+        x, yn = preprocess_batch(x_raw[:, :GRAD_T], y_raw, ds.normalizer, PADDED, None)
+        times = {}
+        for remat in (True, False):
+            route = "remat" if remat else "per-cell"
+            params = _copy_params(init)
+            step = make_device_train_step(
+                build_model("LSTM-c2", remat=remat, **kw), ds.normalizer,
+                make_optimizer(params, 1e-3, (0.5, 0.999)), src,
+                padded_shape=PADDED, grid_shape=GRID)
+            _train_run(step, params, 1, order)  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            _set_counts(0)
+            t, metrics = _train_run(step, params, TRAIN_STEPS, order[TRAIN_BS:])
+            _expect_counts(f"[m] config #2, {route} route", **want[remat])
+            peak = torch.cuda.max_memory_allocated()
+            check(bool(torch.isfinite(metrics["loss"])), f"[m] {route}: non-finite loss")
+            check(all(bool(torch.isfinite(p).all()) for p in param_leaves(params)),
+                  f"[m] {route}: non-finite parameters")
+            times[route] = t
+            print(f"[m] config #2 {route} route, {TRAIN_STEPS} steps (bs {TRAIN_BS}, T "
+                  f"{TRAIN_T}, C={C}, bf16): loss {metrics['loss'].item():.5f}, "
+                  f"{1000 * t / TRAIN_STEPS:.1f} ms/step, peak memory {peak / 2**30:.2f} GiB "
+                  f"on {smi}")
+            grad_check(f"[m] config #2, {route} route", params,
+                       lambda dtype, eager, remat=remat: make_loss_fn(build_model(
+                           "LSTM-c2", remat=remat, **dict(kw, compute_dtype=dtype),
+                           **(EAGER if eager else {})), GRID)(params, None, x, yn)[0])
+        del src, x, yn, x_raw, y_raw
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=device).manual_seed(SEED + 4)
+        _cell_alone(device, gen, stats, C2_LAYER1, "[m]", {
+            "plain": f"{TRAIN_T} per config #2 remat step",
+            "gates": f"{TRAIN_T} per config #2 per-cell step"},
+            recompute=f"{TRAIN_T} per config #2 remat step (one per B2 launch)")
+        dw_shape = (TRAIN_BS, 100, 154, C + 64, 4 * HIDDEN[0], KERNELS[0])
+        row = _dw_alone(device, gen, dw_shape, tag0="[m]",
+                        launches_per_step=f"{TRAIN_T} per config #2 per-cell step")
+        del row["flops"], row["bytes"]
+        dw = stats["cell_bwd"]["dw"]
+        dw["max_abs_err"] = max(dw["max_abs_err"], row.pop("max_abs_err"))
+        dw["by_shape"].append(row)
+        cs = stats["conv_same"]
+        cs["max_abs_err"] = max(cs["max_abs_err"], _b3_alone(
+            device, gen, cs["by_shape"], shapes=((TRAIN_BS, 100, 154, 4 * HIDDEN[0], C + 64,
+                                                  KERNELS[0]),),
+            tag0="[m]", launches_per_step=f"{TRAIN_T} per config #2 remat step"))
+
+        phase_cli(device, tag="[m]", data_path=path, levels=20, in_channels=5,
+                  batch_size=TRAIN_BS, input_size=PADDED)
+        return times
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _trace_streams(run, nbytes, root) -> tuple:
+    """The streams of the host-to-device copies of ``nbytes`` bytes, and
+    the set of streams that run kernels, in a profiler trace of ``run()``
+    (its Chrome trace, written under ``root``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    path = os.path.join(root, "streams_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies, kernels = [], set()
+    for e in events:
+        args = e.get("args") or {}
+        stream = args.get("stream", e.get("tid"))
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "") \
+                and args.get("bytes") in nbytes:
+            copies.append(stream)
+        elif e.get("cat") == "kernel":
+            kernels.add(stream)
+    return copies, kernels
+
+
+def phase_streamed(device, smi) -> dict:
+    """(n) the canonical 8-channel step streamed from a daily netCDF tree:
+    ``LazyE33OMASequence`` (90 x 144, 3 days of 48 steps, 1 level, 3 static
+    channels) through ``fit(device_resident=False)``, with exact launch
+    counts, every batch copied from pinned memory on a side stream (the
+    pipeline's counters, and a profiler trace that puts the copies on a
+    stream other than the step kernels'), the batches in ``batch_iterator``'s
+    order, and the epoch's losses, R^2 and
+    weights equal to the same batches fed synchronously, bit for bit.  Then
+    streamed and staged ms/step of the same step, and the loop's share of
+    time waiting on the batch queue (``host_input_wait_frac``, as
+    bench.py's main_train defines it)."""
+    root = tempfile.mkdtemp(prefix="niswan_tree_")
+    try:
+        tree = os.path.join(root, "tree")
+        write_fixture_tree(tree, days=3, steps_per_day=48, H=GRID[0], W=GRID[1], levels=1,
+                           seed=SEED)
+        paths = write_static_attrs_inputs(os.path.join(root, "static"), H=GRID[0], W=GRID[1])
+        static_path = build_static_attrs(paths["land_cover"], paths["lai"], paths["grid"],
+                                         os.path.join(root, "static_attrs.nc"))
+        lazy = dict(sequence_length=TRAIN_T, in_channels=TRAIN_C, padding=PADDED,
+                    static_attrs_path=static_path)
+        train, val = (LazyE33OMASequence(tree, period=p, **lazy) for p in ("train", "val"))
+        # the lazy samples come normalized (variable_statistics.json), with
+        # the static channels and padded: the step adds nothing
+        ident = Normalizer(x_mean=np.zeros(TRAIN_C, np.float32),
+                           x_std=np.ones(TRAIN_C, np.float32), y_mean=0.0, y_std=1.0)
+        cfg = TrainConfig(model="LSTM-stream", in_channels=TRAIN_C, batch_size=TRAIN_BS,
+                          sequence_length=TRAIN_T, num_epochs=1, input_size=None,
+                          checkpoint_every=0, compute_dtype="bfloat16",
+                          snapshot_dir=os.path.join(root, "snap"), device=str(device))
+        bundle = build_model("LSTM-stream", in_channels=TRAIN_C, hidden_channels=HIDDEN,
+                             kernel_sizes=KERNELS, compute_dtype="bfloat16")
+        init, _ = bundle.init(torch.Generator().manual_seed(SEED), device)
+        n_train, n_val = len(train) // TRAIN_BS, -(-len(val) // TRAIN_BS)
+        host = list(batch_iterator(train, TRAIN_BS, shuffle=True, seed=cfg.seed, epoch=1))
+        check(len(host) == n_train > 0, f"[n] {len(host)} training batches")
+
+        seen, real = [], train_loop.async_batches
+
+        def spy(dataset, *args, **kwargs):
+            for batch in real(dataset, *args, **kwargs):
+                if dataset is train:
+                    seen.append(batch[1].cpu())
+                yield batch
+
+        train_loop.async_batches = spy
+        params = _copy_params(init)
+        _set_counts(0)
+        _reset_copies()
+        try:
+            out = fit(bundle, train, val, cfg, device=device, normalizer=ident,
+                      init_params=params, device_resident=False, verbose=False)
+        finally:
+            train_loop.async_batches = real
+        m = len(HIDDEN) * TRAIN_T
+        _expect_counts("[n] streamed fit", convlstm_cell=m * (n_train + n_val),
+                       cell_bwd=m * n_train, conv_same=m * n_train)
+        copies = _copies()
+        check(copies == (2 * (n_train + n_val),) * 3,
+              f"[n] batch copies (all, pinned, side stream) {copies}")
+        check(len(seen) == n_train and all(
+            torch.equal(a, torch.from_numpy(b[1])) for a, b in zip(seen, host)),
+            "[n] the streamed batches are not batch_iterator's")
+        print(f"[n] streamed fit: {n_train} training and {n_val} validation batches from "
+              f"{len(train)} + {len(val)} lazy windows; {copies[0]} batch tensors copied, "
+              f"{copies[1]} from pinned memory, {copies[2]} on a side stream; batches in "
+              f"batch_iterator's order; logger {out['logger']}")
+
+        params_s = _copy_params(init)
+        step = make_train_step(bundle, ident, make_optimizer(params_s, cfg.learning_rate,
+                                                             tuple(cfg.betas)),
+                               padded_shape=None, grid_shape=GRID)
+        metrics = [step(params_s, None, *b)[1] for b in host]
+        sync = (float(torch.stack([mm["loss"] for mm in metrics]).mean()),
+                float(torch.stack([mm["r2"] for mm in metrics]).mean()))
+        got = (out["logger"]["MSELoss"][0], out["logger"]["r2_score"][0])
+        check(got == sync and all(torch.equal(a, b) for a, b in zip(
+            param_leaves(out["params"]), param_leaves(params_s))),
+            f"[n] streamed {got} != synchronous {sync}")
+        print(f"[n] streamed fit == the same batches fed synchronously: loss {got[0]!r}, "
+              f"R2 {got[1]!r}, weights bit-equal")
+
+        # the trace's own witness of the side stream: the batches' host-to-
+        # device copies sit on a stream that runs none of the step's kernels
+        nbytes = {a.nbytes for a in host[0]}
+
+        def two_steps():
+            it = async_batches(train, TRAIN_BS, shuffle=True, seed=cfg.seed, epoch=3,
+                               device=device)
+            for _, batch in zip(range(2), it):
+                step(params_s, None, *batch)
+            it.close()
+
+        copy_streams, kernel_streams = _trace_streams(two_steps, nbytes, root)
+        check(len(copy_streams) >= 2 * len(host[0]) and kernel_streams
+              and not set(copy_streams) & kernel_streams,
+              f"[n] traced batch copies on streams {copy_streams}, the step's kernels on "
+              f"{sorted(kernel_streams)}")
+        print(f"[n] profiler trace of two streamed steps: {len(copy_streams)} batch copies "
+              f"(HtoD, {sorted(nbytes)} bytes) on stream(s) {sorted(set(copy_streams))}, "
+              f"the step's kernels on stream(s) {sorted(kernel_streams)}")
+
+        # bench.py main_train's loop: the wait on the queue, then the step
+        it = async_batches(train, TRAIN_BS, shuffle=True, seed=cfg.seed, epoch=2,
+                           device=device)
+        torch.cuda.synchronize()
+        tic, wait, n = time.perf_counter(), 0.0, 0
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            wait += time.perf_counter() - t0
+            if batch is None:
+                break
+            step(params_s, None, *batch)
+            n += 1
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - tic
+        staged = [tuple(torch.as_tensor(a, device=device) for a in b) for b in host]
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for b in staged:
+            step(params_s, None, *b)
+        torch.cuda.synchronize()
+        t_staged = time.perf_counter() - tic
+        frac = wait / t_stream
+        print(f"[n] streamed from the lazy netCDF tree: {1000 * t_stream / n:.1f} ms/step, "
+              f"host_input_wait_frac {frac:.4f}; the same batches staged on the card: "
+              f"{1000 * t_staged / len(staged):.1f} ms/step ({n} steps, bs {TRAIN_BS}, "
+              f"T {TRAIN_T}, C={TRAIN_C}, bf16) on {smi}")
+        return {"stream_ms": 1000 * t_stream / n, "staged_ms": 1000 * t_staged / len(staged),
+                "host_input_wait_frac": frac}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _copy_params(params):
@@ -1141,18 +1667,20 @@ def _copy_params(params):
     }
 
 
-def phase_cli(device, mode: str = "windowed") -> None:
-    """One epoch of ``python -m nasa_niswan_tpu_torch.train``'s main on a
-    small fixture, at the canonical widths, in ``mode``."""
+def phase_cli(device, mode: str = "windowed", tag: str = "", **overrides) -> None:
+    """One epoch of ``python -m nasa_niswan_tpu_torch.train``'s main at the
+    canonical widths, in ``mode``: on a small synthetic fixture, or on what
+    ``overrides`` (TrainConfig fields, such as a ``data_path``) name."""
     root = tempfile.mkdtemp(prefix="niswan_smoke_")
     try:
-        cfg = TrainConfig(
+        fields = dict(
             model="LSTM-smoke", in_channels=TRAIN_C if mode == "windowed" else 5,
             num_epochs=1, batch_size=4, mode=mode,
             sequence_length=8, synthetic_steps=160, synthetic_grid=(32, 48),
             input_size=(40, 56), compute_dtype="bfloat16", checkpoint_every=1,
             snapshot_dir=os.path.join(root, "snap"), device=str(device),
         )
+        cfg = TrainConfig(**dict(fields, **overrides))
         cfg.dump()
         out = train_cli.main(cfg)
         with open(os.path.join(cfg.snapshot_dir, "logger.npy"), "rb") as f:
@@ -1165,8 +1693,10 @@ def phase_cli(device, mode: str = "windowed") -> None:
         check(all(torch.equal(a, b) for a, b in zip(
             param_leaves(loaded), param_leaves(out["params"]))),
             "checkpoint params differ from the trained ones")
-        tag = "[g]" if mode == "windowed" else "[l]"
-        print(f"{tag} CLI main --mode {mode}: 1 epoch, {opt_state['step']} steps, "
+        tag = tag or ("[g]" if mode == "windowed" else "[l]")
+        src = f"--data-path {os.path.basename(cfg.data_path)} " if cfg.data_path else ""
+        print(f"{tag} CLI main {src}--levels {cfg.levels} --mode {mode} (in_channels "
+              f"{cfg.in_channels}): 1 epoch, {opt_state['step']} steps, "
               f"logger.npy {[float(a[0]) for a in logs]}, epoch-001 checkpoint "
               "loads back")
     finally:
@@ -1204,6 +1734,8 @@ def main() -> None:
     phase_per_cell(device, train)
     phase_hoist(device, serve, train, smi)
     phase_seq2seq(device, smi)
+    phase_config2(device, smi, stats)
+    phase_streamed(device, smi)
     check(all(LAUNCHED[name] > 0 for name in COUNTERS), f"kernels never launched: {LAUNCHED}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1215,7 +1747,7 @@ def main() -> None:
          **({"dw": dict(launches=LAUNCHED["conv_dw"], **stats[name]["dw"]),
              "recompute": dict(launches=LAUNCHED["cell_bwd"], **stats[name]["recompute"])}
             if name == "cell_bwd" else {}),
-         # per timed shape (B3: the three training layers, then B3_SHAPES)
+         # per timed shape (B3: the three training layers, B3_SHAPES, (m))
          **({"by_shape": stats[name]["by_shape"]} if "by_shape" in stats[name] else {})}
         for name, (src, replaces) in KERNEL_SOURCES.items()
     ]}))

@@ -7,8 +7,10 @@ and never JAX, so it runs on a machine that has no JAX installed.
 
 Layering (bottom-up), as in the JAX package:
   core/      lat-lon grid spec + geophysical padding (cyclic lon, reflective lat)
-  data/      normalization constants, SequenceDataset, Seq2SeqDataset,
-             batch_iterator, the synthetic fixture
+  data/      normalization constants and preprocessing, the datasets, the
+             netCDF readers and writers (with the native netCDF3 reader),
+             level fusion, the host batch pipeline (pinned memory, a side
+             stream), the synthetic and netCDF fixtures
   ops/       NHWC conv wrapper, the hand-written CUDA kernels (csrc/: fused
              cell forward in three modes, fused cell backward and its dW,
              data-gradient conv), their nvcc build, and the autograd

@@ -1,12 +1,13 @@
-"""Array-backed sequence dataset and normalization constants (counterpart of
+"""Array-backed datasets and normalization constants (counterpart of
 nasa_niswan_tpu/data/dataset.py: ``Normalizer``, ``zscore_static``,
-``masked_log10``, ``reference_splits`` and ``SequenceDataset``).
+``masked_log10``, ``reference_splits``, ``SequenceDataset``,
+``SingleStepDataset``, ``Seq2SeqDataset`` and ``make_preprocess_fn``).
 
-The dataset is numpy, as in the JAX package, so one set of samples and
+The datasets are numpy, as in the JAX package, so one set of samples and
 statistics serves both packages; the ``Normalizer`` methods take torch
 tensors and compute with the same formulas.  Samples are served raw and
-unpadded: normalization and geophysical padding run on the device inside
-the training step (train/loop.py).
+unpadded: normalization, the static channels and geophysical padding run
+on the device inside the training step (``preprocess_batch``).
 """
 
 from __future__ import annotations
@@ -180,6 +181,86 @@ class SequenceDataset:
         return x.astype(np.float32), y.astype(np.float32)
 
 
+class SingleStepDataset:
+    """One-frame samples for UNet/pix2pix (the reference's E33OMA90D):
+    inputs lagged [1:], optional 6th channel = the previous step's
+    concentration (the autoregressive feedback channel), shuffled 70/10
+    train/val over the first 80%, contiguous test tail, optional log10
+    transform, stats over the (shuffled) train subset."""
+
+    def __init__(
+        self,
+        data: Dict[str, np.ndarray],
+        *,
+        period: str,
+        species: str = "bcb",
+        in_channels: int = 5,
+        transform: bool = False,
+        padding: Optional[Tuple[int, int]] = None,
+        host_preprocessed: bool = False,
+        seed: int = 0,
+    ):
+        xs, conc = _stack_inputs(data, species)
+        x = xs[1:]  # negative lag
+        y = conc[1:]
+        prev = conc[:-1]  # positive-lag feedback channel
+        if in_channels == 6:
+            x = np.concatenate([x, prev[:, None]], axis=1)
+        elif in_channels != 5:
+            raise ValueError("SingleStepDataset supports in_channels 5 or 6")
+        if transform:
+            x = masked_log10(x)
+            y = masked_log10(y)
+
+        n = len(y)
+        train_end, val_end = reference_splits(n)
+        idx = np.arange(val_end)
+        np.random.default_rng(seed).shuffle(idx)
+
+        self.normalizer = Normalizer(
+            x_mean=x[idx[:train_end]].mean(axis=(0, 2, 3)),
+            x_std=x[idx[:train_end]].std(axis=(0, 2, 3)),
+            y_mean=float(y[idx[:train_end]].mean()),
+            y_std=float(y[idx[:train_end]].std()),
+        )
+        sel = {
+            "train": idx[:train_end],
+            "val": idx[train_end:val_end],
+            "test": np.arange(val_end, n),
+        }[period]
+        self._x = x[sel]
+        self._y = y[sel]
+        self.padding = padding
+        self.host_preprocessed = host_preprocessed
+        self.in_channels = in_channels
+        self.period = period
+        self.species = species
+
+    def __len__(self) -> int:
+        return len(self._y)
+
+    def raw_item(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        return self._x[idx], self._y[idx]
+
+    def feedback_stream(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The whole split as raw time-ordered arrays: (T, C, h, w) inputs
+        (channel 5 = the ground-truth previous concentration when
+        in_channels=6) and (T, h, w) targets, the closed-loop evaluator's
+        feed.  Only meaningful for the contiguous 'test' period."""
+        return self._x, self._y
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        x, y = self.raw_item(idx)
+        if not self.host_preprocessed:
+            return x, y
+        norm = self.normalizer
+        x = ((x - norm.x_mean.reshape(-1, 1, 1)) / norm.x_std.reshape(-1, 1, 1)).astype(np.float32)
+        y = norm.normalize_y(y).astype(np.float32)
+        if self.padding:
+            x = pad_geo(torch.from_numpy(np.ascontiguousarray(x)), self.padding).numpy()
+        return x, y
+
+
 class Seq2SeqDataset:
     """Contiguous chunks for multi-step autoregressive training (config #3):
     per sample a (T, 5, H, W) forcing window, the (H, W) concentration at
@@ -244,3 +325,41 @@ class Seq2SeqDataset:
         s_end = int(self._starts[-1]) + self.seq_len
         frames = np.ascontiguousarray(self._xs[s0:s_end])
         return frames, self._y[s0 - 1], self._y[s0:s_end]
+
+
+def preprocess_batch(x, y, normalizer: Normalizer, padded_shape, static):
+    """Raw (B,[T,]C,H,W) + (B,H,W) tensors -> normalized, padded NHWC x and
+    normalized y; ``static`` is the z-scored (S,H,W) tensor (appended
+    after the dynamic channels) or None."""
+    x = normalizer.normalize_x(x)
+    if static is not None:
+        x = torch.cat([x, static.expand(*x.shape[:-3], *static.shape)], dim=-3)
+    if padded_shape is not None:
+        x = pad_geo(x, padded_shape)
+    return torch.movedim(x, -3, -1), normalizer.normalize_y(y)
+
+
+def make_preprocess_fn(
+    normalizer: Normalizer,
+    padded_shape: Optional[Tuple[int, int]],
+    *,
+    static: Optional[np.ndarray] = None,
+):
+    """The device-side preprocessing step as a plain tensor function
+    ``preprocess(x, y) -> (x, y)``: a raw (B, [T,] C, H, W) batch and
+    (B, H, W) targets (tensors or numpy) become normalized, geophysically
+    padded NHWC tensors on the batch's device, with the z-scored
+    ``static`` channels appended (copied to each device once)."""
+    static_z = None if static is None else zscore_static(static)
+    on_device: Dict[torch.device, torch.Tensor] = {}
+
+    def preprocess(x, y):
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        st = None
+        if static_z is not None:
+            if x.device not in on_device:
+                on_device[x.device] = torch.as_tensor(static_z, device=x.device)
+            st = on_device[x.device]
+        return preprocess_batch(x, y, normalizer, padded_shape, st)
+
+    return preprocess

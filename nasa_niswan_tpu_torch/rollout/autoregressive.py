@@ -80,9 +80,15 @@ def make_rollout_fn(
 
     ``precompute_input_conv``: True hoists layer 0's input conv out of the
     time loop (one (B*T)-batched conv, then the kernel's xg mode); None
-    means off, which is what the JAX package's ``_auto_hoist`` gives its
-    fused kernel, since the fused cell never writes the gate tensor and
-    hoisting only adds traffic.
+    is off, set from the device time of one serving step on an NVIDIA
+    H100 80GB HBM3 at its 700 W limit (C = 62, B = 1, bf16, one 48-step
+    chunk, the profiler's kernel sum; scripts/time_hoist.py, two runs of
+    each in turns): 0.1662 and 0.1650 ms/step unhoisted, 0.1568 and 0.1805
+    hoisted.  Hoisting saves no device time there, so the fused cell reads
+    [x, h] in one launch.  On the host clock neither setting wins across
+    calls (chip_smoke.py on the same card, three calls: unhoisted 0.6137,
+    0.4575 and 0.4120 ms/step, hoisted 0.4511, 0.4245 and 0.6056), so the
+    rule is to be re-read once the serving step runs as a CUDA graph.
     """
     static_np = None if static is None else zscore_static(static)
     dt = config.torch_dtype

@@ -38,7 +38,7 @@ import torch
 
 from nasa_niswan_tpu_torch.core.padding import pad_geo
 from nasa_niswan_tpu_torch.data.dataset import Normalizer
-from nasa_niswan_tpu_torch.data.pipeline import batch_iterator
+from nasa_niswan_tpu_torch.data.pipeline import async_batches
 from nasa_niswan_tpu_torch.models.convlstm import CellFn, ConvLSTMConfig, GradsFn
 from nasa_niswan_tpu_torch.ops.convgrad import cell_grads
 from nasa_niswan_tpu_torch.ops.convlstm_bptt import combined_cells
@@ -164,9 +164,10 @@ def make_seq2seq_train_step(
 ):
     """``step(params, x, prev0, y, gen_or_draws, teacher_prob) -> metrics``:
     one Adam update of ``params`` in place from a raw (x, prev0, y) batch
-    (numpy or tensors, moved to the parameters' device); metrics are device
-    scalars ``loss`` and ``r2``.  ``gen_or_draws`` is a ``torch.Generator``
-    or, with ``external_draws``, a (T, B) 0/1 matrix."""
+    (numpy or tensors, moved to the parameters' device unless already
+    there); metrics are device scalars ``loss`` and ``r2``.
+    ``gen_or_draws`` is a ``torch.Generator`` or, with ``external_draws``,
+    a (T, B) 0/1 matrix."""
     forward_chunk = _make_forward_chunk(
         config, normalizer, padded_shape=padded_shape, grid_shape=grid_shape,
         external_draws=external_draws,
@@ -234,8 +235,10 @@ def fit_seq2seq(
     parameters' device.  Returns (params, optimizer, history).
 
     Batches come in ``batch_iterator``'s order (shuffled by seed and epoch,
-    the JAX package's order); the draws come from one generator seeded with
-    ``seed``.  When ``val_dataset`` is given, each epoch also runs fully
+    the JAX package's order) through ``async_batches``: a producer thread
+    stacks them in pinned memory and copies them to the device on a side
+    stream while the step runs.  The draws come from one generator seeded
+    with ``seed``.  When ``val_dataset`` is given, each epoch also runs fully
     closed-loop chunks over it, the last batch padded with its last sample.
     ``snapshot_dir`` + ``checkpoint_every`` write the windowed trainer's
     epoch-NNN layout."""
@@ -260,8 +263,9 @@ def fit_seq2seq(
     for epoch in range(1, num_epochs + 1):
         tp = inverse_sigmoid_schedule(epoch, schedule_k)
         losses, r2s = [], []
-        for x_b, p0_b, y_b in batch_iterator(
-            dataset, batch_size, shuffle=True, seed=seed, epoch=epoch
+        for x_b, p0_b, y_b in async_batches(
+            dataset, batch_size, shuffle=True, seed=seed, epoch=epoch,
+            device=_device_of(params),
         ):
             m = step(params, x_b, p0_b, y_b, gen, tp)
             losses.append(m["loss"])

@@ -4,7 +4,10 @@
 Writes ``configurations.json`` to the snapshot dir, trains on the device
 named by ``--device`` (default ``cuda``; there is no silent fall back to the
 CPU), checkpoints in ``epoch-NNN`` directories and writes ``logger.npy``.
-Data is the synthetic fixture or a packed ``.npz``.  Two modes:
+Data is the synthetic fixture, a packed ``.npz`` or a packed
+E33OMA-90Days-style ``.nc`` (data/netcdf.load_90days_nc); ``--levels L`` > 1
+fuses the first L levels of u/v/omega into channels (config #2 at L = 20:
+C = 3 L + 2, data/fusion.fuse_levels).  Two modes:
 
 * ``--mode windowed`` (default): sliding-window training; resume through
   ``--use-checkpoint --restore-from DIR`` or ``--auto-resume``;
@@ -15,8 +18,7 @@ Data is the synthetic fixture or a packed ``.npz``.  Two modes:
   windowed snapshot (the canonical protocol: windowed train, seq2seq
   fine-tune, rollout); ``--schedule-k`` sets the teacher-forcing decay.
 
-Not ported yet: the 3-D level fusion (``--levels`` > 1), the ``.nc`` reader
-and data parallelism.
+Not ported yet: data parallelism.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 import os
 
 from nasa_niswan_tpu_torch.data.dataset import Seq2SeqDataset, SequenceDataset
+from nasa_niswan_tpu_torch.data.fusion import fuse_levels
 from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
 from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, convlstm_init
 from nasa_niswan_tpu_torch.models.registry import build_model
@@ -45,18 +48,26 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def load_data(config: TrainConfig) -> dict:
-    if config.data_path:
-        if not config.data_path.endswith(".npz"):
-            raise NotImplementedError(
-                f"{config.data_path}: only a packed .npz is read so far"
-            )
+def load_data(config: TrainConfig):
+    """The packed data dict, or the fused (frames, targets) stack when
+    ``--levels`` > 1."""
+    if config.data_path and config.data_path.endswith(".nc"):
+        from nasa_niswan_tpu_torch.data.netcdf import load_90days_nc
+
+        data = load_90days_nc(
+            config.data_path, levels=config.levels if config.levels > 1 else None)
+    elif config.data_path:
         with np.load(config.data_path) as f:
-            return dict(f)
-    return synthetic_e33oma_90d(
-        species=config.species, T=config.synthetic_steps, nlev=config.levels,
-        H=config.synthetic_grid[0], W=config.synthetic_grid[1], seed=config.seed,
-    )
+            data = dict(f)
+    else:
+        data = synthetic_e33oma_90d(
+            species=config.species, T=config.synthetic_steps, nlev=config.levels,
+            H=config.synthetic_grid[0], W=config.synthetic_grid[1], seed=config.seed,
+        )
+    if config.levels > 1:
+        # config #2: the 3-D meteorology levels become channels (C = 3L+2)
+        return fuse_levels(data, config.species, levels=config.levels)
+    return data
 
 
 def build_datasets(config: TrainConfig, data):
@@ -132,8 +143,6 @@ def main(config: TrainConfig):
     device = resolve_device(config.device)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"{config.model} deployed on {kind}")
-    if config.levels > 1:
-        raise NotImplementedError("--levels > 1 (3-D level fusion) is not ported yet")
     data = load_data(config)
     if config.mode == "seq2seq":
         return run_seq2seq(config, data, device)
@@ -146,7 +155,9 @@ def main(config: TrainConfig):
         precompute_input_conv=config.precompute_input_conv,
     )
     train_ds, val_ds = build_datasets(config, data)
-    n_static = config.in_channels - 5
+    # static channels apply to the surface configs only: every channel of
+    # the fused stack is dynamic
+    n_static = config.in_channels - 5 if config.levels == 1 else 0
     static = data["static"][:n_static] if n_static > 0 else None
 
     init_params = init_opt_state = None

@@ -8,10 +8,12 @@ nasa_niswan_tpu/train/loop.py, single device).
   R^2.  Parameters are updated in place by ``torch.optim.Adam``.
 * StepLR is applied by setting the optimizer's lr once per epoch.
 * Epoch metrics accumulate as device scalars; one host sync per epoch.
-* Batches come from ``DeviceWindowSource``: the split's contiguous frame
-  slab is uploaded once and each batch's windows are gathered on the device
-  by start index.  The host pipeline (``data/pipeline.async_batches``) is
-  not ported yet, so ``fit`` raises when the slab does not fit.
+* Batches come from ``DeviceWindowSource`` when the split's frame slabs
+  fit on the device: the contiguous slab is uploaded once and each batch's
+  windows are gathered on the device by start index.  Otherwise (or for a
+  dataset without a slab, such as the lazy netCDF ones) they are streamed
+  by ``data/pipeline.async_batches``: stacked in pinned memory by a
+  producer thread and copied on a side stream while the step runs.
 * Checkpoints every ``checkpoint_every`` epochs in the ``epoch-NNN`` layout
   (train/checkpoint.py), and ``logger.npy`` with the reference's three
   arrays at the end.
@@ -26,8 +28,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
-from nasa_niswan_tpu_torch.data.dataset import Normalizer, zscore_static
+from nasa_niswan_tpu_torch.core.padding import crop_to_grid
+from nasa_niswan_tpu_torch.data.dataset import Normalizer, make_preprocess_fn
+from nasa_niswan_tpu_torch.data.pipeline import async_batches, batch_indices
 from nasa_niswan_tpu_torch.evalx.metrics import r2
 from nasa_niswan_tpu_torch.models.registry import ModelBundle
 from nasa_niswan_tpu_torch.train.checkpoint import (
@@ -51,31 +54,6 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
     for group in optimizer.param_groups:
         group["lr"] = lr
     return optimizer
-
-
-def _device_preprocess(x, y, normalizer: Normalizer, padded_shape, static):
-    """Raw (B,[T,]C,H,W) + (B,H,W) -> normalized padded NHWC + normalized y;
-    ``static`` is the z-scored (S,H,W) tensor or None."""
-    x = normalizer.normalize_x(x)
-    if static is not None:
-        x = torch.cat([x, static.expand(*x.shape[:-3], *static.shape)], dim=-3)
-    if padded_shape is not None:
-        x = pad_geo(x, padded_shape)
-    return torch.movedim(x, -3, -1), normalizer.normalize_y(y)
-
-
-def _static_on(static_z: Optional[np.ndarray]) -> Callable:
-    """The z-scored static channels as a tensor on a device, copied once."""
-    cache: Dict[Any, torch.Tensor] = {}
-
-    def get(device):
-        if static_z is None:
-            return None
-        if device not in cache:
-            cache[device] = torch.as_tensor(static_z, device=device)
-        return cache[device]
-
-    return get
 
 
 def _forward_cropped(bundle: ModelBundle, params, state, x, grid_shape, *, training):
@@ -109,13 +87,11 @@ def build_train_step_fn(
     """``step(params, state, x_raw, y_raw) -> (new_state, metrics)`` on
     device tensors: preprocess, loss, backward, one Adam update of
     ``params`` in place; metrics are device scalars ``loss`` and ``r2``."""
-    static_on = _static_on(None if static is None else zscore_static(static))
+    preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
     loss_fn = make_loss_fn(bundle, grid_shape)
 
     def train_step(params, state, x_raw, y_raw):
-        x, y = _device_preprocess(
-            x_raw, y_raw, normalizer, padded_shape, static_on(x_raw.device)
-        )
+        x, y = preprocess(x_raw, y_raw)
         optimizer.zero_grad(set_to_none=True)
         loss, (pred, new_state) = loss_fn(params, state, x, y)
         loss.backward()
@@ -168,13 +144,11 @@ def build_eval_step_fn(
     device tensors, without grad (the reference evaluates bs=1 and averages
     per-sample scores); pred normalized, or in physical units when
     ``unnormalize``."""
-    static_on = _static_on(None if static is None else zscore_static(static))
+    preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
 
     def eval_step(params, state, x_raw, y_raw):
         with torch.no_grad():
-            x, y = _device_preprocess(
-                x_raw, y_raw, normalizer, padded_shape, static_on(x_raw.device)
-            )
+            x, y = preprocess(x_raw, y_raw)
             pred, _ = _forward_cropped(
                 bundle, params, state, x, grid_shape, training=False
             )
@@ -283,22 +257,27 @@ def make_device_eval_step(
     return step
 
 
-def _check_slabs_fit(datasets, device: torch.device) -> None:
-    """Raise unless the frame slabs take at most half the free device
-    memory (the rest is the step's working set)."""
+def slabs_fit(datasets, device: torch.device) -> bool:
+    """Whether the datasets have frame slabs (``forcing_stream``) and these
+    take at most half the free memory of a CUDA device (the rest is the
+    step's working set); on the CPU, whether they have slabs."""
+    if not all(hasattr(ds, "forcing_stream") for ds in datasets):
+        return False
     if device.type != "cuda":
-        return
+        return True
     need = sum(
         ds[0][0].nbytes * (len(ds) + ds.seq_len) // ds.seq_len for ds in datasets
     )
     free, _ = torch.cuda.mem_get_info(device)
-    if need > free // 2:
-        raise RuntimeError(
-            f"the training and validation frame slabs ({need / 2**30:.2f} GiB) "
-            f"do not fit in half the free memory of {device} "
-            f"({free / 2**30:.2f} GiB); the host batch pipeline that would "
-            "stream them is not ported yet"
-        )
+    return need <= free // 2
+
+
+def _pad_batch(batch, bs: int):
+    """A partial batch padded to ``bs`` by repeating its last sample."""
+    n = batch[0].shape[0]
+    if n == bs:
+        return batch
+    return tuple(torch.cat([a, a[-1:].expand(bs - n, *a.shape[1:])]) for a in batch)
 
 
 def fit(
@@ -315,9 +294,18 @@ def fit(
     init_opt_state=None,
     start_epoch: int = 1,
     verbose: bool = True,
+    device_resident: Optional[bool] = None,
 ) -> Dict[str, Any]:
-    """Epoch driver with the reference's logging and checkpoints, on the
-    device-resident window path.
+    """Epoch driver with the reference's logging and checkpoints.
+
+    ``device_resident``: True gathers each batch's windows on the device
+    from uploaded frame slabs (``DeviceWindowSource``); False streams the
+    batches through ``async_batches`` (pinned host buffers, copies on a
+    side stream), in the same order; None takes the resident route when
+    the slabs fit in half the device's free memory (``slabs_fit``), else
+    streams.  The JAX package's 6 GiB threshold is a TPU policy and is not
+    used.  Validation keeps the batch shape: a partial last batch is padded
+    with its last sample and only the valid per-sample scores are kept.
 
     Returns {params, state, optimizer, logger, elapsed_s}; logger holds the
     three reference metric arrays (MSELoss, r2_score, r2_score_val).
@@ -338,17 +326,22 @@ def fit(
     if init_opt_state is not None:
         load_optimizer_state(optimizer, params, init_opt_state)
 
-    _check_slabs_fit((train_dataset, val_dataset), device)
-    train_src = DeviceWindowSource(train_dataset, device)
-    val_src = DeviceWindowSource(val_dataset, device)
-    train_step = make_device_train_step(
-        bundle, normalizer, optimizer, train_src, padded_shape=padded,
-        grid_shape=grid_shape, static=static,
-    )
-    eval_step = make_device_eval_step(
-        bundle, normalizer, val_src, padded_shape=padded,
-        grid_shape=grid_shape, static=static,
-    )
+    if device_resident is None:
+        device_resident = slabs_fit((train_dataset, val_dataset), device)
+    elif device_resident and not all(
+            hasattr(ds, "forcing_stream") for ds in (train_dataset, val_dataset)):
+        raise ValueError("device_resident=True needs datasets with frame slabs "
+                         "(forcing_stream); stream the others")
+    geo = dict(padded_shape=padded, grid_shape=grid_shape, static=static)
+    if device_resident:
+        train_src = DeviceWindowSource(train_dataset, device)
+        val_src = DeviceWindowSource(val_dataset, device)
+        train_step = make_device_train_step(
+            bundle, normalizer, optimizer, train_src, **geo)
+        eval_step = make_device_eval_step(bundle, normalizer, val_src, **geo)
+    else:
+        train_step = make_train_step(bundle, normalizer, optimizer, **geo)
+        eval_step = make_eval_step(bundle, normalizer, **geo)
 
     logger = {"MSELoss": [], "r2_score": [], "r2_score_val": []}
     step_size, gamma = config.scheduler_config
@@ -358,22 +351,29 @@ def fit(
             optimizer, step_lr(config.learning_rate, step_size, gamma, epoch - 1)
         )
         losses, r2s = [], []
-        order = np.arange(train_src.n)
-        np.random.default_rng(np.uint32(config.seed) + np.uint32(epoch)).shuffle(order)
-        for s in range(0, train_src.n - train_src.n % bs, bs):
-            state, metrics = train_step(params, state, order[s : s + bs])
+        if device_resident:  # batch_iterator's order, by window start
+            batches = ((torch.as_tensor(idx),) for idx in batch_indices(
+                train_src.n, bs, seed=config.seed, epoch=epoch))
+        else:
+            batches = async_batches(train_dataset, bs, shuffle=True, seed=config.seed,
+                                    epoch=epoch, device=device)
+        for batch in batches:
+            state, metrics = train_step(params, state, *batch)
             losses.append(metrics["loss"])
             r2s.append(metrics["r2"])
 
         # val keeps the batch shape: a partial final batch is padded with its
-        # last index and only the valid per-sample scores are kept
+        # last sample and only the valid per-sample scores are kept
         val_scores = []
-        for s in range(0, val_src.n, bs):
-            idx = np.arange(s, min(s + bs, val_src.n))
-            n_valid = len(idx)
-            if n_valid < bs:
-                idx = np.concatenate([idx, np.repeat(idx[-1:], bs - n_valid)])
-            per_sample, _ = eval_step(params, state, idx)
+        if device_resident:
+            val_batches = ((torch.as_tensor(idx),) for idx in batch_indices(
+                val_src.n, bs, shuffle=False, drop_last=False))
+        else:
+            val_batches = async_batches(val_dataset, bs, shuffle=False,
+                                        drop_last=False, device=device)
+        for batch in val_batches:
+            n_valid = batch[0].shape[0]
+            per_sample, _ = eval_step(params, state, *_pad_batch(batch, bs))
             val_scores.append(per_sample[:n_valid])
 
         logger["MSELoss"].append(float(torch.stack(losses).mean()))

@@ -590,3 +590,118 @@ def test_cell_halo_at_every_xh_alignment(device, cin):
             assert torch.equal(g, a), shift
         for g, a in zip(fused_cell_bwd(odd, c, dh, dh, w, b), want_bwd):
             assert torch.equal(g, a), shift
+
+
+# ---- config #2 (20-level fusion, C = 62): layer 1 reads 62 + 64 = 126 -----
+
+
+def test_config2_layer1_dw_at_b8(device):
+    """dW (conv_dw) at config #2's layer 1, B = 8, Cin 126, 256 gate
+    columns, k 5, bf16: on the tensor cores, within 1e-3 of the largest
+    entry of the per-tap f32 matmul, reruns bit-identical."""
+    B, H, W, cin, n, k = 8, 100, 154, 126, 256, 5
+    assert convgrad.dw_uses_mma(torch.bfloat16, B, H, W, cin, n, k)
+    gen = torch.Generator(device=device).manual_seed(126)
+    x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
+    g = torch.randn((B, H, W, n), generator=gen, device=device).bfloat16()
+    got, again, want = conv_dw(x, g, k), conv_dw(x, g, k), dw_per_tap(x, g, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= 1e-3
+
+
+def test_config2_layer1_b3_at_b8(device):
+    """B3 as layer 1's data gradient at config #2 (dgates of hidden 64 ->
+    126 channels), B = 8, bf16: within 2e-4 of the largest entry of the
+    plain conv, reruns bit-identical."""
+    B, H, W, cin, cout, k = 8, 100, 154, 256, 126, 5
+    gen = torch.Generator(device=device).manual_seed(127)
+    x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
+    w = (torch.randn((k, k, cin, cout), generator=gen, device=device)
+         / (k * k * cin) ** 0.5).bfloat16()
+    got, again, want = conv_same(x, w), conv_same(x, w), conv_same_plain(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= 2e-4
+
+
+# ---- the host batch pipeline on the card -----------------------------------
+
+
+class _Windows:
+    def __init__(self, n=12):
+        rng = np.random.default_rng(3)
+        self.x = rng.standard_normal((n, 4, 3, 10, 16)).astype(np.float32)
+        self.y = rng.standard_normal((n, 10, 16)).astype(np.float32)
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, i):
+        return self.x[i], self.y[i]
+
+
+def test_async_batches_pinned_side_stream_prefetch(device):
+    """On the card every batch tensor is copied from a pinned host buffer on
+    a stream other than the consumer's, arrives on the device in
+    batch_iterator's order, and equals the host batch."""
+    from nasa_niswan_tpu_torch.data import pipeline
+
+    ds = _Windows()
+    want = list(pipeline.batch_iterator(ds, 4, seed=2, epoch=1))
+    before = (pipeline.h2d_copies, pipeline.h2d_pinned, pipeline.h2d_side_stream)
+    got = []
+    for batch in pipeline.async_batches(ds, 4, seed=2, epoch=1, device=device):
+        assert all(t.device == device for t in batch)
+        got.append(tuple(t * 1 for t in batch))  # a kernel on the consumer's stream
+    after = (pipeline.h2d_copies, pipeline.h2d_pinned, pipeline.h2d_side_stream)
+    assert [a - b for a, b in zip(after, before)] == [2 * len(want)] * 3
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a.cpu().numpy(), b)
+    pre = list(pipeline.device_prefetch(iter(want), size=2, device=device))
+    for g, w in zip(pre, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+def test_chunk_drain_fetches_device_chunks_one_behind(device):
+    from nasa_niswan_tpu_torch.data.pipeline import ChunkDrain
+
+    drain = ChunkDrain()
+    chunks = [torch.full((3, 5), float(i), device=device) for i in range(3)]
+    for c in chunks:
+        drain.push(c)
+    out = drain.finish()
+    assert [float(o[0, 0]) for o in out] == [0.0, 1.0, 2.0]
+    assert all(isinstance(o, np.ndarray) for o in out)
+
+
+def test_streamed_fit_equals_resident_fit_on_the_card(device, tmp_path):
+    """``fit(device_resident=False)`` on the card: the same losses and
+    weights as the resident route, bit for bit (the same kernels on the
+    same batches), bf16 at a small size."""
+    from nasa_niswan_tpu_torch.data.dataset import SequenceDataset
+    from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
+    from nasa_niswan_tpu_torch.models.registry import build_model
+    from nasa_niswan_tpu_torch.train.checkpoint import param_leaves
+    from nasa_niswan_tpu_torch.train.config import TrainConfig
+    from nasa_niswan_tpu_torch.train.loop import fit
+
+    data = synthetic_e33oma_90d(T=40, H=16, W=24, seed=1)
+    train, val = (SequenceDataset(data, period=p, sequence_length=4) for p in ("train", "val"))
+    kw = dict(in_channels=5, hidden_channels=(16, 8), kernel_sizes=(5, 3),
+              compute_dtype="bfloat16")
+    cfg = TrainConfig(model="LSTM-c", num_layers=2, hidden_channels=(16, 8),
+                      kernel_size=(5, 3), batch_size=3, num_epochs=1, input_size=(20, 28),
+                      checkpoint_every=0, snapshot_dir=str(tmp_path),
+                      compute_dtype="bfloat16", device=str(device))
+    outs = []
+    for resident in (True, False):
+        bundle = build_model("LSTM-c", **kw)
+        params, _ = bundle.init(torch.Generator().manual_seed(0), device)
+        outs.append(fit(bundle, train, val, cfg, device=device, device_resident=resident,
+                        init_params=params, verbose=False))
+    assert outs[0]["logger"] == outs[1]["logger"]
+    for a, b in zip(param_leaves(outs[0]["params"]), param_leaves(outs[1]["params"])):
+        assert torch.equal(a, b)

@@ -519,3 +519,94 @@ def test_build_model_routes():
     assert not _in_graph(pred, "_ScanCellsBackward")
     pred, _ = build_model("LSTM-r", **kw).apply(params, None, x)
     assert _in_graph(pred, "_ScanCellsBackward")
+
+
+# ---- C1: fit_seq2seq streams its batches; C2: the serving hoist rule --------
+
+
+def _sync_fit_seq2seq(cfg, params, ds, *, epochs, batch_size, seed):
+    """The synchronous loop ``fit_seq2seq`` ran before it streamed its
+    batches: ``batch_iterator``'s numpy batches fed to the step in turn,
+    the draws from one generator seeded with ``seed``."""
+    optimizer = tloop.make_optimizer(params, LR, BETAS)
+    step = ts2s.make_seq2seq_train_step(cfg, ds.normalizer, optimizer,
+                                        padded_shape=PADDED, grid_shape=GRID)
+    gen = torch.Generator().manual_seed(seed)
+    history, seen = [], []
+    for epoch in range(1, epochs + 1):
+        tp = ts2s.inverse_sigmoid_schedule(epoch, 10.0)
+        losses, r2s = [], []
+        for x, p0, y in batch_iterator(ds, batch_size, shuffle=True, seed=seed, epoch=epoch):
+            seen.append(y)
+            m = step(params, x, p0, y, gen, tp)
+            losses.append(m["loss"])
+            r2s.append(m["r2"])
+        history.append({"epoch": epoch, "teacher_prob": tp,
+                        "loss": float(torch.stack(losses).mean()),
+                        "r2": float(torch.stack(r2s).mean())})
+    return history, seen, gen
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_fit_seq2seq_streamed_equals_the_synchronous_loop(s2s_data, remat, monkeypatch):
+    """``fit_seq2seq`` takes its batches from ``async_batches``: the batches
+    arrive in ``batch_iterator``'s order, the generator's draws and the
+    per-epoch losses and R^2 are those of the synchronous loop, bit for
+    bit (the same plain kernels on the same inputs)."""
+    _, ds = s2s_data
+    cfg = tm.ConvLSTMConfig(6, remat=remat, **LAYERS)
+    tree = _jax_tree(6, 8)
+    want, want_seen, want_gen = _sync_fit_seq2seq(cfg, _port_params(tree), ds, epochs=2,
+                                                  batch_size=2, seed=5)
+    seen, real = [], ts2s.async_batches
+
+    def spy(*args, **kwargs):
+        for batch in real(*args, **kwargs):
+            seen.append(batch[2].numpy().copy())
+            yield batch
+
+    monkeypatch.setattr(ts2s, "async_batches", spy)
+    gens = []
+    real_gen = torch.Generator
+
+    def generator(*a, **kw):
+        gens.append(real_gen(*a, **kw))
+        return gens[-1]
+
+    monkeypatch.setattr(ts2s.torch, "Generator", generator)
+    params = _port_params(tree)
+    _, _, got = ts2s.fit_seq2seq(cfg, params, ds, padded_shape=PADDED, grid_shape=GRID,
+                                 num_epochs=2, batch_size=2, learning_rate=LR, betas=BETAS,
+                                 seed=5, verbose=False)
+    assert got == want
+    assert len(seen) == len(want_seen) == 2 * (len(ds) // 2)
+    for a, b in zip(seen, want_seen):
+        np.testing.assert_array_equal(a, b)
+    assert len(gens) == 1
+    assert torch.equal(gens[0].get_state(), want_gen.get_state())
+
+
+def test_serving_hoist_default_is_the_measured_rule(monkeypatch):
+    """``precompute_input_conv=None`` takes the unhoisted route (off, set
+    from an H100 device-time reading, see make_rollout_fn): the model is
+    asked for no hoist, and the rollout equals the unhoisted one bit for
+    bit, while True asks for the hoist."""
+    rng = np.random.default_rng(8)
+    forcings = rng.standard_normal((1, 3, 5, *GRID)).astype(np.float32)
+    norm = tdata.Normalizer(np.zeros(5, np.float32), np.ones(5, np.float32), 0.0, 1.0)
+    tcfg = tm.ConvLSTMConfig(5, **LAYERS)
+    params = bridge.params_from_jax(_jax_tree(5, 9))
+    geo = dict(padded_shape=PADDED, grid_shape=GRID)
+    asked, real = [], troll.convlstm_apply
+
+    def spy(*args, **kwargs):
+        asked.append(kwargs["precompute_input_conv"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(troll, "convlstm_apply", spy)
+    p_none, _ = troll.make_rollout_fn(tcfg, norm, **geo)(params, forcings)
+    p_off, _ = troll.make_rollout_fn(tcfg, norm, precompute_input_conv=False, **geo)(
+        params, forcings)
+    troll.make_rollout_fn(tcfg, norm, precompute_input_conv=True, **geo)(params, forcings)
+    assert asked == [False, False, True]
+    assert torch.equal(p_none, p_off)

@@ -218,11 +218,16 @@ def test_device_window_source_feeds_the_same_batches(fixture):
 
 
 def test_slab_check_raises_when_it_does_not_fit(fixture, monkeypatch):
+    """Slabs that do not fit in half the free device memory send ``fit`` to
+    the streamed route (it used to raise); on the host they always fit, and
+    a dataset without a slab always streams."""
     _, ds = fixture
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (1024, 2048))
-    with pytest.raises(RuntimeError, match="not ported yet"):
-        tloop._check_slabs_fit((ds, ds), torch.device("cuda"))
-    tloop._check_slabs_fit((ds, ds), torch.device("cpu"))  # no limit on the host
+    assert not tloop.slabs_fit((ds, ds), torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (2**40, 2**40))
+    assert tloop.slabs_fit((ds, ds), torch.device("cuda"))
+    assert tloop.slabs_fit((ds, ds), torch.device("cpu"))  # no limit on the host
+    assert not tloop.slabs_fit((ds, object()), torch.device("cpu"))
 
 
 def test_cli_trains_on_cpu_writes_logger_and_resumes(tmp_path):
@@ -260,8 +265,11 @@ def test_cli_device_is_explicit(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(TrainConfig(synthetic_steps=60, synthetic_grid=(16, 24)))
-    with pytest.raises(NotImplementedError, match="levels"):
-        cli.main(TrainConfig(mode="seq2seq", levels=20, device="cpu"))
+    # --levels > 1 fuses the levels (it used to raise): C = 3 * levels + 2
+    xs, y = cli.load_data(TrainConfig(levels=2, synthetic_steps=20,
+                                      synthetic_grid=(16, 24), device="cpu"))
+    assert xs.shape == (20, 8, 16, 24) and y.shape == (20, 16, 24)
+    assert TrainConfig(mode="seq2seq", levels=20, device="cpu").in_channels == 63
     with pytest.raises(NotImplementedError):
         build_model("UNet-x", in_channels=5)
     assert model_family("LSTM-64K5.32K3.16K3-E33OMA-8C-BCB-x") == "LSTM"
