@@ -18,8 +18,9 @@ Phases, each printing its own lines:
       events);
   (d) serve: the canonical C=62 model (20-level fusion, hidden 64/32/16,
       kernels 5/3/3, 100x154 padded grid), random weights from a seed, bf16,
-      B=1: four 48-step requests chained through the carry, with exactly
-      3 x 4 x 48 kernel launches, finite outputs, one 48-step request equal
+      B=1: four 48-step requests chained through the carry, each one CUDA
+      graph replay after a warm-up request, with exactly 3 x 4 x 48 kernel
+      launches, finite outputs, one 48-step request equal
       to two 24-step ones, a few streaming steps equal to the rollout, and
       request 1 re-run on the plain path: rms |d| <= 2e-2 of the plain
       predictions' std, max |d| no more than twice the plain path's own
@@ -98,7 +99,30 @@ Phases, each printing its own lines:
       that puts the copies on a stream that runs none of the step's
       kernels), the batches in batch_iterator's order, losses, R^2 and
       weights equal to the same batches fed synchronously (bit-equal);
-      streamed and staged ms/step and host_input_wait_frac.
+      streamed and staged ms/step and host_input_wait_frac;
+  (o) serving as CUDA graphs (rollout/graph.py; every rollout on the card
+      above was one already): (d)'s four chained requests and their carry
+      bit-equal to the eager body that is captured, chunked equal to
+      one-shot, two hoisted requests, ten streaming steps; after one Adam
+      step on a copy of the weights (in place) the next request recaptures
+      and equals eager; one request's B1 launches exactly 3 x 48, from the
+      runner's counters and from the profiler's kernels by name; the
+      sustained rate in bench.py's serving setup (6 chained 384-step chunks,
+      best of 3), eager and graph in turns: host-clock ms/step and
+      model-days/min, and device ms/step (profiler kernel sum); a request
+      served once (48 steps, and the 864-step test period of the 90-day
+      dataset): the graph's first call (one-step warm-up, capture, replay)
+      beside one eager call and one replay, on the host clock;
+  (p) the CLIs on full-width snapshots of seeded weights (save_checkpoint)
+      over the synthetic stream (240 steps, 90 x 144): config #2 (C = 62)
+      through the evaluation CLI's report, the serving CLI in chunks of 24
+      against the same run split by --state-out / --skip --state-in
+      (bit-equal, read back from the .nc files), and --artifact from
+      export_rollout equal to the live route; config #3's closed loop split
+      the same way;
+  (q) S = 3 species at C = 62 as one multi-tracer graph, with exact launch
+      counts, bit-equal to three single rollouts; batched OAT against
+      serial within (d)'s bf16 bound.
 
 Then one JSON line describing each kernel (launches summed over the counted
 main-path runs, a launch with two modes on counted once; the largest error
@@ -118,6 +142,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -137,7 +162,7 @@ from nasa_niswan_tpu_torch.data.dataset import (
 )
 from nasa_niswan_tpu_torch.data.fusion import fuse_levels
 from nasa_niswan_tpu_torch.data.ncfixture import write_fixture_tree, write_static_attrs_inputs
-from nasa_niswan_tpu_torch.data.ncio import write_nc
+from nasa_niswan_tpu_torch.data.ncio import open_nc, write_nc
 from nasa_niswan_tpu_torch.data.netcdf import (
     LazyE33OMASequence,
     build_static_attrs,
@@ -145,6 +170,8 @@ from nasa_niswan_tpu_torch.data.netcdf import (
 )
 from nasa_niswan_tpu_torch.data.pipeline import async_batches, batch_iterator
 from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
+from nasa_niswan_tpu_torch.evalx import __main__ as eval_cli
+from nasa_niswan_tpu_torch.evalx.snapshot import load_snapshot
 from nasa_niswan_tpu_torch.evalx.evaluate import (
     make_closed_loop_chunk,
     zero_closed_loop_state,
@@ -173,14 +200,22 @@ from nasa_niswan_tpu_torch.rollout.seq2seq import (
     fit_seq2seq,
     make_seq2seq_train_step,
 )
+from nasa_niswan_tpu_torch.rollout import __main__ as serve_cli
 from nasa_niswan_tpu_torch.rollout.autoregressive import (
     make_rollout_fn,
     make_streaming_rollout,
     model_days_per_min,
 )
+from nasa_niswan_tpu_torch.rollout.export import export_rollout
+from nasa_niswan_tpu_torch.rollout.multitracer import make_multitracer_rollout, stack_params
+from nasa_niswan_tpu_torch.rollout.sensitivity import oat_sensitivity
 from nasa_niswan_tpu_torch.train import __main__ as train_cli
 from nasa_niswan_tpu_torch.train import loop as train_loop
-from nasa_niswan_tpu_torch.train.checkpoint import load_checkpoint, param_leaves
+from nasa_niswan_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    param_leaves,
+    save_checkpoint,
+)
 from nasa_niswan_tpu_torch.train.config import TrainConfig
 from nasa_niswan_tpu_torch.train.loop import (
     DeviceWindowSource,
@@ -210,6 +245,15 @@ TOL_CELL = 1e-3  # f32 sums in another order over K <= 3,150 terms
 TOL_CHUNK = 1e-6  # same launches on the same data: expected bit-exact
 TOL_PLAIN_REL = 2e-2  # bf16 rollout, rms |kernel - plain| / std(plain)
 TOL_F32_REL = 1e-4  # f32 rollout, max |kernel - plain| / std(plain)
+# (o) bench.py's serving setup: chunks of 384 steps, 6 chained, best of 3
+BENCH_STEPS, BENCH_CHUNKS, BENCH_REPS = 384, 6, 3
+# (p) steps of the synthetic stream behind the CLI snapshots: a test split
+# of one 48-step window, served in chunks of 24
+CLI_T, CLI_CHUNK = 240, 24
+N_SPECIES = 3  # (q)
+# (o) requests served once: one request, and the test period of the 90-day
+# dataset (20% of 90 x 48 steps), as predict_test_rollout serves it
+FIRST_CALL_STEPS = (STEPS, 864)
 
 # training: the canonical step of bench.py's main_train
 TRAIN_BS, TRAIN_T, TRAIN_C = 8, 48, 8  # 5 forcings + 3 static channels
@@ -530,7 +574,7 @@ def phase_serve(device) -> dict:
     check(f_max <= TOL_F32_REL, f"f32 kernel vs plain rollout {f_max:.3e}")
     return {"launches": launches, "t_kernel": t_kernel, "t_plain": t_plain,
             "cfg": cfg, "params": params, "norm": norm, "forcings": forcings,
-            "preds": preds}
+            "preds": preds, "state": state, "rollout": rollout}
 
 
 def rel_err(p: torch.Tensor, ref: torch.Tensor):
@@ -1658,6 +1702,301 @@ def phase_streamed(device, smi) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _same_state(a, b) -> bool:
+    return all(torch.equal(x, y) for hc_a, hc_b in zip(a, b) for x, y in zip(hc_a, hc_b))
+
+
+def _profile(fn):
+    """(kernel device time in ms, {kernel name: (launches, device ms)}) of
+    ``fn()`` under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in events) / 1e3,
+            {e.key: (e.count, e.self_device_time_total / 1e3) for e in events})
+
+
+def _serving_rate(device, smi) -> dict:
+    """(o) bench.py's serving setup (C = 62, B = 1, bf16, seed 0, zero-mean
+    unit-std normalizer, one 384-step forcing chunk served 6 times chained
+    through the carry, best of 3 on the host clock, synchronised at the end
+    of each chain), eager and graph in turns; then each one's device time
+    per step over one chunk under the profiler."""
+    cfg = ConvLSTMConfig(in_channels=C, hidden_channels=HIDDEN, kernel_sizes=KERNELS,
+                         compute_dtype="bfloat16")
+    params = convlstm_init(torch.Generator().manual_seed(SEED), cfg, device=device)
+    norm = Normalizer(x_mean=np.zeros(C, np.float32), x_std=np.ones(C, np.float32),
+                      y_mean=0.0, y_std=1.0)
+    rng = np.random.default_rng(SEED)
+    forcings = torch.as_tensor(
+        rng.standard_normal((1, BENCH_STEPS, C, *GRID)).astype(np.float32), device=device)
+    rollout = make_rollout_fn(cfg, norm, padded_shape=PADDED, grid_shape=GRID, device=device)
+    fns = {"eager": rollout.eager, "graph": rollout}
+    for fn in fns.values():  # warm-up: the fresh and the carried variant
+        _, st = fn(params, forcings)
+        fn(params, forcings, st)
+    torch.cuda.synchronize()
+    wall = {name: [] for name in fns}
+    n = BENCH_CHUNKS * BENCH_STEPS
+    for name in ("eager", "graph", "graph", "eager", "eager", "graph"):
+        t0 = time.perf_counter()
+        st = None
+        for _ in range(BENCH_CHUNKS):
+            _, st = fns[name](params, forcings, st)
+        torch.cuda.synchronize()
+        wall[name].append(time.perf_counter() - t0)
+    out = {}
+    for name, fn in fns.items():
+        dev_ms, _ = _profile(lambda: fn(params, forcings))
+        best = min(wall[name])
+        out[name] = {"ms_step": 1000 * best / n, "model_days_per_min": model_days_per_min(n, best),
+                     "device_ms_step": dev_ms / BENCH_STEPS,
+                     "runs_ms_step": [1000 * t / n for t in wall[name]]}
+        print(f"[o] serving rate, {name}: {out[name]['ms_step']:.4f} ms/step "
+              f"(runs {out[name]['runs_ms_step']}), "
+              f"{out[name]['model_days_per_min']:.2f} model-days/min on the host clock; "
+              f"device {out[name]['device_ms_step']:.4f} ms/step (profiler kernel sum) "
+              f"({BENCH_CHUNKS} x {BENCH_STEPS} steps, best of {BENCH_REPS}, C={C}, B=1, "
+              f"bf16) on {smi}")
+    return out
+
+
+def _first_call(device, serve, smi) -> dict:
+    """(o) what a request served once costs: a fresh rollout's first call
+    (warm-up on one step, capture, instantiation, one replay) beside one
+    eager call of the same request and one replay, host clock, synchronised
+    after each; forcings drawn on the card from the seed."""
+    cfg, params, norm = serve["cfg"], serve["params"], serve["norm"]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {}
+    for T in FIRST_CALL_STEPS:
+        forcings = torch.randn((1, T, C, *GRID), generator=gen, device=device)
+        rollout = make_rollout_fn(cfg, norm, padded_shape=PADDED, grid_shape=GRID,
+                                  device=device)
+        ms = {}
+        for name, fn in (("eager", rollout.eager), ("first_graph_call", rollout),
+                         ("replay", rollout)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, _ = fn(params, forcings)
+            torch.cuda.synchronize()
+            ms[name] = 1000 * (time.perf_counter() - t0)
+            if name == "eager":
+                want = p
+            else:
+                check(torch.equal(p, want), f"[o] {T}-step request: graph != eager")
+        check(rollout.runner.captures == 1, "[o] first-call request captured twice")
+        out[T] = ms
+        print(f"[o] a {T}-step request served once: eager {ms['eager']:.1f} ms, "
+              f"graph first call (one-step warm-up + capture + replay) "
+              f"{ms['first_graph_call']:.1f} ms "
+              f"({ms['first_graph_call'] / ms['eager']:.2f}x eager), replay "
+              f"{ms['replay']:.1f} ms; host clock, C={C}, B=1, bf16, on {smi}")
+        del forcings, rollout, p, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graph_serve(device, serve, stats, smi) -> dict:
+    """(o) serving replayed as CUDA graphs, at full width, against the
+    eager body that is captured; B1's replay times join ``stats``."""
+    cfg, params, norm = serve["cfg"], serve["params"], serve["norm"]
+    forcings, rollout = serve["forcings"], serve["rollout"]
+    kw = dict(padded_shape=PADDED, grid_shape=GRID, device=device)
+    # (d)'s four chained requests were graph replays: the eager body gives
+    # the same bits
+    st = None
+    for f, p in zip(forcings, serve["preds"]):
+        q, st = rollout.eager(params, f, st)
+        check(torch.equal(p, q), "[o] graph request != eager request")
+    check(_same_state(serve["state"], st), "[o] graph carry != eager carry")
+    half = STEPS // 2
+    p_a, s_a = rollout(params, forcings[0][:, :half])
+    p_b, s_b = rollout(params, forcings[0][:, half:], s_a)
+    p_one, s_one = rollout(params, forcings[0])
+    check(torch.equal(torch.cat([p_a, p_b], dim=1), p_one) and _same_state(s_b, s_one),
+          "[o] graph: chunked != one-shot")
+    hoisted = make_rollout_fn(cfg, norm, precompute_input_conv=True, **kw)
+    st_g = st_e = None
+    for f in forcings[:2]:
+        p_g, st_g = hoisted(params, f, st_g)
+        p_e, st_e = hoisted.eager(params, f, st_e)
+        check(torch.equal(p_g, p_e) and _same_state(st_g, st_e), "[o] hoisted graph != eager")
+    step = make_streaming_rollout(cfg, norm, params, **kw)
+    want, st_e = rollout.eager(params, forcings[0][:, :10])
+    check(all(torch.equal(step(forcings[0][:, t]), want[:, t]) for t in range(10))
+          and _same_state(step.carry(), st_e), "[o] streaming graph != eager")
+    print(f"[o] graph replays bit-equal to the eager body: {N_REQUESTS} chained "
+          f"{STEPS}-step requests and their carry, chunked vs one-shot, 2 hoisted "
+          f"requests, 10 streaming steps; captures: rollout {rollout.runner.captures}, "
+          f"hoisted {hoisted.runner.captures}, streaming {step.runner.captures}")
+
+    # an in-place weight change (one Adam step on a copy) between two requests
+    moved = _copy_params(params)
+    roll2 = make_rollout_fn(cfg, norm, **kw)
+    before, _ = roll2(moved, forcings[0])
+    leaves = param_leaves(moved)
+    for t in leaves:
+        t.grad = torch.ones_like(t)
+    make_optimizer(moved, 1e-3, (0.5, 0.999)).step()
+    after, _ = roll2(moved, forcings[0])
+    want, _ = roll2.eager(moved, forcings[0])
+    check(torch.equal(after, want) and not torch.equal(after, before)
+          and roll2.runner.captures == 2, "[o] graph served stale weights after an update")
+    print("[o] after an in-place Adam step on the weights: the next request recaptures "
+          "and equals the eager body")
+
+    # exact B1 launch counts of one request: the runner's and the profiler's
+    rollout(params, forcings[0])
+    torch.cuda.synchronize()
+    _set_counts(0)
+    _, names = _profile(lambda: rollout(params, forcings[0]))
+    _expect_counts("[o] one graph request", convlstm_cell=len(HIDDEN) * STEPS)
+    cells = sum(n for k, (n, _) in names.items() if "cell_wgmma_kernel" in k)
+    print(f"[o] profiler, one graph request: {cells} cell_wgmma_kernel launches "
+          f"(want {len(HIDDEN) * STEPS})")
+    check(cells == len(HIDDEN) * STEPS, f"[o] profiler counts {cells} B1 launches")
+    # B1's device time per launch under replay, by layer: the kernel's
+    # template arguments are (k, hidden / 8)
+    replay = {}
+    for key, (n, ms) in names.items():
+        m = re.search(r"cell_wgmma_kernel<(\d+), ?(\d+)", key)
+        if m:
+            replay[int(m.group(1)), 8 * int(m.group(2))] = (n, ms / n)
+    for row in stats["convlstm_cell"]["by_shape"]:
+        B, H, W, cin, hid, k = row["shape"]
+        if B == 1 and (k, hid) in replay:
+            row["replay_ms"] = replay[k, hid][1]
+            print(f"[o] B1 {tuple(row['shape'])} under graph replay: "
+                  f"{replay[k, hid][1]:.4f} ms per launch ({replay[k, hid][0]} launches; "
+                  f"eager CUDA events, (c): {row['ms']:.4f})")
+    if not replay:  # informational: the profiler's names carry no template arguments
+        print(f"[o] B1 replay times by layer not read from the kernel names {sorted(names)}")
+    _first_call(device, serve, smi)
+    return _serving_rate(device, smi)
+
+
+def _snapshot(root, name, **fields) -> str:
+    """A full-width snapshot of seeded weights (save_checkpoint) over the
+    synthetic stream: configurations.json + epoch-001/."""
+    run_dir = os.path.join(root, name)
+    cfg = TrainConfig(model="LSTM-smoke", hidden_channels=HIDDEN, kernel_size=KERNELS,
+                      num_layers=len(HIDDEN), sequence_length=STEPS, synthetic_steps=CLI_T,
+                      synthetic_grid=GRID, input_size=PADDED, compute_dtype="bfloat16",
+                      snapshot_dir=run_dir, **fields)
+    cfg.dump()
+    bundle = build_model(cfg.model, in_channels=cfg.in_channels,
+                         hidden_channels=HIDDEN, kernel_sizes=KERNELS,
+                         compute_dtype="bfloat16")
+    params, _ = bundle.init(torch.Generator().manual_seed(SEED), torch.device("cuda", 0))
+    save_checkpoint(os.path.join(run_dir, "epoch-001"), params, epoch=1)
+    return run_dir
+
+
+def _nc(path) -> np.ndarray:
+    with open_nc(path) as f:
+        return np.asarray(f["bcb_conc"])
+
+
+def _serve_round_trip(run_dir, tag) -> np.ndarray:
+    """The serving CLI over the test stream in chunks of CLI_CHUNK, then the
+    same stream split in two invocations through --state-out / --skip
+    --state-in: equal bits."""
+    out = lambda name: os.path.join(run_dir, name)  # noqa: E731
+    chunk = ["--chunk", str(CLI_CHUNK)]
+    full = serve_cli.main(["--run-dir", run_dir, *chunk, "--out", out("full.nc")])
+    serve_cli.main(["--run-dir", run_dir, *chunk, "--steps", str(CLI_CHUNK),
+                    "--state-out", out("carry.npz"), "--out", out("p1.nc")])
+    serve_cli.main(["--run-dir", run_dir, *chunk, "--skip", str(CLI_CHUNK),
+                    "--state-in", out("carry.npz"), "--out", out("p2.nc")])
+    whole = _nc(out("full.nc"))
+    split = np.concatenate([_nc(out("p1.nc")), _nc(out("p2.nc"))])
+    check(whole.shape == (full["steps"], *GRID) and full["steps"] > CLI_CHUNK
+          and np.isfinite(whole).all(), f"{tag} served predictions {whole.shape}")
+    check(np.array_equal(whole, split), f"{tag} --state-out/--state-in split != one run")
+    print(f"{tag} serving CLI, {full['route']}: {full['steps']} steps in chunks of "
+          f"{CLI_CHUNK}, {full['model_days_per_min']} model-days/min; steps "
+          f"0-{CLI_CHUNK - 1} with --state-out then --skip {CLI_CHUNK} --state-in "
+          f"equal one run bit for bit")
+    return whole
+
+
+def phase_clis(device) -> None:
+    """(p) the evaluation and serving CLIs on full-width snapshots: config
+    #2 (20-level fusion, C = 62) and config #3 (seq2seq, closed loop)."""
+    root = tempfile.mkdtemp(prefix="niswan_clis_")
+    try:
+        c2 = _snapshot(root, "c2", levels=20)
+        report = eval_cli.main(["--run-dir", c2])
+        check(np.isfinite(report["global_r2"]) and np.isfinite(report["pearson_r"]),
+              f"[p] evaluation report {report['global_r2']}")
+        print(f"[p] evaluation CLI, config #2 snapshot (C={C}): global R2 "
+              f"{report['global_r2']:.4f}, {len(report['temporal_r2'])} windows")
+        whole = _serve_round_trip(c2, "[p] config #2")
+        snap = load_snapshot(c2, device=device)
+        art = os.path.join(c2, "rollout.pt2")
+        size = export_rollout(snap.bundle.config, snap.dataset.normalizer, snap.params,
+                              batch=1, chunk_steps=CLI_CHUNK, n_channels=C,
+                              grid_shape=GRID, padded_shape=PADDED, path=art)
+        served = serve_cli.main(["--run-dir", c2, "--artifact", art,
+                                 "--out", os.path.join(c2, "art.nc")])
+        check(np.array_equal(_nc(os.path.join(c2, "art.nc")), whole),
+              "[p] --artifact != the live route")
+        print(f"[p] --artifact ({size} bytes, chunk {CLI_CHUNK}, exported on the card): "
+              f"{served['steps']} steps equal the live route bit for bit")
+        s2s = _snapshot(root, "s2s", mode="seq2seq")
+        _serve_round_trip(s2s, "[p] config #3 (closed loop)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_multitracer(device, serve, smi) -> None:
+    """(q) S = 3 species at C = 62 as one graph, against three single
+    rollouts; batched OAT against serial."""
+    cfg, norm = serve["cfg"], serve["norm"]
+    kw = dict(padded_shape=PADDED, grid_shape=GRID)
+    params = [convlstm_init(torch.Generator().manual_seed(SEED + s), cfg, device=device)
+              for s in range(N_SPECIES)]
+    rng = np.random.default_rng(SEED + 1)
+    forcings = torch.as_tensor(
+        rng.standard_normal((N_SPECIES, 1, STEPS, C, *GRID)).astype(np.float32),
+        device=device)
+    multi = make_multitracer_rollout(cfg, [norm] * N_SPECIES, **kw)
+    stacked = stack_params(params)
+    multi(stacked, forcings)  # warm-up and capture
+    torch.cuda.synchronize()
+    _set_counts(0)
+    got, _ = multi(stacked, forcings)
+    _expect_counts("[q] multi-tracer", convlstm_cell=N_SPECIES * len(HIDDEN) * STEPS)
+    runs = []  # replays on the host clock, best of 3
+    for _ in range(3):
+        t0 = time.perf_counter()
+        multi(stacked, forcings)
+        torch.cuda.synchronize()
+        runs.append(1000 * (time.perf_counter() - t0) / STEPS)
+    single = make_rollout_fn(cfg, norm, device=device, **kw)
+    for s in range(N_SPECIES):
+        want, _ = single(params[s], forcings[s])
+        check(torch.equal(got[s], want), f"[q] species {s} != its single rollout")
+    print(f"[q] multi-tracer, {N_SPECIES} species at C={C} in one graph "
+          f"(captures {multi.runner.captures}): bit-equal to {N_SPECIES} single rollouts; "
+          f"{min(runs):.4f} ms/step for all species (replays {runs}, host clock) on {smi}")
+
+    rollout = serve["rollout"]
+    f0 = serve["forcings"][0]
+    serial = oat_sensitivity(rollout, serve["params"], f0)
+    batched = oat_sensitivity(rollout, serve["params"], f0, batched=True)
+    scale = serve["preds"][0].std().item()
+    worst = max(float(np.sqrt(np.mean((batched[k] - d) ** 2))) / scale
+                for k, d in serial.items())
+    print(f"[q] OAT over {len(serial)} channels, batched (B={len(serial) + 1}) vs serial: "
+          f"rms |d| / std(pred) {worst:.3e} (tol {TOL_PLAIN_REL:g})")
+    check(worst <= TOL_PLAIN_REL, f"[q] batched OAT vs serial {worst:.3e}")
+
+
 def _copy_params(params):
     return {
         "cells": [{k: v.detach().clone().requires_grad_(True) for k, v in c.items()}
@@ -1736,6 +2075,9 @@ def main() -> None:
     phase_seq2seq(device, smi)
     phase_config2(device, smi, stats)
     phase_streamed(device, smi)
+    phase_graph_serve(device, serve, stats, smi)
+    phase_clis(device)
+    phase_multitracer(device, serve, smi)
     check(all(LAUNCHED[name] > 0 for name in COUNTERS), f"kernels never launched: {LAUNCHED}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

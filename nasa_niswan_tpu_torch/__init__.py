@@ -17,10 +17,14 @@ Layering (bottom-up), as in the JAX package:
              Functions of the training routes (per-cell, whole-scan BPTT,
              whole-chunk seq2seq BPTT)
   models/    ConvLSTM (functional + nn.Module) and the model registry
-  rollout/   the state-carrying autoregressive rollout (the serving mode) and
-             seq2seq scheduled-sampling training (config #3)
+  rollout/   the state-carrying autoregressive rollout (the serving mode,
+             each chunk one CUDA graph replay on the card), its streaming
+             step, exported artifacts and carry files, OAT sensitivity, the
+             multi-tracer rollouts, the serving CLI, and seq2seq
+             scheduled-sampling training (config #3)
   train/     train/eval steps, fit, checkpoints, config and the training CLI
-  evalx/     the training step's R^2 and the closed-loop evaluation
+  evalx/     the metric battery, the windowed, rollout and closed-loop
+             evaluations, snapshot loading, plots and the evaluation CLI
   bridge.py  weight bridge to and from the JAX parameter tree / checkpoint
 
 Importing the package builds nothing: the CUDA kernels are compiled at the

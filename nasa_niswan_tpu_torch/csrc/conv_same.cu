@@ -235,10 +235,14 @@ int launch_conv_mma(dim3 grid, cudaStream_t s, const __nv_bfloat16* x,
                     int Cout) {
   constexpr int kSmem = kConvStages * conv_stage_bytes(K, NT);
   static_assert(kSmem <= kConvMaxSmem, "stage too large for one block");
-  int err = (int)cudaFuncSetAttribute(conv_same_mma_kernel<K, NT>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      kSmem);
-  if (err) return err;
+  // once per kernel, so a CUDA graph capture makes no attribute call
+  static int ready = 0;
+  if (!ready) {
+    const int err = (int)cudaFuncSetAttribute(
+        conv_same_mma_kernel<K, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err) return err;
+    ready = 1;
+  }
   conv_same_mma_kernel<K, NT><<<grid, kConvThreads, kSmem, s>>>(x, w, o, H, W, Cin, Cout);
   return (int)cudaGetLastError();
 }

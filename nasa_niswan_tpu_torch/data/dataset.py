@@ -22,6 +22,25 @@ from nasa_niswan_tpu_torch.core.padding import pad_geo
 from nasa_niswan_tpu_torch.data.catalog import PACKED_VARS
 
 
+class DeviceConst:
+    """A host array copied to each device it is asked for once, and kept
+    there: a captured CUDA graph (rollout/graph.py) may hold no
+    host-to-device copy.  The copies are ordinary tensors (made outside
+    inference mode), usable in training too."""
+
+    def __init__(self, array):
+        self.array = array
+        self._on: Dict[torch.device, torch.Tensor] = {}
+
+    def on(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        t = self._on.get(device)
+        if t is None:
+            with torch.inference_mode(False):
+                t = self._on[device] = torch.as_tensor(self.array, device=device)
+        return t
+
+
 @dataclasses.dataclass(frozen=True)
 class Normalizer:
     """Z-score normalization constants (channel vectors for X, scalars for y)."""
@@ -32,9 +51,14 @@ class Normalizer:
     y_std: float
 
     def normalize_x(self, x):
-        """x: (..., C, H, W)."""
-        mean = torch.as_tensor(self.x_mean, device=x.device).reshape(-1, 1, 1)
-        std = torch.as_tensor(self.x_std, device=x.device).reshape(-1, 1, 1)
+        """x: (..., C, H, W).  The constants are kept on x's device
+        (``DeviceConst``, not a field)."""
+        consts = self.__dict__.get("_x_consts")
+        if consts is None:
+            consts = self.__dict__["_x_consts"] = tuple(
+                DeviceConst(np.asarray(a).reshape(-1, 1, 1))
+                for a in (self.x_mean, self.x_std))
+        mean, std = (c.on(x.device) for c in consts)
         return (x - mean) / std
 
     def normalize_y(self, y):
@@ -350,16 +374,11 @@ def make_preprocess_fn(
     (B, H, W) targets (tensors or numpy) become normalized, geophysically
     padded NHWC tensors on the batch's device, with the z-scored
     ``static`` channels appended (copied to each device once)."""
-    static_z = None if static is None else zscore_static(static)
-    on_device: Dict[torch.device, torch.Tensor] = {}
+    static_z = None if static is None else DeviceConst(zscore_static(static))
 
     def preprocess(x, y):
         x, y = torch.as_tensor(x), torch.as_tensor(y)
-        st = None
-        if static_z is not None:
-            if x.device not in on_device:
-                on_device[x.device] = torch.as_tensor(static_z, device=x.device)
-            st = on_device[x.device]
+        st = None if static_z is None else static_z.on(x.device)
         return preprocess_batch(x, y, normalizer, padded_shape, st)
 
     return preprocess

@@ -1,6 +1,9 @@
 """Host batching and device prefetch (counterpart of
-nasa_niswan_tpu/data/pipeline.py: ``batch_iterator``, ``device_prefetch``,
-``async_batches`` and ``ChunkDrain``), written for CUDA.
+nasa_niswan_tpu/data/pipeline.py: ``batch_iterator``, ``async_batches``
+and ``ChunkDrain``), written for CUDA.  The JAX package's
+``device_prefetch`` has no counterpart: ``async_batches`` does its staging
+in a producer thread, and no caller of the port feeds an iterator of host
+batches without one.
 
 * ``batch_iterator`` stacks numpy batches on the host, in the JAX package's
   order, so both packages draw the same batches.
@@ -12,8 +15,6 @@ nasa_niswan_tpu/data/pipeline.py: ``batch_iterator``, ``device_prefetch``,
   the batch; so batch assembly and the copies overlap the step's kernels.
   On the CPU the same code runs without streams and yields tensors;
   ``to_device=False`` yields the numpy batches.
-* ``device_prefetch`` does the staging alone, without a thread, for an
-  iterator of numpy batches.
 * ``ChunkDrain`` fetches device chunks one dispatch behind: each push
   starts its chunk's device-to-host copy into pinned memory, and completes
   the previous one.
@@ -130,20 +131,6 @@ class _Stager:
                 t.record_stream(cur)  # allocated on the side stream
             _count(0, 0, len(dev) * (copy_stream != cur))
         return dev
-
-
-def device_prefetch(iterator: Iterator, *, size: int = 2, device="cuda") -> Iterator:
-    """Move numpy batches to ``device`` ``size`` batches ahead of their
-    use: each is copied into pinned memory and sent on a side stream while
-    the steps before it run."""
-    stager = _Stager(device)
-    pending = []
-    for batch in iterator:
-        pending.append(stager.put(stager.host([[np.asarray(a)] for a in batch])))
-        if len(pending) >= size:
-            yield tuple(t[0] for t in stager.ready(pending.pop(0)))
-    while pending:
-        yield tuple(t[0] for t in stager.ready(pending.pop(0)))
 
 
 class _Stop:

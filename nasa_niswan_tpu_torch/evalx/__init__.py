@@ -1,2 +1,3 @@
-"""Evaluation (counterpart of nasa_niswan_tpu/evalx; the training step's
-R^2 and the closed-loop evaluation of a seq2seq snapshot so far)."""
+"""Evaluation (counterpart of nasa_niswan_tpu/evalx): the metric battery,
+the windowed, rollout and closed-loop evaluations, snapshot loading, the
+plots and the ``python -m nasa_niswan_tpu_torch.evalx`` CLI."""

@@ -76,6 +76,7 @@ GradsFn = Callable[..., Tuple[torch.Tensor, ...]]
 __all__ = [
     "ConvLSTM",
     "ConvLSTMConfig",
+    "cell_weights",
     "convlstm_apply",
     "convlstm_init",
     "convlstm_param_count",
@@ -172,18 +173,33 @@ class _HoistedConv(torch.autograd.Function):
         return dx, conv_dw(x, g, w.shape[0])
 
 
+def cell_weights(params: Params, config: ConvLSTMConfig, hoist: bool = False) -> Params:
+    """The kernels the time loop reads, in the compute dtype: per layer the
+    combined ``[w_x; w_h]`` and the f32 bias (``combined_cells``), and with
+    the hoist layer 0's ``w_x`` and ``w_h`` alone.  ``convlstm_apply`` makes
+    them on every call; a caller that replays a captured step loop
+    (rollout/graph.py) makes them once, before the capture."""
+    dt = config.torch_dtype
+    out = {"cells": combined_cells(params, dt)}
+    if hoist:
+        cell0 = params["cells"][0]
+        out["w_x0"] = cell0["w_x"].to(dt).contiguous()
+        out["w_h0"] = cell0["w_h"].to(dt).contiguous()
+    return out
+
+
 def hoist_input_conv(
-    params: Params, x: torch.Tensor, config: ConvLSTMConfig, *, eager: bool = False
+    w: torch.Tensor, x: torch.Tensor, config: ConvLSTMConfig, *, eager: bool = False
 ) -> torch.Tensor:
     """Layer 0's input conv over every frame at once: (B, T, H, W, C) ->
     time-major (T, B, H, W, 4*hidden0) in the compute dtype (the JAX
     package's ``precompute_input_conv``, a (T*B)-batched conv whose output
-    is rounded to the compute dtype).  Differentiable through
+    is rounded to the compute dtype), with ``w`` layer 0's ``w_x`` in the
+    compute dtype (``cell_weights``).  Differentiable through
     ``_HoistedConv``, or through eager autograd of the conv if ``eager``."""
     dt = config.torch_dtype
     B, T, H, W, C = x.shape
     flat = x.transpose(0, 1).reshape(T * B, H, W, C).to(dt).contiguous()
-    w = params["cells"][0]["w_x"].to(dt).contiguous()
     if eager:
         xg = conv2d(flat, w, padding=w.shape[0] // 2)
     else:
@@ -211,11 +227,14 @@ def convlstm_apply(
     precompute_input_conv: bool = False,
     cell_fn: CellFn = fused_cell_forward,
     grads_fn: Optional[GradsFn] = cell_grads,
+    weights: Optional[Params] = None,
 ):
     """Run the ConvLSTM over a sequence.
 
     Args:
-      x: (B, T, H, W, C) NHWC sequence.
+      x: (B, T, H, W, C) NHWC sequence, or a tuple of such parts whose
+        channel concatenation is each step's input, made inside the time
+        loop (the shared meteorology of rollout/multitracer.py).
       return_per_step: also return a per-step tap of the last layer's h —
         the head by default, shape (B, T, H, W, out).
       tap_fn: custom per-step tap ``f(h_last) -> ys`` replacing the head tap.
@@ -234,11 +253,17 @@ def convlstm_apply(
         ``ops/convgrad.cell_grads`` dispatches by device,
         ``cell_grads_plain`` runs the plain versions.  None never takes the
         whole-scan BPTT: with the plain ``cell_fn``, the eager oracle.
+      weights: ``cell_weights(params, config, precompute_input_conv)`` made
+        by the caller; None makes them here.
 
     Returns:
       pred (B, H, W, out) f32, then the taps and the final state if asked.
     """
     dt = config.torch_dtype
+    parts = x if isinstance(x, tuple) else (x,)
+    if precompute_input_conv and len(parts) > 1:
+        raise ValueError("precompute_input_conv needs a single input part")
+    x = parts[0]
     B, T, H, W = x.shape[:4]
     if initial_state is None:
         state = [
@@ -254,7 +279,7 @@ def convlstm_apply(
             for h, c in initial_state
         ]
     leaves = [t for cell in params["cells"] for t in cell.values()]
-    leaves += [t for hc in state for t in hc] + [x]
+    leaves += [t for hc in state for t in hc] + list(parts)
     taps = []
     if (
         config.remat
@@ -265,17 +290,24 @@ def convlstm_apply(
         and tap_fn is None
         and not precompute_input_conv
     ):
-        state = scan_cells(params, x.to(dt), state, dt, cell_fn, grads_fn)
+        xs = torch.cat([p.to(dt) for p in parts], dim=-1) if len(parts) > 1 else x
+        state = scan_cells(params, xs.to(dt), state, dt, cell_fn, grads_fn)
     else:
-        cells = combined_cells(params, dt)
+        if weights is None:
+            weights = cell_weights(params, config, precompute_input_conv)
+        cells = weights["cells"]
         if precompute_input_conv:
             # unbound once: the backward stacks the T step gradients in one
             # pass, where indexing xg[t] would add each into a zero-filled
             # gradient of the whole (T, B, H, W, 4*hidden0) tensor
             eager = cell_fn is fused_cell_forward_plain
-            xg = hoist_input_conv(params, x, config, eager=eager).unbind(0)
-            w_h0 = params["cells"][0]["w_h"].to(dt).contiguous()
-        x_steps = x.unbind(1)
+            xg = hoist_input_conv(weights["w_x0"], x, config, eager=eager).unbind(0)
+            w_h0 = weights["w_h0"]
+        if len(parts) > 1:
+            x_steps = [torch.cat(ps, dim=-1)
+                       for ps in zip(*(p.to(dt).unbind(1) for p in parts))]
+        else:
+            x_steps = x.unbind(1)
         for t in range(T):
             if precompute_input_conv:
                 h0, c0 = state[0]

@@ -64,6 +64,8 @@ cell_bwd_launches = 0
 conv_same_launches = 0
 dw_launches = 0
 recompute_launches = 0  # B2's part (a) alone: timing only, on no main path
+LAUNCH_COUNTERS = ("cell_bwd_launches", "conv_same_launches", "dw_launches",
+                   "recompute_launches")
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 

@@ -72,6 +72,7 @@ from nasa_niswan_tpu_torch.ops.conv import conv2d
 launches = 0
 gates_launches = 0
 xg_launches = 0
+LAUNCH_COUNTERS = ("launches", "gates_launches", "xg_launches")
 
 _KERNEL_SIZES = (1, 3, 5, 7)
 _MAX_HIDDEN = 128  # 4 pixel groups x hidden threads must fit a 512-thread block

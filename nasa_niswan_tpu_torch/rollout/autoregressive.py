@@ -10,7 +10,11 @@ each (B, Hp, Wp, hidden) f32 in the dense layout, the same as the JAX
 rollout returns, so a carry crosses between the packages.
 
 Every frame is prepared up front in one batched op; the step loop is a
-Python loop whose cell step is the fused CUDA kernel on the card.
+Python loop whose cell step is the fused CUDA kernel on the card.  On a
+CUDA device the chunk (preparation, step loop, head, crop, unnormalize) is
+captured once per input signature and replayed as one CUDA graph
+(rollout/graph.py), as the JAX package jit-compiles the whole scan; the
+eager loop runs on the CPU and is what the graph captures.
 """
 
 from __future__ import annotations
@@ -21,14 +25,17 @@ import numpy as np
 import torch
 
 from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
-from nasa_niswan_tpu_torch.data.dataset import Normalizer, zscore_static
+from nasa_niswan_tpu_torch.data.dataset import DeviceConst, Normalizer, zscore_static
 from nasa_niswan_tpu_torch.models.convlstm import (
     CellFn,
     ConvLSTMConfig,
+    _state_tensor,
+    cell_weights,
     convlstm_apply,
     head_apply,
 )
-from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward
+from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward, packed_weights
+from nasa_niswan_tpu_torch.rollout.graph import GraphRunner
 
 
 def _prep_frame(x, normalizer, static, padded_shape, cast_dtype=None):
@@ -56,6 +63,42 @@ def _device(params, device) -> torch.device:
     return torch.device(device) if device is not None else params["head"]["w"].device
 
 
+def serving_weights(params, config: ConvLSTMConfig, hoist: bool = False):
+    """``cell_weights`` with each kernel's packed image made on the card
+    (``packed_weights``): what a captured serving loop reads, made before
+    the capture.  The packed images are kept beside the kernels, so they
+    live as long as the graph that reads them."""
+    weights = cell_weights(params, config, hoist)
+    kernels = [w for w, _ in weights["cells"]] + [weights.get("w_h0")]
+    weights["packed"] = [packed_weights(w) for w in kernels
+                         if w is not None and w.is_cuda]
+    return weights
+
+
+def first_step(inputs):
+    """A rollout's inputs cut to the first step of the forcings (B, T, ...):
+    what ``GraphRunner`` warms up on."""
+    return [inputs[0][:, :1], *inputs[1:]]
+
+
+def zero_state(config: ConvLSTMConfig, batch: int, padded_shape, device):
+    """Zero per-layer (h, c) carry, (batch, Hp, Wp, hidden) f32."""
+    H, W = padded_shape
+    return [
+        (torch.zeros((batch, H, W, hc), device=device),
+         torch.zeros((batch, H, W, hc), device=device))
+        for hc in config.hidden_channels
+    ]
+
+
+def flat_state(state) -> list:
+    return [t for hc in state for t in hc]
+
+
+def nest_state(flat) -> list:
+    return [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+
+
 def make_rollout_fn(
     config: ConvLSTMConfig,
     normalizer: Normalizer,
@@ -75,50 +118,73 @@ def make_rollout_fn(
     ``preds`` (B, T, h, w) f32 (physical units when ``unnormalize``), and
     ``final_state`` the carry to hand to the next chunk.  Runs under
     ``torch.inference_mode()`` on ``device`` (default: the parameters'; the
-    forcings are moved there).
+    forcings are moved there).  On a CUDA device each call replays the
+    chunk's CUDA graph for its (B, T, C, dtype) (``rollout.runner``, a
+    ``GraphRunner``); ``rollout.eager`` runs the same body without a graph.
     ``cell_fn`` is passed to ``convlstm_apply``.
 
     ``precompute_input_conv``: True hoists layer 0's input conv out of the
     time loop (one (B*T)-batched conv, then the kernel's xg mode); None
-    is off, set from the device time of one serving step on an NVIDIA
-    H100 80GB HBM3 at its 700 W limit (C = 62, B = 1, bf16, one 48-step
-    chunk, the profiler's kernel sum; scripts/time_hoist.py, two runs of
-    each in turns): 0.1662 and 0.1650 ms/step unhoisted, 0.1568 and 0.1805
-    hoisted.  Hoisting saves no device time there, so the fused cell reads
-    [x, h] in one launch.  On the host clock neither setting wins across
-    calls (chip_smoke.py on the same card, three calls: unhoisted 0.6137,
-    0.4575 and 0.4120 ms/step, hoisted 0.4511, 0.4245 and 0.6056), so the
-    rule is to be re-read once the serving step runs as a CUDA graph.
+    is off, set from serving on an NVIDIA H100 80GB HBM3 at its 700 W
+    limit (C = 62, B = 1, bf16, four chained 48-step requests, each a graph
+    replay; scripts/time_hoist.py, two runs of each in turns): device time
+    (the profiler's kernel sum) 0.1647 and 0.1662 ms/step unhoisted, 0.1812
+    and 0.1823 hoisted; host clock 0.1734 and 0.1734 unhoisted, 0.1882 and
+    0.1888 hoisted.  Hoisting costs time on both clocks there, so the fused
+    cell reads [x, h] in one launch.
     """
-    static_np = None if static is None else zscore_static(static)
     dt = config.torch_dtype
     cast = dt if dt != torch.float32 else None
+    hoist = bool(precompute_input_conv)
+    static_z = None if static is None else DeviceConst(zscore_static(static))
 
-    def tap(params, h_last):
-        p = head_apply(params, h_last, dt)
-        p = crop_to_grid(p[..., 0], grid_shape)
-        return normalizer.unnormalize_y(p) if unnormalize else p
+    def _static(dev):
+        return None if static_z is None else static_z.on(dev)
+
+    def body(params, weights, forcings, *state):
+        def tap(h_last):
+            p = head_apply(params, h_last, dt)
+            p = crop_to_grid(p[..., 0], grid_shape)
+            return normalizer.unnormalize_y(p) if unnormalize else p
+
+        xs = _prep_frame(forcings, normalizer, _static(forcings.device),
+                         padded_shape, cast)
+        _, preds, final_state = convlstm_apply(
+            params, xs, config, return_per_step=True,
+            initial_state=nest_state(state), return_state=True, tap_fn=tap,
+            precompute_input_conv=hoist, cell_fn=cell_fn, weights=weights,
+        )
+        return (preds, *flat_state(final_state))
+
+    def _inputs(params, forcings, initial_state):
+        dev = _device(params, device)
+        forcings = torch.as_tensor(forcings, device=dev)
+        if initial_state is None:
+            state = zero_state(config, forcings.shape[0], padded_shape, dev)
+        else:
+            state = [(_state_tensor(h, dev), _state_tensor(c, dev))
+                     for h, c in initial_state]
+        return [forcings, *flat_state(state)]
+
+    runner = GraphRunner(body, lambda params: serving_weights(params, config, hoist),
+                         warm=first_step)
+
+    def run(params, forcings, initial_state, graph: bool):
+        with torch.inference_mode():
+            inputs = _inputs(params, forcings, initial_state)
+            if graph and inputs[0].is_cuda:
+                out = runner(params, inputs)
+            else:
+                out = body(params, cell_weights(params, config, hoist), *inputs)
+        return out[0], nest_state(out[1:])
 
     def rollout(params, forcings, initial_state=None):
-        with torch.inference_mode():
-            forcings = torch.as_tensor(forcings, device=_device(params, device))
-            st = None
-            if static_np is not None:
-                st = torch.as_tensor(static_np, device=forcings.device)
-            xs = _prep_frame(forcings, normalizer, st, padded_shape, cast)
-            _, preds, final_state = convlstm_apply(
-                params,
-                xs,
-                config,
-                return_per_step=True,
-                initial_state=initial_state,
-                return_state=True,
-                tap_fn=lambda h: tap(params, h),
-                precompute_input_conv=bool(precompute_input_conv),
-                cell_fn=cell_fn,
-            )
-        return preds, final_state
+        return run(params, forcings, initial_state, graph=True)
 
+    rollout.runner = runner
+    rollout.eager = lambda params, forcings, initial_state=None: run(
+        params, forcings, initial_state, graph=False)
+    rollout.body = body
     return rollout
 
 
@@ -136,19 +202,39 @@ def make_streaming_rollout(
     ``step(forcing_frame)`` with one raw (B, C, H, W) frame per model
     timestep; it returns that step's (B, h, w) prediction and keeps the
     carry on the device between calls (``device``, default the
-    parameters')."""
+    parameters').  On a CUDA device one step is one CUDA graph replay, and
+    the carry stays in the graph's own input buffers: the captured step
+    writes its new carry over them (``step.carry()`` reads it)."""
     rollout = make_rollout_fn(
         config, normalizer, padded_shape=padded_shape, grid_shape=grid_shape,
         static=static, device=device,
     )
-    state = {"carry": None}
     device = _device(params, device)
+    carry = {"state": None}
+
+    def step_body(params, weights, frame, *state):
+        preds, *new = rollout.body(params, weights, frame, *state)
+        for old, nw in zip(state, new):
+            old.copy_(nw)
+        return (preds,)
+
+    runner = GraphRunner(step_body, lambda p: serving_weights(p, config))
 
     def step(frame) -> torch.Tensor:
-        frame = torch.as_tensor(frame, device=device)
-        preds, state["carry"] = rollout(params, frame[:, None], state["carry"])
+        frame = torch.as_tensor(frame, device=device)[:, None]
+        if device.type != "cuda":
+            preds, carry["state"] = rollout(params, frame, carry["state"])
+            return preds[:, 0]
+        with torch.inference_mode():
+            state = carry["state"]
+            if state is None:
+                state = zero_state(config, frame.shape[0], padded_shape, device)
+            (preds,) = runner(params, [frame, *flat_state(state)])
+            carry["state"] = nest_state(runner.last_inputs[1:])
         return preds[:, 0]
 
+    step.runner = runner
+    step.carry = lambda: carry["state"]
     return step
 
 

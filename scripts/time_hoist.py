@@ -1,17 +1,19 @@
-"""Device time per serving step of the PyTorch port with and without the
-hoisted input conv, on one NVIDIA GPU.
+"""Host-clock and device time per serving step of the PyTorch port with and
+without the hoisted input conv, on one NVIDIA GPU.
 
 The canonical C = 62 model (20-level fusion, hidden 64/32/16, kernels
-5/3/3, 100x154 padded grid), random weights from seed 0, bf16, B = 1: one
-48-step request through ``make_rollout_fn`` with ``precompute_input_conv``
-False (every layer-0 step runs B1 over [x, h], Cin 126) and True (one
-conv of all 48 frames by B3, then B1's xg mode over h alone, Cin 64).
-Each run is one warm-up request, then ``--requests`` requests under
-``torch.profiler``; the device time is the sum of the kernels' device time
-over the steps.  The settings run in turns (off, on, on, off).  Prints the
-card's name and power limit, a line per run, and one JSON line last.
+5/3/3, 100x154 padded grid), random weights from seed 0, bf16, B = 1:
+48-step requests through ``make_rollout_fn`` (one CUDA graph replay each)
+with ``precompute_input_conv`` False (every layer-0 step runs B1 over
+[x, h], Cin 126) and True (one conv of all 48 frames by B3, then B1's xg
+mode over h alone, Cin 64).  Each run is one warm-up request (the
+capture), then ``--requests`` requests chained through the carry on the
+host clock (synchronised at the end), then as many under
+``torch.profiler``, whose kernel device time is summed over the steps.
+The settings run in turns (off, on, on, off).  Prints the card's name and
+power limit, a line per run, and one JSON line last.
 
-    python scripts/time_hoist.py [--requests 2]
+    python scripts/time_hoist.py [--requests 4]
 """
 
 from __future__ import annotations
@@ -31,18 +33,23 @@ import torch  # noqa: E402
 STEPS = 48
 
 
-def device_ms_per_step(rollout, params, forcings, requests: int):
-    """(device ms/step, wall ms/step) of ``requests`` chained requests."""
-    rollout(params, forcings)  # warm-up (weights packed, allocator grown)
+def _chain(rollout, params, forcings, requests: int) -> None:
+    state = None
+    for _ in range(requests):
+        _, state = rollout(params, forcings, state)
     torch.cuda.synchronize()
+
+
+def device_ms_per_step(rollout, params, forcings, requests: int):
+    """(device ms/step, host ms/step) of ``requests`` chained requests."""
+    rollout(params, forcings)  # warm-up: the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _chain(rollout, params, forcings, requests)
+    wall = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state = None
-        for _ in range(requests):
-            _, state = rollout(params, forcings, state)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        _chain(rollout, params, forcings, requests)
     # kernels only: an op's CPU event also reports its kernels' device time
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -52,7 +59,7 @@ def device_ms_per_step(rollout, params, forcings, requests: int):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--requests", type=int, default=2)
+    ap.add_argument("--requests", type=int, default=4)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -83,13 +90,17 @@ def main():
     for hoist in (False, True, True, False):
         dev_ms, wall_ms = device_ms_per_step(fns[hoist], params, forcings, args.requests)
         runs[hoist].append({"device_ms": dev_ms, "wall_ms": wall_ms})
-        print(f"precompute_input_conv={hoist}: device {dev_ms:.4f} ms/step, wall "
-              f"{wall_ms:.4f} ms/step over {args.requests} x {STEPS} steps "
+        print(f"precompute_input_conv={hoist}: device {dev_ms:.4f} ms/step, host "
+              f"clock {wall_ms:.4f} ms/step over {args.requests} x {STEPS} steps "
               f"(C={C}, B=1, bf16) on {smi}")
-    mean = {h: float(np.mean([r["device_ms"] for r in rs])) for h, rs in runs.items()}
+    mean = {(h, k): float(np.mean([r[k] for r in rs]))
+            for h, rs in runs.items() for k in ("device_ms", "wall_ms")}
     print(json.dumps({"card": smi, "steps": args.requests * STEPS,
                       "unhoisted": runs[False], "hoisted": runs[True],
-                      "device_ms_unhoisted": mean[False], "device_ms_hoisted": mean[True]}))
+                      "device_ms_unhoisted": mean[False, "device_ms"],
+                      "device_ms_hoisted": mean[True, "device_ms"],
+                      "host_ms_unhoisted": mean[False, "wall_ms"],
+                      "host_ms_hoisted": mean[True, "wall_ms"]}))
 
 
 if __name__ == "__main__":

@@ -5,14 +5,12 @@ The seq2seq training step (``make_seq2seq_train_step``: in_channels 6,
 hidden 64/32/16, kernels 5/3/3, bf16, 100x154 padded, bs 8, T 48, teacher
 probability 0.5) over one epoch of ``--steps`` batches of
 ``synthetic_e33oma_90d(T=720, 90x144)`` repeated, on ``--route`` (per-cell
-or the whole-chunk BPTT), with the batches fed four ways, in turns:
+or the whole-chunk BPTT), with the batches fed three ways, in turns:
 
 * ``staged``: every batch copied to the card before the epoch;
 * ``async``: ``data/pipeline.async_batches`` (a producer thread stacks each
   batch in pinned memory and copies it on a side stream), as
   ``fit_seq2seq`` takes them;
-* ``prefetch``: ``device_prefetch`` over ``batch_iterator`` (pinned memory
-  and a side stream, no thread: each batch is stacked between steps);
 * ``sync``: ``batch_iterator``'s numpy batches moved by the step itself
   (pageable copies), the loop ``fit_seq2seq`` ran before it streamed.
 
@@ -50,7 +48,7 @@ def main():
         raise SystemExit("needs a CUDA device")
 
     from nasa_niswan_tpu_torch.data.dataset import Seq2SeqDataset
-    from nasa_niswan_tpu_torch.data.pipeline import async_batches, batch_iterator, device_prefetch
+    from nasa_niswan_tpu_torch.data.pipeline import async_batches, batch_iterator
     from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
     from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, convlstm_init
     from nasa_niswan_tpu_torch.rollout.seq2seq import make_seq2seq_train_step
@@ -88,8 +86,6 @@ def main():
         it = batch_iterator(ds, bs, seed=0, epoch=epoch)
         if feed == "async":
             it = async_batches(ds, bs, seed=0, epoch=epoch, device=device)
-        elif feed == "prefetch":
-            it = device_prefetch(it, size=2, device=device)
         elif feed == "staged":
             it = iter([tuple(torch.as_tensor(a, device=device) for a in b) for b in it])
         n = 0
@@ -123,7 +119,7 @@ def main():
         waits.setdefault(feed, []).append(wait / elapsed)
         return 1000 * elapsed / n
 
-    feeds = ("staged", "async", "prefetch", "sync")
+    feeds = ("staged", "async", "sync")
     for feed in feeds:
         run(feed, 0)  # warm-up
     waits.clear()

@@ -2,7 +2,8 @@
 card: the fused ConvLSTM cell forward (B1) in its plain, emit_gates and xg
 modes, the fused cell backward (B2) and its dW kernels on their own, the
 SAME data-gradient conv (B3), and the two training routes built on them
-(the whole-scan BPTT and the per-cell Functions).
+(the whole-scan BPTT and the per-cell Functions); and the serving loops
+replayed as CUDA graphs against their eager bodies.
 
 Needs an NVIDIA GPU and nvcc; every test here skips without a CUDA device.
 On a machine with a card, from the repository root:
@@ -41,7 +42,10 @@ from nasa_niswan_tpu_torch.ops.convlstm_cell import (  # noqa: E402
     fused_cell_gates,
     fused_cell_gates_plain,
 )
-from nasa_niswan_tpu_torch.rollout.autoregressive import make_rollout_fn  # noqa: E402
+from nasa_niswan_tpu_torch.rollout.autoregressive import (  # noqa: E402
+    make_rollout_fn,
+    make_streaming_rollout,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -284,8 +288,10 @@ def test_rollout_kernel_matches_plain(device):
     norm = Normalizer(np.zeros(8, np.float32), np.ones(8, np.float32), 0.5, 2.0)
     forcings = np.random.default_rng(1).standard_normal((2, 6, 8, 16, 24))
     kw = dict(padded_shape=(20, 28), grid_shape=(16, 24), device=device)
+    rollout = make_rollout_fn(cfg, norm, **kw)
+    rollout(params, forcings.astype(np.float32))  # warm-up and capture
     before = convlstm_cell.launches
-    p1, s1 = make_rollout_fn(cfg, norm, **kw)(params, forcings.astype(np.float32))
+    p1, s1 = rollout(params, forcings.astype(np.float32))  # one replay
     assert convlstm_cell.launches == before + 3 * 6
     p2, s2 = make_rollout_fn(cfg, norm, cell_fn=fused_cell_forward_plain, **kw)(
         params, forcings.astype(np.float32)
@@ -659,10 +665,6 @@ def test_async_batches_pinned_side_stream_prefetch(device):
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a.cpu().numpy(), b)
-    pre = list(pipeline.device_prefetch(iter(want), size=2, device=device))
-    for g, w in zip(pre, want):
-        for a, b in zip(g, w):
-            np.testing.assert_array_equal(a.cpu().numpy(), b)
 
 
 def test_chunk_drain_fetches_device_chunks_one_behind(device):
@@ -705,3 +707,184 @@ def test_streamed_fit_equals_resident_fit_on_the_card(device, tmp_path):
     assert outs[0]["logger"] == outs[1]["logger"]
     for a, b in zip(param_leaves(outs[0]["params"]), param_leaves(outs[1]["params"])):
         assert torch.equal(a, b)
+
+
+# ---- serving as CUDA graphs (rollout/graph.py) --------------------------------
+
+G_CFG = dict(in_channels=8, hidden_channels=(16, 8, 8), kernel_sizes=(5, 3, 3))
+G_GEO = dict(padded_shape=(20, 28), grid_shape=(16, 24))
+
+
+def _g_setup(device, dtype="bfloat16", seed=0):
+    cfg = ConvLSTMConfig(compute_dtype=dtype, **G_CFG)
+    params = convlstm_init(torch.Generator().manual_seed(seed), cfg, device=device)
+    rng = np.random.default_rng(seed)
+    norm = Normalizer(rng.standard_normal(8).astype(np.float32),
+                      (1.0 + rng.random(8)).astype(np.float32), 0.5, 2.0)
+    forcings = torch.tensor(rng.standard_normal((4, 1, 6, 8, 16, 24)),
+                            dtype=torch.float32, device=device)
+    return cfg, params, norm, forcings
+
+
+def _same_state(a, b):
+    return all(torch.equal(x, y) for hc_a, hc_b in zip(a, b) for x, y in zip(hc_a, hc_b))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hoist", [False, True])
+def test_graph_rollout_equals_eager_chained_and_chunked(device, dtype, hoist):
+    """Four requests chained through the carry, bit-equal to the eager
+    body; one request equal to two chunks of it; the outputs handed back
+    survive the next replay."""
+    cfg, params, norm, forcings = _g_setup(device, dtype)
+    rollout = make_rollout_fn(cfg, norm, precompute_input_conv=hoist, device=device, **G_GEO)
+    st_g = st_e = None
+    kept = []
+    for f in forcings:
+        p_g, st_g = rollout(params, f, st_g)
+        p_e, st_e = rollout.eager(params, f, st_e)
+        kept.append((p_g, p_g.clone()))
+        assert torch.equal(p_g, p_e) and _same_state(st_g, st_e)
+    assert rollout.runner.captures == 1
+    assert all(torch.equal(a, b) for a, b in kept)
+    p_a, s_a = rollout(params, forcings[0][:, :3])
+    p_b, s_b = rollout(params, forcings[0][:, 3:], s_a)
+    p_one, s_one = rollout(params, forcings[0])
+    assert torch.equal(torch.cat([p_a, p_b], dim=1), p_one) and _same_state(s_b, s_one)
+
+
+def test_graph_streaming_equals_eager(device):
+    cfg, params, norm, forcings = _g_setup(device)
+    step = make_streaming_rollout(cfg, norm, params, device=device, **G_GEO)
+    rollout = make_rollout_fn(cfg, norm, device=device, **G_GEO)
+    frames = torch.cat([forcings[0], forcings[1]], dim=1)  # 12 steps
+    want, st = rollout.eager(params, frames[:, :10])
+    for t in range(10):
+        assert torch.equal(step(frames[:, t]), want[:, t])
+    assert step.runner.captures == 1 and _same_state(step.carry(), st)
+
+
+def test_graph_recaptures_after_an_in_place_weight_change(device):
+    """An Adam step changes the weights in place (same storage): the next
+    request must read the new weights, as the eager body does."""
+    cfg, params, norm, forcings = _g_setup(device)
+    params = {"cells": [{k: v.clone().requires_grad_(True) for k, v in c.items()}
+                        for c in params["cells"]],
+              "head": {k: v.clone().requires_grad_(True) for k, v in params["head"].items()}}
+    rollout = make_rollout_fn(cfg, norm, device=device, **G_GEO)
+    before, _ = rollout(params, forcings[0])
+    leaves = [t for c in params["cells"] for t in c.values()] + list(params["head"].values())
+    opt = torch.optim.Adam(leaves, lr=1e-2)
+    for t in leaves:
+        t.grad = torch.ones_like(t)
+    opt.step()
+    after, _ = rollout(params, forcings[0])
+    want, _ = rollout.eager(params, forcings[0])
+    assert torch.equal(after, want) and not torch.equal(after, before)
+    assert rollout.runner.captures == 2
+    new_tree = {"cells": [{k: v.detach() * 0.5 for k, v in c.items()} for c in params["cells"]],
+                "head": {k: v.detach() for k, v in params["head"].items()}}
+    got, _ = rollout(new_tree, forcings[0])
+    want, _ = rollout.eager(new_tree, forcings[0])
+    assert torch.equal(got, want) and rollout.runner.captures == 3
+
+
+@pytest.mark.parametrize("hoist", [False, True])
+def test_graph_launch_counts_per_replay(device, hoist):
+    """The first call warms up on one step, captures and replays once; then
+    each replay adds exactly what it launched."""
+    cfg, params, norm, forcings = _g_setup(device)
+    rollout = make_rollout_fn(cfg, norm, precompute_input_conv=hoist, device=device, **G_GEO)
+    counts = lambda: (convlstm_cell.launches, convlstm_cell.xg_launches,  # noqa: E731
+                      convgrad.conv_same_launches)
+    before = counts()
+    rollout(params, forcings[0])  # a one-step warm-up, the capture, one replay
+    first = [a - b for a, b in zip(counts(), before)]
+    assert first == ([2 * 7, 7, 2] if hoist else [3 * 7, 0, 0])
+    before = counts()
+    for f in forcings:
+        rollout(params, f)
+    got = [a - b for a, b in zip(counts(), before)]
+    n = 4 * 6
+    assert got == ([2 * n, n, 4] if hoist else [3 * n, 0, 0])
+
+
+def test_graph_closed_loop_chunk_equals_eager(device):
+    from nasa_niswan_tpu_torch.evalx.evaluate import (
+        make_closed_loop_chunk,
+        zero_closed_loop_state,
+    )
+
+    cfg = ConvLSTMConfig(in_channels=6, hidden_channels=(16, 8, 8), kernel_sizes=(5, 3, 3),
+                         compute_dtype="bfloat16")
+    params = convlstm_init(torch.Generator().manual_seed(1), cfg, device=device)
+    rng = np.random.default_rng(1)
+    norm = Normalizer(np.zeros(5, np.float32), np.ones(5, np.float32), 0.1, 1.5)
+    frames = torch.tensor(rng.standard_normal((10, 5, 16, 24)), dtype=torch.float32,
+                          device=device)
+    run = make_closed_loop_chunk(cfg, norm, **G_GEO)
+    st_g = st_e = zero_closed_loop_state(cfg, G_GEO["padded_shape"], device)
+    prev_g = prev_e = torch.zeros((1, 16, 24), device=device)
+    for s in (0, 5):
+        st_g, prev_g, p_g = run(params, st_g, prev_g, frames[s : s + 5])
+        st_e, prev_e, p_e = run.eager(params, st_e, prev_e, frames[s : s + 5])
+        assert torch.equal(p_g, p_e) and torch.equal(prev_g, prev_e)
+        assert _same_state(st_g, st_e)
+    assert run.runner.captures == 1
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_graph_multitracer_equals_single_rollouts(device, shared):
+    """S = 3 species in one graph, bit-equal to three single rollouts
+    (f32: the shared variant casts its meteorology where the single
+    rollout does, so f32 keeps every value equal)."""
+    from nasa_niswan_tpu_torch.rollout import multitracer as mt
+
+    cfg = ConvLSTMConfig(compute_dtype="float32", **G_CFG)
+    rng = np.random.default_rng(2)
+    params = [convlstm_init(torch.Generator().manual_seed(s), cfg, device=device)
+              for s in range(3)]
+    norms = [Normalizer(np.append(np.zeros(7), 0.1 * s).astype(np.float32),
+                        np.ones(8, np.float32), 0.2 * s, 1.0 + s) for s in range(3)]
+    met = torch.tensor(rng.standard_normal((1, 6, 7, 16, 24)), dtype=torch.float32,
+                       device=device)
+    emis = torch.tensor(rng.random((3, 1, 6, 16, 24)), dtype=torch.float32, device=device)
+    forcings = torch.stack([torch.cat([met, emis[s][:, :, None]], dim=2) for s in range(3)])
+    if shared:
+        roll = mt.make_multitracer_rollout_shared(cfg, norms, **G_GEO)
+        got, _ = roll(mt.stack_params(params), met, emis)
+    else:
+        roll = mt.make_multitracer_rollout(cfg, norms, **G_GEO)
+        got, _ = roll(mt.stack_params(params), forcings)
+    assert roll.runner.captures == 1
+    for s in range(3):
+        want, _ = make_rollout_fn(cfg, norms[s], device=device, **G_GEO).eager(
+            params[s], forcings[s])
+        assert torch.equal(got[s], want)
+
+
+def test_exported_artifact_on_the_card_equals_the_live_rollout(device, tmp_path):
+    """Exported on the card, B1 is traced as niswan::convlstm_cell; the
+    loaded program, replayed as a graph, serves what the live rollout
+    serves."""
+    from nasa_niswan_tpu_torch.rollout.export import (
+        export_rollout,
+        initial_rollout_state,
+        load_rollout_info,
+    )
+
+    cfg, params, norm, forcings = _g_setup(device)
+    path = str(tmp_path / "r.pt2")
+    export_rollout(cfg, norm, params, batch=1, chunk_steps=6, n_channels=8,
+                   path=path, **G_GEO)
+    fn, sig = load_rollout_info(path)
+    assert sig == (1, 6, 8, 16, 24)
+    live = make_rollout_fn(cfg, norm, device=device, **G_GEO)
+    st, st_l = initial_rollout_state(cfg, 1, G_GEO["padded_shape"], device), None
+    for f in forcings[:2]:
+        p, st = fn(f, st)
+        q, st_l = live(params, f, st_l)
+        assert torch.equal(p, q) and _same_state(st, st_l)
+    assert fn.runner.captures == 1 and fn.device.type == "cuda"
+    with pytest.raises(ValueError, match="exported for cuda"):
+        load_rollout_info(path, device="cpu")

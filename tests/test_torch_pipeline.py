@@ -1,7 +1,7 @@
 """The port's host batch pipeline (nasa_niswan_tpu_torch/data/pipeline.py)
 against the JAX package's: the batch order of ``batch_iterator`` and
 ``async_batches``, producer errors raised in the consumer, an early
-``break`` that shuts the producer down, ``device_prefetch`` and
+``break`` that shuts the producer down, and
 ``ChunkDrain`` (one dispatch behind, closed after ``finish``).  These
 mirror tests/test_pipeline.py on the CPU; the card's pinned buffers and
 side stream are held by tests/test_torch_cuda.py.
@@ -24,7 +24,6 @@ from nasa_niswan_tpu_torch.data.pipeline import (  # noqa: E402
     ChunkDrain,
     async_batches,
     batch_iterator,
-    device_prefetch,
 )
 
 LIMIT_S = 60.0
@@ -163,18 +162,6 @@ def test_async_batches_bounded_prefetch_under_thread_switching():
     assert len(got) == len(want) == 66
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b)
-
-
-@pytest.mark.parametrize("size", [1, 2, 5])
-@within()
-def test_device_prefetch_yields_the_batches_in_order(size):
-    ds = _Triplets()
-    want = list(batch_iterator(ds, 4, shuffle=True, seed=4))
-    got = list(device_prefetch(iter(want), size=size, device="cpu"))
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        for a, b in zip(g, w):
-            np.testing.assert_array_equal(a.numpy(), b)
 
 
 @within()
