@@ -122,7 +122,28 @@ Phases, each printing its own lines:
       the same way;
   (q) S = 3 species at C = 62 as one multi-tracer graph, with exact launch
       counts, bit-equal to three single rollouts; batched OAT against
-      serial within (d)'s bf16 bound.
+      serial within (d)'s bf16 bound;
+  (r) the single-step families at full width (f32, TF32 off), on the
+      synthetic fixture at 90 x 144 padded to 256 x 256: the UNet-5ch
+      forward (features 64/128/256/512, ~31.0 M parameters, B = 8) in eval
+      and train mode on the card against the CPU (output and new running
+      statistics within TOL_R_FWD), its FLOPs per sample and FP32 bound;
+      one epoch of ``fit`` on a UNet (bs 8, MSE + L1, Adam lr 1e-3 betas
+      (0.5, 0.999)) whose epoch-001 checkpoint, BatchNorm state as s<i>,
+      loads back equal, then its step's ms/step, host_input_wait_frac, peak
+      memory and the conv kernels' share of the device time (profiler);
+      the UNet-6ch closed loop over the 90-day fixture's 864-step test
+      split in chunks of 480, graph replays bit-equal to the eager body and
+      to ``predict_test_feedback``, its first 8 steps against the CPU loop
+      (TOL_R_LOOP), ms/step on the host clock and the device, and a chunk
+      served once (eager, first graph call, replay); pix2pix generator
+      training (features 64, bs 8, dropout on): ``fit``, ms/step and peak
+      memory; one GAN step (generator 64, PatchGAN 64/128/256/512, bs 8):
+      losses finite, both networks moved; the evaluation and serving CLIs
+      on full-width UNet-6ch and PIX2PIX snapshots of seeded weights over a
+      240-step stream (test split 48 steps: depth cut), the serving CLI on
+      route ``single_step`` equal to the evaluation's predictions.  No
+      kernel of the port runs in (r): its launch counts are read as zero.
 
 Then one JSON line describing each kernel (launches summed over the counted
 main-path runs, a launch with two modes on counted once; the largest error
@@ -152,11 +173,15 @@ import time
 import numpy as np
 import torch
 
+from nasa_niswan_tpu_torch.bridge import tree_leaves, tree_map, tree_unflatten
+from nasa_niswan_tpu_torch.core.padding import pad_geo
 from nasa_niswan_tpu_torch.data import ncio_native, pipeline
 from nasa_niswan_tpu_torch.data.dataset import (
     Normalizer,
     Seq2SeqDataset,
     SequenceDataset,
+    SingleStepDataset,
+    make_preprocess_fn,
     preprocess_batch,
     zscore_static,
 )
@@ -173,10 +198,14 @@ from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
 from nasa_niswan_tpu_torch.evalx import __main__ as eval_cli
 from nasa_niswan_tpu_torch.evalx.snapshot import load_snapshot
 from nasa_niswan_tpu_torch.evalx.evaluate import (
+    _run_chunked_episode,
     make_closed_loop_chunk,
+    make_feedback_chunk,
+    predict_test_feedback,
     zero_closed_loop_state,
 )
 from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, convlstm_init
+from nasa_niswan_tpu_torch.models.pix2pix import DiscriminatorConfig, discriminator_init
 from nasa_niswan_tpu_torch.models.registry import build_model
 from nasa_niswan_tpu_torch.ops import _build, convgrad, convlstm_cell
 from nasa_niswan_tpu_torch.ops.conv import conv2d
@@ -211,6 +240,7 @@ from nasa_niswan_tpu_torch.rollout.multitracer import make_multitracer_rollout, 
 from nasa_niswan_tpu_torch.rollout.sensitivity import oat_sensitivity
 from nasa_niswan_tpu_torch.train import __main__ as train_cli
 from nasa_niswan_tpu_torch.train import loop as train_loop
+from nasa_niswan_tpu_torch.train.gan import make_gan_train_step
 from nasa_niswan_tpu_torch.train.checkpoint import (
     load_checkpoint,
     param_leaves,
@@ -584,11 +614,9 @@ def rel_err(p: torch.Tensor, ref: torch.Tensor):
     return (d.max() / std).item(), (d.pow(2).mean().sqrt() / std).item()
 
 
-def _tree_to(params, device):
-    return {
-        "cells": [{k: v.to(device) for k, v in c.items()} for c in params["cells"]],
-        "head": {k: v.to(device) for k, v in params["head"].items()},
-    }
+def _tree_to(tree, device):
+    """A detached copy of a parameter or state tree on ``device``."""
+    return tree_map(lambda t: t.detach().to(device), tree)
 
 
 def _max_excess(got, want, rtol):
@@ -1997,6 +2025,359 @@ def phase_multitracer(device, serve, smi) -> None:
     check(worst <= TOL_PLAIN_REL, f"[q] batched OAT vs serial {worst:.3e}")
 
 
+# (r) the single-step families at full width: the UNet (features
+# 64/128/256/512, bottleneck 1024), the pix2pix generator (features 64) and
+# PatchGAN (64/128/256/512), on the 90 x 144 fixture padded to 256 x 256
+R_FEATS = (64, 128, 256, 512)
+R_PIX_FEATS = 64
+R_PADDED = (256, 256)
+R_BS = 8
+R_T = 90 * 48  # the 90-day fixture: a test split of 864 steps
+R_FIT_T = 72  # the fit fixture: 49 training samples, 6 steps of bs 8
+R_TIMED_EPOCHS = 3
+R_CHUNK = 480  # predict_test_feedback's chunk
+R_CPU_STEPS = 8
+R_GAN_STEPS = 3
+# card (cuDNN, TF32 off) vs CPU, f32: |d| / max |CPU| of one forward (23
+# conv layers, sums in other orders), and of the closed loop's first steps,
+# each prediction fed back as the next step's input
+TOL_R_FWD, TOL_R_LOOP = 1e-4, 1e-3
+# the serving CLI against the evaluation CLI on one snapshot, |d| / max:
+# the same calls, but pix2pix's transposed convs were measured not to
+# repeat bit for bit across runs on the card
+TOL_R_CLI = 1e-5
+# cuDNN's convolution kernels, FFT-based ones included
+_CONV_KERNEL = re.compile(
+    r"conv|gemm|xmma|cudnn|dgrad|wgrad|fprop|winograd|fft|complex", re.I)
+
+
+def unet_flops(cfg, H: int, W: int) -> float:
+    """FLOPs of one UNet forward per sample at H x W: 2 x MACs of every conv
+    and transposed conv (the norms, pools and activations are not counted)."""
+    f = cfg.features
+    flops, cin = 0.0, cfg.in_channels
+    blocks = []  # (pixels, cin, cout) of each conv_block
+    for i, co in enumerate(f):
+        blocks.append((H * W >> (2 * i), cin, co))
+        cin = co
+    blocks.append((H * W >> 8, f[3], 2 * f[3]))  # bottleneck at H/16
+    ups = []
+    cin = 2 * f[3]
+    for i, co in zip(range(3, -1, -1), reversed(f)):
+        ups.append((H * W >> (2 * (i + 1)), cin, co))  # k2 s2: 4 taps per input pixel
+        blocks.append((H * W >> (2 * i), cin, co))
+        cin = co
+    for px, ci, co in blocks:
+        flops += 2 * px * 9 * (ci * co + co * co)
+    for px, ci, co in ups:
+        flops += 2 * px * 4 * ci * co
+    return flops + 2 * H * W * f[0] * cfg.out_channels
+
+
+def _rel(got, want) -> float:
+    return float((got.detach().float().cpu() - want.detach().float().cpu()).abs().max()
+                 / want.detach().float().abs().max())
+
+
+def _batch_statistics(bundle, params, state, x):
+    """``state`` with its running statistics set to the batch statistics of
+    ``x`` (one training-mode forward: new = 0.9 old + 0.1 batch).  Fresh
+    (0, 1) statistics leave only the head's bias in an eval-mode output of
+    the N(0, 0.02) weights; matched ones normalize as training does."""
+    with torch.no_grad():
+        _, new = bundle.apply(params, state, x, training=True)
+    return tree_unflatten(state, [(n - 0.9 * o) / 0.1
+                                  for n, o in zip(tree_leaves(new), tree_leaves(state))])
+
+
+def _timed_epochs(step, params, state, dataset, device, epochs, rng=None):
+    """bench.py main_train's loop over ``epochs`` epochs of ``dataset``: the
+    wait on ``async_batches``' queue, then the step; synchronised at the
+    end.  Returns (ms/step, host_input_wait_frac, steps, state)."""
+    torch.cuda.synchronize()
+    tic, wait, n = time.perf_counter(), 0.0, 0
+    for epoch in range(epochs):
+        it = async_batches(dataset, R_BS, shuffle=True, seed=SEED, epoch=epoch, device=device)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            wait += time.perf_counter() - t0
+            if batch is None:
+                break
+            state, _ = step(params, state, *batch, rng=rng)
+            n += 1
+    torch.cuda.synchronize()
+    total = time.perf_counter() - tic
+    return 1000 * total / n, wait / total, n, state
+
+
+def _conv_share(names) -> tuple:
+    """(conv kernels' device ms, all kernels' device ms, the five longest
+    kernels) of a profile's kernels by name."""
+    total = sum(ms for _, ms in names.values())
+    conv = sum(ms for k, (_, ms) in names.items() if _CONV_KERNEL.search(k))
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:5]
+    return conv, total, [(k[:60], n, round(ms, 3)) for k, (n, ms) in top]
+
+
+def _single_step_snapshot(root, name, model, device, **fields) -> str:
+    """A full-width single-step snapshot of seeded weights (and, for the
+    UNet, random BatchNorm statistics) over the synthetic stream."""
+    run_dir = os.path.join(root, name)
+    cfg = TrainConfig(model=model, synthetic_steps=CLI_T, synthetic_grid=GRID,
+                      input_size=R_PADDED, unet_features=R_FEATS,
+                      pix2pix_features=R_PIX_FEATS, snapshot_dir=run_dir, **fields)
+    cfg.dump()
+    bundle = build_model(model, in_channels=cfg.in_channels, unet_features=R_FEATS,
+                         pix2pix_features=R_PIX_FEATS)
+    params, state = bundle.init(torch.Generator().manual_seed(SEED), device)
+    if state is not None:
+        x = torch.randn((2, *R_PADDED, cfg.in_channels), device=device,
+                        generator=torch.Generator(device=device).manual_seed(SEED))
+        state = _batch_statistics(bundle, params, state, x)
+    save_checkpoint(os.path.join(run_dir, "epoch-001"), params, epoch=1, model_state=state)
+    return run_dir
+
+
+def phase_single_step(device, smi) -> None:
+    """(r) the single-step families at full width (f32, TF32 off): the
+    UNet-5ch forward on the card against the CPU, UNet training through
+    ``fit`` (its checkpoint's BatchNorm state read back), the UNet-6ch
+    closed loop over the 90-day fixture's test split as graph replays
+    against the eager body and the CPU, pix2pix generator training, one
+    GAN step, and both CLIs on full-width single-step snapshots.  None of
+    it runs a kernel of the port: its convolutions, norms and pools are
+    PyTorch's (cuDNN), as the JAX package's are XLA's."""
+    cpu = torch.device("cpu")
+    root = tempfile.mkdtemp(prefix="niswan_single_")
+    _set_counts(0)
+    try:
+        # --- UNet-5ch forward, card vs CPU, B = 8 -----------------------
+        fit_data = synthetic_e33oma_90d(T=R_FIT_T, H=GRID[0], W=GRID[1], seed=SEED)
+        train5, val5 = (SingleStepDataset(fit_data, period=p) for p in ("train", "val"))
+        unet = build_model("UNet-r", in_channels=5, unet_features=R_FEATS)
+        p_cpu, s_cpu = unet.init(torch.Generator().manual_seed(SEED), cpu)
+        n_params = sum(t.numel() for t in tree_leaves(p_cpu))
+        prep = make_preprocess_fn(train5.normalizer, R_PADDED)
+        xs, ys = zip(*(train5[i] for i in range(R_BS)))
+        x_cpu, y_cpu = prep(np.stack(xs), np.stack(ys))
+        x_dev = x_cpu.to(device)
+        p_dev = _tree_to(p_cpu, device)
+        s_dev = _batch_statistics(unet, p_dev, _tree_to(s_cpu, device), x_dev)
+        s_cpu = _tree_to(s_dev, cpu)
+        for training in (False, True):
+            with torch.no_grad():
+                want, want_s = unet.apply(p_cpu, s_cpu, x_cpu, training=training)
+                got, got_s = unet.apply(p_dev, s_dev, x_cpu.to(device), training=training)
+            err = max(_rel(g, w) for g, w in zip(tree_leaves((got, got_s)),
+                                                  tree_leaves((want, want_s))))
+            check(torch.isfinite(got).all() and err <= TOL_R_FWD,
+                  f"[r] UNet forward training={training}: card vs CPU {err:.3e}")
+            print(f"[r] UNet-5ch forward (features {R_FEATS}, {n_params} parameters, "
+                  f"B={R_BS}, {R_PADDED[0]}x{R_PADDED[1]}, f32) training={training}: "
+                  f"card vs CPU max |d| / max |CPU| {err:.3e} over the output and the "
+                  f"new running statistics (tol {TOL_R_FWD:g})")
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: unet.apply(p_dev, s_dev, x_dev)[0], n=5)
+        gflop = unet_flops(unet.config, *R_PADDED) / 1e9
+        bound = least_time(R_BS * gflop * 1e9, 0, torch.float32)[0]
+        print(f"[r] UNet forward: {gflop:.2f} GFLOP per sample; B={R_BS} eval forward "
+              f"{fwd_ms:.2f} ms (CUDA events), FP32 bound {bound:.2f} ms on {smi}")
+        del p_dev, s_dev, x_dev, got, got_s, want, want_s
+
+        # --- UNet training through fit ------------------------------------
+        cfg = TrainConfig(model="UNet-r", in_channels=5, unet_features=R_FEATS,
+                          input_size=R_PADDED, batch_size=R_BS, num_epochs=1,
+                          learning_rate=1e-3, betas=(0.5, 0.999), checkpoint_every=1,
+                          snapshot_dir=os.path.join(root, "unet"), device=str(device))
+        p0, s0 = unet.init(torch.Generator().manual_seed(SEED), device)
+        out = fit(unet, train5, val5, cfg, device=device, init_params=p0, init_state=s0,
+                  verbose=False)
+        check(np.isfinite(out["logger"]["MSELoss"]).all(), f"[r] fit {out['logger']}")
+        tmpl, tmpl_state = unet.init(torch.Generator().manual_seed(SEED + 2), device)
+        lp, lo, ls, meta = load_checkpoint(os.path.join(cfg.snapshot_dir, "epoch-001"), tmpl,
+                                           state_template=tmpl_state)
+        check(meta["n_state"] == 36 and lo["step"] == len(train5) // R_BS and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves((lp, ls)),
+                                              tree_leaves((out["params"], out["state"])))),
+            "[r] the UNet checkpoint does not load back equal")
+        print(f"[r] UNet fit: 1 epoch of {lo['step']} steps (bs {R_BS}), logger "
+              f"{out['logger']}; epoch-001 (s<i> BatchNorm state, n_state "
+              f"{meta['n_state']}) loads back equal")
+        opt = make_optimizer(out["params"], 1e-3, (0.5, 0.999))
+        step = make_train_step(unet, train5.normalizer, opt, padded_shape=R_PADDED,
+                               grid_shape=GRID)
+        state = _timed_epochs(step, out["params"], out["state"], train5, device, 1)[3]
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, frac, n, state = _timed_epochs(step, out["params"], state, train5, device,
+                                           R_TIMED_EPOCHS)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        it = async_batches(train5, R_BS, shuffle=False, device=device)
+        batch = next(it)
+        it.close()
+        dev_ms, names = _profile(lambda: [step(out["params"], state, *batch)
+                                          for _ in range(2)])
+        conv, total, top = _conv_share(names)
+        bound = least_time(3 * R_BS * gflop * 1e9, 0, torch.float32)[0]
+        print(f"[r] UNet training (fit's step, Adam lr 1e-3 betas (0.5, 0.999), MSE + L1 "
+              f"on the cropped map): {ms:.1f} ms/step over {n} steps, "
+              f"host_input_wait_frac {frac:.4f}, peak memory {peak:.2f} GiB; device "
+              f"{dev_ms / 2:.1f} ms/step (profiler kernel sum), conv kernels "
+              f"{conv / 2:.1f} ms/step ({100 * conv / total:.1f}%); FP32 bound of "
+              f"3 x the forward's FLOPs {bound:.1f} ms; top kernels {top} on {smi}")
+        del out, opt, step, state, batch, lp, ls, tmpl, tmpl_state, p0, s0
+        torch.cuda.empty_cache()
+
+        # --- UNet-6ch closed loop: graph vs eager vs CPU -------------------
+        test6 = SingleStepDataset(synthetic_e33oma_90d(T=R_T, H=GRID[0], W=GRID[1],
+                                                       seed=SEED),
+                                  period="test", in_channels=6)
+        unet6 = build_model("UNet-r6", in_channels=6, unet_features=R_FEATS)
+        p6_cpu, s6_cpu = unet6.init(torch.Generator().manual_seed(SEED + 3), cpu)
+        frames, targets = test6.feedback_stream()
+        x6, _ = make_preprocess_fn(test6.normalizer, R_PADDED)(frames[:R_BS], targets[:R_BS])
+        p6 = _tree_to(p6_cpu, device)
+        s6 = _batch_statistics(unet6, p6, _tree_to(s6_cpu, device), x6.to(device))
+        s6_cpu = _tree_to(s6, cpu)
+        frames_dev = torch.as_tensor(frames, device=device)
+        prev0 = frames_dev[0, 5]
+        steps = frames.shape[0]
+        run = make_feedback_chunk(unet6, test6.normalizer, padded_shape=R_PADDED,
+                                  grid_shape=GRID)
+
+        def episode(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds = _run_chunked_episode(lambda st, prev, x: fn(p6, st, prev, x),
+                                         [s6, prev0], frames_dev, R_CHUNK)
+            return preds, 1000 * (time.perf_counter() - t0)
+
+        first = {}
+        for name in ("eager", "first_graph_call", "replay"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn = run.eager if name == "eager" else run
+            fn(p6, s6, prev0, frames_dev[:R_CHUNK])
+            torch.cuda.synchronize()
+            first[name] = 1000 * (time.perf_counter() - t0)
+        graph_p, graph_ms = episode(run)
+        eager_p, eager_ms = episode(run.eager)
+        entry = predict_test_feedback(unet6, p6, s6, test6, padded_shape=R_PADDED)
+        check(np.array_equal(graph_p, eager_p) and np.array_equal(entry["PDs"], graph_p)
+              and np.isfinite(graph_p).all() and graph_p.shape == targets.shape,
+              "[r] UNet-6ch closed loop: graph replays != eager body")
+        check(run.runner.captures == int(device.type == "cuda"),
+              f"[r] closed loop captured {run.runner.captures}x")
+        cpu_run = make_feedback_chunk(unet6, test6.normalizer, padded_shape=R_PADDED,
+                                      grid_shape=GRID)
+        _, _, cpu_p = cpu_run.eager(p6_cpu, s6_cpu, torch.from_numpy(frames[0, 5]),
+                                    frames[:R_CPU_STEPS])
+        err = _rel(torch.from_numpy(graph_p[:R_CPU_STEPS]), cpu_p)
+        check(err <= TOL_R_LOOP, f"[r] closed loop vs CPU {err:.3e}")
+        dev_ms, _ = _profile(lambda: run(p6, s6, prev0, frames_dev[:R_CHUNK]))
+        print(f"[r] UNet-6ch closed loop over the test split ({steps} steps, B=1, chunks of "
+              f"{R_CHUNK}, each one graph replay): graph == eager bit for bit, "
+              f"predict_test_feedback == both, first {R_CPU_STEPS} steps vs the CPU loop "
+              f"{err:.3e} (tol {TOL_R_LOOP:g}); host clock {graph_ms / steps:.3f} ms/step "
+              f"graph, {eager_ms / steps:.3f} ms/step eager; device "
+              f"{dev_ms / R_CHUNK:.3f} ms/step (profiler kernel sum); a {R_CHUNK}-step "
+              f"chunk served once: eager {first['eager']:.0f} ms, graph first call "
+              f"(one-step warm-up + capture + replay) {first['first_graph_call']:.0f} ms, "
+              f"replay {first['replay']:.0f} ms; FP32 bound "
+              f"{least_time(unet_flops(unet6.config, *R_PADDED), 0, torch.float32)[0]:.3f}"
+              " ms/step "
+              f"on {smi}")
+        del run, frames_dev, p6, s6, entry
+        torch.cuda.empty_cache()
+
+        # --- pix2pix generator training --------------------------------------
+        pix = build_model("PIX2PIX-r", in_channels=5, pix2pix_features=R_PIX_FEATS)
+        g0, _ = pix.init(torch.Generator().manual_seed(SEED), device)
+        pcfg = dataclasses.replace(cfg, model="PIX2PIX-r", snapshot_dir=os.path.join(root, "pix"),
+                                   checkpoint_every=0)
+        pout = fit(pix, train5, val5, pcfg, device=device, init_params=g0, verbose=False)
+        check(np.isfinite(pout["logger"]["MSELoss"]).all(), f"[r] pix2pix fit {pout['logger']}")
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        g_leaves = [t.detach().clone() for t in tree_leaves(pout["params"])]
+        popt = make_optimizer(pout["params"], 1e-3, (0.5, 0.999))
+        pstep = make_train_step(pix, train5.normalizer, popt, padded_shape=R_PADDED,
+                                grid_shape=GRID)
+        _timed_epochs(pstep, pout["params"], None, train5, device, 1, rng=gen)
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, frac, n, _ = _timed_epochs(pstep, pout["params"], None, train5, device,
+                                       R_TIMED_EPOCHS, rng=gen)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        check(all(torch.isfinite(t).all() for t in tree_leaves(pout["params"])) and not all(
+            torch.equal(a, b) for a, b in zip(g_leaves, tree_leaves(pout["params"]))),
+            "[r] pix2pix training did not move the generator")
+        print(f"[r] pix2pix generator training (features {R_PIX_FEATS}, bs {R_BS}, dropout "
+              f"on): fit "
+              f"logger {pout['logger']}; {ms:.1f} ms/step over {n} steps, "
+              f"host_input_wait_frac {frac:.4f}, peak memory {peak:.2f} GiB on {smi}")
+        del popt, pstep
+
+        # --- one full-width GAN step -----------------------------------------
+        dcfg = DiscriminatorConfig(in_channels=1, features=R_FEATS)
+        d_params = discriminator_init(torch.Generator().manual_seed(SEED), dcfg, device=device)
+        for t in tree_leaves(d_params):
+            t.requires_grad_(True)
+        g_params = pout["params"]
+        before = [t.detach().clone() for t in tree_leaves((g_params, d_params))]
+        gan = make_gan_train_step(pix.config, dcfg,
+                                  make_optimizer(g_params, 2e-4, (0.5, 0.999)),
+                                  make_optimizer(d_params, 2e-4, (0.5, 0.999)))
+        x, y = prep(np.stack(xs), np.stack(ys))
+        x = x.to(device)
+        y = torch.movedim(pad_geo(y[:, None], R_PADDED), 1, -1).to(device)
+        gan(g_params, d_params, x, y, gen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        for _ in range(R_GAN_STEPS):
+            metrics = gan(g_params, d_params, x, y, gen)
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0) / R_GAN_STEPS
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        vals = {k: v.item() for k, v in metrics.items()}
+        after = tree_leaves((g_params, d_params))
+        n_g = len(tree_leaves(g_params))
+        check(all(np.isfinite(v) for v in vals.values())
+              and not all(torch.equal(a, b) for a, b in zip(before[:n_g], after[:n_g]))
+              and not all(torch.equal(a, b) for a, b in zip(before[n_g:], after[n_g:])),
+              f"[r] GAN step {vals}: a network did not move")
+        print(f"[r] GAN step (generator features {R_PIX_FEATS}, PatchGAN {R_FEATS}, bs {R_BS}, "
+              f"{R_PADDED[0]}x{R_PADDED[1]}): losses {vals}, both networks moved; "
+              f"{ms:.1f} ms/step over {R_GAN_STEPS} steps, peak memory {peak:.2f} GiB "
+              f"on {smi}")
+        del gan, g_params, d_params, pout, x, y
+        torch.cuda.empty_cache()
+
+        # --- both CLIs on full-width single-step snapshots ------------------
+        for name, model, fields in (("u6", "UNet-smoke", dict(in_channels=6)),
+                                    ("p2", "PIX2PIX-smoke", {})):
+            run_dir = _single_step_snapshot(root, name, model, device, **fields)
+            on = ["--run-dir", run_dir, "--device", str(device)]
+            report = eval_cli.main(on)
+            served = serve_cli.main([*on, "--chunk", str(R_CHUNK),
+                                     "--out", os.path.join(run_dir, "p.nc")])
+            with open(os.path.join(run_dir, "test-results.npy"), "rb") as f:
+                np.load(f)
+                pds = np.load(f)
+            err = _rel(torch.from_numpy(_nc(os.path.join(run_dir, "p.nc"))),
+                       torch.from_numpy(pds))
+            check(served["route"] == "single_step" and np.isfinite(report["global_r2"])
+                  and served["steps"] == len(pds) and err <= TOL_R_CLI,
+                  f"[r] {model} CLIs: route {served['route']}, serve vs evaluate {err:.3e}")
+            print(f"[r] {model} snapshot (full width, {CLI_T}-step synthetic stream): "
+                  f"evaluation CLI global R2 {report['global_r2']:.4f}, pearson r "
+                  f"{report['pearson_r']:.4f}; serving CLI route {served['route']}, "
+                  f"{served['steps']} steps, max |d| / max against the evaluation's "
+                  f"predictions {err:.3e} (tol {TOL_R_CLI:g})")
+        _expect_counts("[r] single-step families (no kernel of the port on this path)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _copy_params(params):
     return {
         "cells": [{k: v.detach().clone().requires_grad_(True) for k, v in c.items()}
@@ -2078,6 +2459,7 @@ def main() -> None:
     phase_graph_serve(device, serve, stats, smi)
     phase_clis(device)
     phase_multitracer(device, serve, smi)
+    phase_single_step(device, smi)
     check(all(LAUNCHED[name] > 0 for name in COUNTERS), f"kernels never launched: {LAUNCHED}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

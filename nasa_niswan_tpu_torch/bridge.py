@@ -1,109 +1,129 @@
-"""Weight bridge between the JAX package's parameter tree and the port.
+"""Weight bridge between the JAX package's trees and the port's.
 
-Both packages hold the ConvLSTM as the same tree,
-``{"cells": [{"w_x", "w_h", "b"}, ...], "head": {"w", "b"}}``, with HWIO
-kernels, so the bridge converts leaves and checks shapes; nothing is
-transposed and the round trip is bit-exact.
+Both packages hold every model as the same tree of nested dicts and lists
+with one array per leaf, under the same names: the ConvLSTM as
+``{"cells": [{"w_x", "w_h", "b"}, ...], "head": {"w", "b"}}``, the UNet and
+the pix2pix networks as their ``enc1``, ``dec1``, ``bottleneck``, ...
+trees, and the UNet's BatchNorm running statistics as a state tree of the
+same kind.  Kernels are HWIO (a transposed conv's ``(kh, kw, out, in)``)
+in both, so the bridge converts leaves and nothing is transposed; the
+round trip is bit-exact.
 
+``tree_leaves`` is ``jax.tree_util``'s flatten order (dict values by
+sorted key, list items in order, ``None`` an empty subtree), the order of
+the ``p<i>`` / ``s<i>`` leaves in a checkpoint of either package.
 ``load_jax_checkpoint`` reads the ``checkpoint.npz`` that the JAX
-package's ``train/checkpoint.save_checkpoint`` writes.  Its parameter
-leaves ``p0, p1, ...`` are in ``jax.tree_util`` flatten order, which sorts
-dict keys: ``cells[i].b, cells[i].w_h, cells[i].w_x`` for each layer, then
-``head.b, head.w``.  So a JAX-trained snapshot serves in the port.
+package's ``train/checkpoint.save_checkpoint`` writes, so a JAX-trained
+snapshot of any family serves in the port.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
 
-from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, Params
+from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig
 
 CKPT_FILE = "checkpoint.npz"
 
 
-def _expected_shapes(config: ConvLSTMConfig) -> Tuple[List[Dict[str, tuple]], Dict[str, tuple]]:
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a tree of dicts, lists and tuples in ``jax.tree_util``
+    flatten order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten(template: Any, leaves) -> Any:
+    """A tree shaped like ``template`` holding ``leaves`` (in
+    ``tree_leaves`` order); the inverse of ``tree_leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return None if t is None else next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template has")
+    return out
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    return tree_unflatten(tree, [fn(leaf) for leaf in tree_leaves(tree)])
+
+
+def params_from_jax(tree: Any, *, device=None) -> Any:
+    """A JAX tree (numpy or jax arrays) -> the port's tree of torch tensors
+    (copies, same dtype and layout); parameters and model state alike.  A
+    ConvLSTM tree's dicts come in the key order the port's init writes
+    (``w_x, w_h, b``; ``w, b``), whatever order the JAX tree's are in."""
+    out = tree_map(lambda a: torch.tensor(np.asarray(a), device=device), tree)
+    if isinstance(out, dict) and "cells" in out:
+        out = {"cells": [{k: c[k] for k in ("w_x", "w_h", "b")} for c in out["cells"]],
+               "head": {k: out["head"][k] for k in ("w", "b")}}
+    return out
+
+
+def params_to_jax(params: Any) -> Any:
+    """The port's tree -> the JAX package's tree of numpy arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), params)
+
+
+def _convlstm_template(config: ConvLSTMConfig):
     cells = []
     in_ch = config.in_channels
     for hid, k in zip(config.hidden_channels, config.kernel_sizes):
-        cells.append(
-            {"w_x": (k, k, in_ch, 4 * hid), "w_h": (k, k, hid, 4 * hid),
-             "b": (4 * hid,)}
-        )
+        cells.append({"w_x": torch.empty(k, k, in_ch, 4 * hid),
+                      "w_h": torch.empty(k, k, hid, 4 * hid), "b": torch.empty(4 * hid)})
         in_ch = hid
-    head = {"w": (1, 1, in_ch, config.out_channels), "b": (config.out_channels,)}
-    return cells, head
+    return {"cells": cells, "head": {"w": torch.empty(1, 1, in_ch, config.out_channels),
+                                     "b": torch.empty(config.out_channels)}}
 
 
-def params_from_jax(tree: Any, *, device=None) -> Params:
-    """JAX parameter tree (numpy or jax arrays) -> the port's tree of torch
-    tensors (copies, same dtype and layout)."""
-    def conv(a):
-        return torch.tensor(np.asarray(a), device=device)
-
-    return {
-        "cells": [
-            {name: conv(cell[name]) for name in ("w_x", "w_h", "b")}
-            for cell in tree["cells"]
-        ],
-        "head": {name: conv(tree["head"][name]) for name in ("w", "b")},
-    }
-
-
-def params_to_jax(params: Params) -> Dict[str, Any]:
-    """The port's tree -> the JAX package's tree of numpy arrays."""
-    def conv(t):
-        return t.detach().cpu().numpy().copy()
-
-    return {
-        "cells": [
-            {name: conv(cell[name]) for name in ("w_x", "w_h", "b")}
-            for cell in params["cells"]
-        ],
-        "head": {name: conv(params["head"][name]) for name in ("w", "b")},
-    }
+def _read_leaves(data, path: str, prefix: str, template) -> List[np.ndarray]:
+    want = tree_leaves(template)
+    n = len(want)
+    leaves = []
+    for i, t in enumerate(want):
+        if f"{prefix}{i}" not in data:
+            raise ValueError(f"{path}: no leaf {prefix}{i}; the template has {n}")
+        a = np.asarray(data[f"{prefix}{i}"])
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{path}: leaf {prefix}{i} shape {a.shape} != {tuple(t.shape)}")
+        leaves.append(a)
+    if f"{prefix}{n}" in data:
+        raise ValueError(f"{path} holds more than {n} {prefix}-leaves: another model")
+    return leaves
 
 
-def load_jax_checkpoint(path: str, config: ConvLSTMConfig, *, device=None) -> Params:
-    """Read the ConvLSTM parameters of a JAX ``checkpoint.npz`` (``path`` is
-    the file or its epoch directory); raises if the leaves do not match
-    ``config``."""
+def load_jax_checkpoint(path: str, template, *, state_template: Optional[Any] = None,
+                        device=None):
+    """Read the parameters of a JAX ``checkpoint.npz`` (``path`` is the file
+    or its epoch directory) into a tree shaped like ``template``: a
+    parameter tree of any family, or a ``ConvLSTMConfig``.  Raises if the
+    leaves do not match it.  With a ``state_template`` (the UNet's
+    BatchNorm statistics) returns ``(params, state)``, the state read from
+    the ``s<i>`` leaves."""
     if os.path.isdir(path):
         path = os.path.join(path, CKPT_FILE)
-    cell_shapes, head_shapes = _expected_shapes(config)
-    n_leaves = 3 * len(cell_shapes) + 2
+    if isinstance(template, ConvLSTMConfig):
+        template = _convlstm_template(template)
     with np.load(path) as data:
-        leaves = []
-        for i in range(n_leaves):
-            if f"p{i}" not in data:
-                raise ValueError(
-                    f"{path}: no parameter leaf p{i}; a {config.num_layers}-layer "
-                    f"ConvLSTM has {n_leaves}"
-                )
-            leaves.append(np.asarray(data[f"p{i}"]))
-        if f"p{n_leaves}" in data:
-            raise ValueError(
-                f"{path} holds more than {n_leaves} parameter leaves: not a "
-                f"{config.num_layers}-layer ConvLSTM"
-            )
-    # flatten order sorts keys: b, w_h, w_x per cell, then b, w of the head
-    it = iter(leaves)
-    tree: Dict[str, Any] = {
-        "cells": [
-            {name: next(it) for name in ("b", "w_h", "w_x")} for _ in cell_shapes
-        ],
-    }
-    tree["head"] = {name: next(it) for name in ("b", "w")}
-    for i, (cell, shapes) in enumerate(zip(tree["cells"], cell_shapes)):
-        for name, shape in shapes.items():
-            if cell[name].shape != shape:
-                raise ValueError(
-                    f"cells[{i}].{name}: shape {cell[name].shape} != {shape}"
-                )
-    for name, shape in head_shapes.items():
-        if tree["head"][name].shape != shape:
-            raise ValueError(f"head.{name}: shape {tree['head'][name].shape} != {shape}")
-    return params_from_jax(tree, device=device)
+        params = tree_unflatten(template, _read_leaves(data, path, "p", template))
+        state = None if state_template is None else tree_unflatten(
+            state_template, _read_leaves(data, path, "s", state_template))
+    params = params_from_jax(params, device=device)
+    if state_template is None:
+        return params
+    return params, params_from_jax(state, device=device)

@@ -5,7 +5,10 @@ Reloads configurations.json and the checkpoint, streams the test split,
 computes the metric battery, and writes ``test-results.npy`` and
 ``evaluation.json`` into the run directory, printing the JAX CLI's report
 lines.  Runs on the card (``--device cuda``, the default) unless asked for
-the CPU.
+the CPU.  Routes as the JAX CLI does: a seq2seq snapshot and a UNet-6ch
+snapshot run their closed loops, the other single-step snapshots their
+one-frame samples (``--mode rollout``, ``--export-hidden``, ``--oat`` and
+``--export-artifact`` drive the ConvLSTM).
 """
 
 from __future__ import annotations
@@ -56,18 +59,31 @@ def main(argv=None):
     params, eval_state = snap.params, snap.eval_state
     static, padded = snap.static, snap.padded_shape
     print("Number of Epochs:", snap.meta.get("epoch"))
-    if snap.closed_loop and (args.export_hidden or args.oat or args.export_artifact):
+    if (snap.closed_loop or snap.feedback_single) and (
+            args.export_hidden or args.oat or args.export_artifact):
         raise SystemExit(
             "--export-hidden/--oat/--export-artifact drive the LSTM "
             "open-loop windowed/rollout paths; not available for "
-            "closed-loop (seq2seq) snapshots"
+            "closed-loop (seq2seq / UNet-6ch feedback) snapshots"
         )
+    if not bundle.is_sequence:
+        for flag, msg in ((args.export_hidden, "--export-hidden needs the LSTM family"),
+                          (args.oat, "--oat drives the compiled rollout (LSTM family)"),
+                          (args.export_artifact, "--export-artifact needs the LSTM family")):
+            if flag:
+                raise SystemExit(msg)
     if snap.closed_loop:
         from nasa_niswan_tpu_torch.evalx.evaluate import predict_test_closed_loop
 
         print("seq2seq snapshot: running closed-loop feedback evaluation")
         out = predict_test_closed_loop(bundle.config, params, test_ds, padded_shape=padded)
-    elif args.mode == "rollout":
+    elif snap.feedback_single:
+        from nasa_niswan_tpu_torch.evalx.evaluate import predict_test_feedback
+
+        print("6-channel feedback snapshot: running closed-loop evaluation")
+        out = predict_test_feedback(bundle, params, eval_state, test_ds,
+                                    padded_shape=padded)
+    elif args.mode == "rollout" and bundle.is_sequence:
         out = predict_test_rollout(
             bundle.config, params, test_ds, padded_shape=padded, static=static
         )

@@ -14,8 +14,11 @@ carry and the feedback frame handed from chunk to chunk, so a whole test
 period is one continuous episode.  On a CUDA device each chunk is one
 CUDA graph replay (rollout/graph.py), as the JAX package jit-compiles the
 chunk's scan; chunks are fetched one dispatch behind (``ChunkDrain``).
-Single-step (UNet) snapshots are not ported yet: ``predict_test_feedback``
-raises.
+The closed loop of a 6-channel single-step (UNet-6ch) snapshot
+(``predict_test_feedback``) carries its raw feedback frame from chunk to
+chunk the same way, each chunk one CUDA graph replay on the card; the
+other single-step snapshots run ``predict_test_set`` over their one-frame
+samples.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from nasa_niswan_tpu_torch.core.padding import pad_geo
+from nasa_niswan_tpu_torch.bridge import tree_leaves
+from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
 from nasa_niswan_tpu_torch.data.dataset import Normalizer
 from nasa_niswan_tpu_torch.data.pipeline import ChunkDrain, async_batches, batch_iterator
 from nasa_niswan_tpu_torch.evalx import metrics as M
@@ -44,15 +48,16 @@ from nasa_niswan_tpu_torch.rollout.graph import GraphRunner
 
 
 def _device_of(params) -> torch.device:
-    return params["head"]["w"].device
+    return tree_leaves(params)[0].device
 
 
 def predict_test_set(
     bundle, params, state, dataset, *, padded_shape, batch_size: int = 8,
     static: Optional[np.ndarray] = None,
 ) -> Dict[str, np.ndarray]:
-    """Windowed inference over a test dataset; returns physical-unit GTs / PDs
-    shaped (N, h, w), on the parameters' device.
+    """Windowed inference over a test dataset (a sequence model's windows
+    or a single-step model's one-frame samples); returns physical-unit
+    GTs / PDs shaped (N, h, w), on the parameters' device.
 
     Sequence datasets with a frame slab (``forcing_stream``) run from the
     device: the slab is uploaded once and each batch's windows are gathered
@@ -249,14 +254,79 @@ def predict_test_closed_loop(
     return {"GTs": targets, "PDs": preds}
 
 
+def make_feedback_chunk(
+    bundle, normalizer: Normalizer, *, padded_shape: Tuple[int, int],
+    grid_shape: Tuple[int, int],
+):
+    """Returns ``run_chunk(params, state, prev_raw, x_chunk) -> (state,
+    prev_raw, preds)`` for a 6-channel single-step model: x_chunk raw
+    (Tc, 6, h, w), channel 5 of each step replaced by ``prev_raw`` (h, w),
+    the previous prediction in raw units; the model runs in eval mode on
+    ``state`` (its BatchNorm statistics, passed through); preds (Tc, h, w)
+    in physical units.  Runs on the parameters' device under
+    ``torch.inference_mode``; on a CUDA device each call replays the
+    chunk's CUDA graph, keyed on the weights and the state
+    (``run_chunk.runner``), and ``run_chunk.eager`` runs the same body
+    without one."""
+
+    def body(model, _, x_chunk, prev_raw):
+        params, state = model  # the graph's key: weights and state
+        preds = []
+        for t in range(x_chunk.shape[0]):
+            x_t = torch.cat([x_chunk[t, :5], prev_raw[None]])  # X[:, -1] = pred
+            frame = torch.movedim(pad_geo(normalizer.normalize_x(x_t), padded_shape), 0,
+                                  -1)[None].float()
+            out, _ = bundle.apply(params, state, frame, training=False)
+            prev_raw = normalizer.unnormalize_y(crop_to_grid(out[..., 0], grid_shape)[0])
+            preds.append(prev_raw)
+        return prev_raw, torch.stack(preds)
+
+    runner = GraphRunner(body, lambda model: None,
+                         warm=lambda xs: [xs[0][:1], *xs[1:]])  # one step
+
+    def run(params, state, prev_raw, x_chunk, graph: bool):
+        with torch.inference_mode():
+            dev = _device_of(params)
+            inputs = [torch.as_tensor(x_chunk, device=dev),
+                      torch.as_tensor(prev_raw, device=dev, dtype=torch.float32)]
+            if graph and dev.type == "cuda":
+                prev, preds = runner((params, state), inputs)
+            else:
+                prev, preds = body((params, state), None, *inputs)
+        return state, prev, preds
+
+    def run_chunk(params, state, prev_raw, x_chunk):
+        return run(params, state, prev_raw, x_chunk, graph=True)
+
+    run_chunk.runner = runner
+    run_chunk.eager = lambda params, state, prev_raw, x_chunk: run(
+        params, state, prev_raw, x_chunk, graph=False)
+    return run_chunk
+
+
 def predict_test_feedback(bundle, params, state, dataset, *, padded_shape,
-                          chunk_steps: int = 480):
-    """The closed loop of a 6-channel single-step (UNet) snapshot: its model
-    family is not ported yet (``models/registry.build_model`` raises)."""
-    raise NotImplementedError(
-        f"model family {getattr(bundle, 'family', 'UNet')} is not ported yet; "
-        "only LSTM is"
+                          chunk_steps: int = 480) -> Dict[str, np.ndarray]:
+    """The closed loop of a 6-channel single-step (UNet-6ch) snapshot over
+    a ``SingleStepDataset`` split in time order: channel 5 of every frame
+    after the first carries the model's own previous prediction, not the
+    dataset's ground truth.  The model state and the raw feedback frame
+    cross fixed-size chunks, so the split is one continuous episode.
+    Returns physical-unit GTs / PDs shaped (T, h, w); runs on the
+    parameters' device."""
+    frames, targets = dataset.feedback_stream()  # raw (T, 6, h, w) / (T, h, w)
+    if frames.shape[1] != 6:
+        raise ValueError("feedback evaluation needs in_channels=6")
+    device = _device_of(params)
+    run_chunk = make_feedback_chunk(bundle, dataset.normalizer, padded_shape=padded_shape,
+                                    grid_shape=tuple(targets.shape[-2:]))
+    # the ground-truth previous concentration seeds step 0 only
+    prev_raw = torch.as_tensor(np.asarray(frames[0, 5], np.float32), device=device)
+    preds = _run_chunked_episode(
+        lambda st, prev, x: run_chunk(params, st, prev, x),
+        [state, prev_raw], torch.as_tensor(frames, device=device),
+        min(chunk_steps, frames.shape[0]),
     )
+    return {"GTs": targets, "PDs": preds}
 
 
 def predict_test_hidden(

@@ -14,8 +14,12 @@ layout, so either package resumes the other's.
 
 Routes: LSTM open loop (configs #1/#2) through ``make_rollout_fn`` or a
 frozen ``--artifact`` (rollout/export.py); LSTM seq2seq (config #3) closed
-loop, the feedback channel carrying the model's own previous prediction.
-Single-step families (UNet, PIX2PIX) are not ported yet and raise, and
+loop, the feedback channel carrying the model's own previous prediction;
+the single-step families through their evaluation paths (UNet-6ch's closed
+loop, ``evalx.evaluate.predict_test_feedback``, each chunk a graph replay
+on the card; the others' one-frame samples), over the whole split and
+with no carry to persist, so ``--state-in``, ``--state-out``,
+``--artifact``, ``--skip`` and ``--steps`` are refused there.
 ``--sharded`` waits for the port of ``parallel/``.
 """
 
@@ -153,6 +157,17 @@ def main(argv=None):
         except ValueError as e:
             raise SystemExit(f"--artifact: {e}") from None
     snap = load_snapshot(args.run_dir, epoch=args.epoch, period=args.period, device=device)
+    recurrent = snap.bundle.is_sequence
+    if not recurrent:
+        # single-step families have no recurrent carry to persist
+        for flag, name in ((args.state_in, "--state-in"), (args.state_out, "--state-out"),
+                           (args.artifact, "--artifact")):
+            if flag:
+                raise SystemExit(f"{name} applies to LSTM-family snapshots; "
+                                 f"this is {snap.bundle.family}")
+        if args.skip or args.steps:
+            raise SystemExit("--skip/--steps drive the recurrent stream; single-step "
+                             "families serve their full split")
     out_path = args.out or os.path.join(args.run_dir, "predictions.nc")
     state_in = prev_in = None
     if args.state_in:
@@ -165,9 +180,11 @@ def main(argv=None):
                              "seq2seq (closed-loop) snapshot")
         preds, final_state, prev_norm = _serve_closed_loop(snap, args, state_in,
                                                            prev_in, device)
-    else:
+    elif recurrent:
         preds, final_state = _serve_open_loop(snap, args, state_in, artifact, device)
         prev_norm = None
+    else:
+        preds = _serve_single_step(snap, args)
     elapsed = time.perf_counter() - t_serve
 
     if args.state_out:
@@ -177,11 +194,13 @@ def main(argv=None):
         "steps": int(preds.shape[0]),
         "elapsed_s": round(elapsed, 3),
         "model_days_per_min": round(model_days_per_min(preds.shape[0], elapsed), 2),
-        "route": "closed_loop" if snap.closed_loop else "open_loop",
+        "route": ("closed_loop" if snap.closed_loop
+                  else "open_loop" if recurrent else "single_step"),
         "cold_start": args.state_in is None,
         # a cold recurrent carry spins up over the first window
         "suggested_spinup_steps": (
-            0 if (args.state_in or snap.closed_loop) else snap.cfg.sequence_length - 1
+            0 if (args.state_in or not recurrent or snap.closed_loop)
+            else snap.cfg.sequence_length - 1
         ),
         "out": out_path,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
@@ -246,6 +265,20 @@ def _serve_open_loop(snap, args, state_in, artifact, device):
         run_chunk, [state], _device_resident(frames, args.resident_gb, device), chunk,
     )
     return preds, state
+
+
+def _serve_single_step(snap, args) -> np.ndarray:
+    """The single-step families over the whole split: UNet-6ch's closed
+    loop in chunks of ``--chunk``, the others' one-frame samples."""
+    from nasa_niswan_tpu_torch.evalx.evaluate import predict_test_feedback, predict_test_set
+
+    if snap.feedback_single:
+        out = predict_test_feedback(snap.bundle, snap.params, snap.eval_state, snap.dataset,
+                                    padded_shape=snap.padded_shape, chunk_steps=args.chunk)
+    else:
+        out = predict_test_set(snap.bundle, snap.params, snap.eval_state, snap.dataset,
+                               padded_shape=snap.padded_shape, static=snap.static)
+    return out["PDs"]
 
 
 def _serve_closed_loop(snap, args, state_in, prev_in, device):

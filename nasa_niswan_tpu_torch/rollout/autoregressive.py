@@ -1,5 +1,6 @@
 """State-carrying autoregressive rollout, the serving mode (counterpart of
-nasa_niswan_tpu/rollout/autoregressive.py, ConvLSTM part).
+nasa_niswan_tpu/rollout/autoregressive.py), and the closed-loop rollout of
+a feedback model (``make_feedback_rollout_fn``, UNet-6ch).
 
 Forcings stream in raw, (B, T, C, H, W); every step normalizes and
 geo-pads its frame, advances the stacked cells, and taps head + crop +
@@ -24,6 +25,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from nasa_niswan_tpu_torch.bridge import tree_leaves
 from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
 from nasa_niswan_tpu_torch.data.dataset import DeviceConst, Normalizer, zscore_static
 from nasa_niswan_tpu_torch.models.convlstm import (
@@ -185,6 +187,43 @@ def make_rollout_fn(
     rollout.eager = lambda params, forcings, initial_state=None: run(
         params, forcings, initial_state, graph=False)
     rollout.body = body
+    return rollout
+
+
+def make_feedback_rollout_fn(
+    apply_fn: Callable,
+    normalizer: Normalizer,
+    *,
+    padded_shape: Tuple[int, int] = (256, 256),
+    grid_shape: Tuple[int, int] = (90, 144),
+) -> Callable:
+    """Closed-loop rollout of a feedback model (UNet-6ch): channel 5 of each
+    step's input is the model's own previous prediction, in raw units.
+
+    ``apply_fn(params, x_nhwc) -> (B, H, W, 1)``; ``rollout(params,
+    forcings) -> preds``: forcings raw (B, T, 6, H, W) whose channel 5 holds
+    the ground-truth previous concentration, read at t = 0 only; preds
+    (B, T, h, w) in physical units.  Runs eagerly under
+    ``torch.inference_mode`` on the parameters' device (the forcings' for a
+    tree without tensors)."""
+
+    def rollout(params, forcings):
+        leaves = tree_leaves(params)
+        dev = leaves[0].device if leaves else torch.as_tensor(forcings).device
+        with torch.inference_mode():
+            forcings = torch.as_tensor(forcings, device=dev)
+            preds, prev = [], None
+            for t in range(forcings.shape[1]):
+                x_t = forcings[:, t]
+                if prev is not None:
+                    x_t = x_t.clone()
+                    x_t[:, 5] = prev
+                x = _prep_frame(x_t, normalizer, None, padded_shape)
+                pred = crop_to_grid(apply_fn(params, x)[..., 0], grid_shape)
+                prev = normalizer.unnormalize_y(pred)
+                preds.append(prev)
+            return torch.stack(preds, dim=1)
+
     return rollout
 
 

@@ -42,15 +42,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from nasa_niswan_tpu_torch import ops
-
-def _leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _leaves(v)]
-    return []
+from nasa_niswan_tpu_torch.bridge import tree_leaves
 
 
 def params_key(params) -> Tuple[Tuple[int, int, int], ...]:
@@ -58,7 +50,7 @@ def params_key(params) -> Tuple[Tuple[int, int, int], ...]:
     tensor has no version counter and counts as version 0."""
     return tuple(
         (id(t), t.data_ptr(), 0 if t.is_inference() else t._version)
-        for t in _leaves(params)
+        for t in tree_leaves(params)
     )
 
 
@@ -101,7 +93,7 @@ class GraphRunner:
             self._stream = torch.cuda.Stream(device)
         stream = self._stream
         e = _Entry()
-        e.pkey, e.leaves = pkey, _leaves(params)
+        e.pkey, e.leaves = pkey, tree_leaves(params)
         e.weights = self.prepare(params)
         e.static_in = [x.clone() for x in inputs]
         stream.wait_stream(torch.cuda.current_stream(device))

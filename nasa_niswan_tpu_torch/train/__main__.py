@@ -9,10 +9,16 @@ E33OMA-90Days-style ``.nc`` (data/netcdf.load_90days_nc); ``--levels L`` > 1
 fuses the first L levels of u/v/omega into channels (config #2 at L = 20:
 C = 3 L + 2, data/fusion.fuse_levels).  Two modes:
 
-* ``--mode windowed`` (default): sliding-window training; resume through
-  ``--use-checkpoint --restore-from DIR`` or ``--auto-resume``;
-  ``--precompute-input-conv`` trains with the hoisted input conv (the
-  per-cell route), otherwise the whole-scan BPTT;
+* ``--mode windowed`` (default): sliding-window training of the ConvLSTM,
+  or one-frame samples (``SingleStepDataset``) for the single-step
+  families ``--model UNet-...`` (``--unet-features``; ``--in-channels 6``
+  adds the previous step's concentration as a feedback channel) and
+  ``--model PIX2PIX-...`` (``--pix2pix-features``; maps padded to a
+  multiple of 256, e.g. ``--input-size 256 256``); resume through
+  ``--use-checkpoint --restore-from DIR`` or ``--auto-resume`` (the UNet's
+  BatchNorm statistics included); ``--precompute-input-conv`` trains the
+  ConvLSTM with the hoisted input conv (the per-cell route), otherwise the
+  whole-scan BPTT;
 * ``--mode seq2seq`` (config #3): scheduled-sampling training through the
   feedback channel; ``--use-checkpoint --restore-from DIR`` fine-tunes a
   windowed snapshot (the canonical protocol: windowed train, seq2seq
@@ -28,7 +34,11 @@ import torch
 
 import os
 
-from nasa_niswan_tpu_torch.data.dataset import Seq2SeqDataset, SequenceDataset
+from nasa_niswan_tpu_torch.data.dataset import (
+    Seq2SeqDataset,
+    SequenceDataset,
+    SingleStepDataset,
+)
 from nasa_niswan_tpu_torch.data.fusion import fuse_levels
 from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
 from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, convlstm_init
@@ -70,8 +80,15 @@ def load_data(config: TrainConfig):
     return data
 
 
-def build_datasets(config: TrainConfig, data):
+def build_datasets(config: TrainConfig, bundle, data):
+    """The train and val datasets: windows for a sequence model, one-frame
+    samples for a single-step one."""
     def make(period):
+        if not bundle.is_sequence:
+            return SingleStepDataset(
+                data, period=period, species=config.species,
+                in_channels=config.in_channels, transform=config.transform,
+            )
         return SequenceDataset(
             data, period=period, species=config.species,
             sequence_length=config.sequence_length, in_channels=config.in_channels,
@@ -153,14 +170,19 @@ def main(config: TrainConfig):
         kernel_sizes=config.kernel_size,
         compute_dtype=config.compute_dtype,
         precompute_input_conv=config.precompute_input_conv,
+        unet_features=config.unet_features,
+        pix2pix_features=config.pix2pix_features,
     )
-    train_ds, val_ds = build_datasets(config, data)
+    train_ds, val_ds = build_datasets(config, bundle, data)
     # static channels apply to the surface configs only: every channel of
-    # the fused stack is dynamic
+    # the fused stack is dynamic, and a 6-channel single-step model's 6th
+    # channel is the feedback channel, which SingleStepDataset provides
     n_static = config.in_channels - 5 if config.levels == 1 else 0
+    if not bundle.is_sequence and config.in_channels == 6:
+        n_static = 0
     static = data["static"][:n_static] if n_static > 0 else None
 
-    init_params = init_opt_state = None
+    init_params = init_state = init_opt_state = None
     start_epoch = 1
     restore_dir = None
     if config.auto_resume:
@@ -168,9 +190,10 @@ def main(config: TrainConfig):
     elif config.use_checkpoint:
         restore_dir = config.restore_from
     if restore_dir:
-        template, _ = bundle.init(torch.Generator().manual_seed(config.seed), device)
-        init_params, init_opt_state, meta = load_checkpoint(
-            restore_dir, template, lr=config.learning_rate
+        template, tmpl_state = bundle.init(
+            torch.Generator().manual_seed(config.seed), device)
+        init_params, init_opt_state, init_state, meta = load_checkpoint(
+            restore_dir, template, lr=config.learning_rate, state_template=tmpl_state
         )
         if config.auto_resume and meta.get("epoch"):
             start_epoch = int(meta["epoch"]) + 1
@@ -179,8 +202,8 @@ def main(config: TrainConfig):
 
     return fit(
         bundle, train_ds, val_ds, config, device=device, static=static,
-        init_params=init_params, init_opt_state=init_opt_state,
-        start_epoch=start_epoch,
+        init_params=init_params, init_state=init_state,
+        init_opt_state=init_opt_state, start_epoch=start_epoch,
     )
 
 

@@ -6,8 +6,9 @@ The reference serializes its argparse namespace to
 reference's keys are kept verbatim.  A file written by either package loads
 in the other: unknown keys are ignored on read, missing ones take their
 defaults.  ``precompute_input_conv`` (the hoisted input conv, which trains
-through the per-cell route) and ``schedule_k`` (the seq2seq teacher-forcing
-decay) mean what they mean there.  The JAX package's other TPU settings
+through the per-cell route), ``schedule_k`` (the seq2seq teacher-forcing
+decay), ``unet_features`` and ``pix2pix_features`` (the single-step
+families' widths) mean what they mean there.  The JAX package's other TPU settings
 (``cell_impl``, ``dp_devices``, ``checkpoint_backend``) have no counterpart;
 ``device`` is the port's own.
 """
@@ -20,7 +21,7 @@ import os
 from typing import Optional, Tuple
 
 _TUPLES = ("hidden_channels", "kernel_size", "input_size", "scheduler_config",
-           "betas", "synthetic_grid")
+           "betas", "synthetic_grid", "unet_features")
 
 
 @dataclasses.dataclass
@@ -57,6 +58,8 @@ class TrainConfig:
     auto_resume: bool = False  # restart from the newest epoch-NNN checkpoint
     mode: str = "windowed"  # "windowed" | "seq2seq" (scheduled sampling, config #3)
     schedule_k: float = 10.0  # seq2seq teacher-forcing decay constant
+    unet_features: Tuple[int, ...] = (64, 128, 256, 512)  # UNet encoder widths
+    pix2pix_features: int = 64  # pix2pix Generator base width
     # --- the port's own ---
     device: str = "cuda"  # torch device the run trains on
 
@@ -150,6 +153,10 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--mode", type=str, default=d["mode"].default,
                    choices=("windowed", "seq2seq"))
     p.add_argument("--schedule-k", type=float, default=d["schedule_k"].default)
+    p.add_argument("--unet-features", nargs="+", type=int,
+                   default=d["unet_features"].default)
+    p.add_argument("--pix2pix-features", type=int,
+                   default=d["pix2pix_features"].default)
     p.add_argument("--device", type=str, default=d["device"].default)
     ns = p.parse_args(argv)
     kwargs = {k.replace("-", "_"): v for k, v in vars(ns).items()}

@@ -2,10 +2,15 @@
 nasa_niswan_tpu/train/loop.py, single device).
 
 * One train step holds the whole per-batch pipeline on the device:
-  normalization, static channels and geophysical padding, the forward (the
-  whole-scan BPTT route of models/convlstm.py, kernels B1/B2/B3 on the
-  card), crop to the grid, MSE + L1 loss, the Adam update and the batch
-  R^2.  Parameters are updated in place by ``torch.optim.Adam``.
+  normalization, static channels and geophysical padding, the forward (for
+  the ConvLSTM the whole-scan BPTT route of models/convlstm.py, kernels
+  B1/B2/B3 on the card; the UNet and pix2pix in cuDNN convs), crop to the
+  grid, MSE + L1 loss, the Adam update and the batch R^2.  Parameters are
+  updated in place by ``torch.optim.Adam``; the model state (the UNet's
+  BatchNorm statistics) is threaded from step to step, and validation
+  normalizes by it.  Every step draws its dropout (PIX2PIX) from one
+  ``torch.Generator`` seeded by ``config.seed``, as JAX splits a key per
+  step.
 * StepLR is applied by setting the optimizer's lr once per epoch.
 * Epoch metrics accumulate as device scalars; one host sync per epoch.
 * Batches come from ``DeviceWindowSource`` when the split's frame slabs
@@ -13,7 +18,8 @@ nasa_niswan_tpu/train/loop.py, single device).
   windows are gathered on the device by start index.  Otherwise (or for a
   dataset without a slab, such as the lazy netCDF ones) they are streamed
   by ``data/pipeline.async_batches``: stacked in pinned memory by a
-  producer thread and copied on a side stream while the step runs.
+  producer thread and copied on a side stream while the step runs.  The
+  single-step families' (B, C, h, w) batches always stream.
 * Checkpoints every ``checkpoint_every`` epochs in the ``epoch-NNN`` layout
   (train/checkpoint.py), and ``logger.npy`` with the reference's three
   arrays at the end.
@@ -56,18 +62,19 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
     return optimizer
 
 
-def _forward_cropped(bundle: ModelBundle, params, state, x, grid_shape, *, training):
-    pred, new_state = bundle.apply(params, state, x, training=training)
+def _forward_cropped(bundle: ModelBundle, params, state, x, grid_shape, *, training,
+                     rng=None):
+    pred, new_state = bundle.apply(params, state, x, training=training, rng=rng)
     return crop_to_grid(pred[..., 0], grid_shape), new_state
 
 
 def make_loss_fn(bundle: ModelBundle, grid_shape: Tuple[int, int]) -> Callable:
     """The training loss, MSE + L1 on the cropped grid, as
-    ``loss_fn(params, state, x, y) -> (loss, (pred, new_state))``."""
+    ``loss_fn(params, state, x, y, rng) -> (loss, (pred, new_state))``."""
 
-    def loss_fn(params, state, x, y):
+    def loss_fn(params, state, x, y, rng=None):
         pred, new_state = _forward_cropped(
-            bundle, params, state, x, grid_shape, training=True
+            bundle, params, state, x, grid_shape, training=True, rng=rng
         )
         loss = torch.mean((y - pred) ** 2) + torch.mean(torch.abs(y - pred))
         return loss, (pred, new_state)
@@ -84,16 +91,18 @@ def build_train_step_fn(
     grid_shape: Tuple[int, int] = (90, 144),
     static: Optional[np.ndarray] = None,
 ) -> Callable:
-    """``step(params, state, x_raw, y_raw) -> (new_state, metrics)`` on
-    device tensors: preprocess, loss, backward, one Adam update of
-    ``params`` in place; metrics are device scalars ``loss`` and ``r2``."""
+    """``step(params, state, x_raw, y_raw, rng=None) -> (new_state,
+    metrics)`` on device tensors: preprocess, loss, backward, one Adam
+    update of ``params`` in place; ``rng`` (a ``torch.Generator`` on the
+    device) drives the model's dropout; metrics are device scalars
+    ``loss`` and ``r2``."""
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
     loss_fn = make_loss_fn(bundle, grid_shape)
 
-    def train_step(params, state, x_raw, y_raw):
+    def train_step(params, state, x_raw, y_raw, rng=None):
         x, y = preprocess(x_raw, y_raw)
         optimizer.zero_grad(set_to_none=True)
-        loss, (pred, new_state) = loss_fn(params, state, x, y)
+        loss, (pred, new_state) = loss_fn(params, state, x, y, rng)
         loss.backward()
         optimizer.step()
         with torch.no_grad():
@@ -123,10 +132,10 @@ def make_train_step(
         grid_shape=grid_shape, static=static,
     )
 
-    def step(params, state, x_raw, y_raw):
+    def step(params, state, x_raw, y_raw, rng=None):
         dev = _device_of(params)
         return inner(params, state, torch.as_tensor(x_raw, device=dev),
-                     torch.as_tensor(y_raw, device=dev))
+                     torch.as_tensor(y_raw, device=dev), rng)
 
     return step
 
@@ -223,15 +232,15 @@ def make_device_train_step(
     grid_shape: Tuple[int, int] = (90, 144),
     static: Optional[np.ndarray] = None,
 ) -> Callable:
-    """``step(params, state, starts) -> (new_state, metrics)`` with the batch
-    gathered from the device-resident slab."""
+    """``step(params, state, starts, rng=None) -> (new_state, metrics)`` with
+    the batch gathered from the device-resident slab."""
     inner = build_train_step_fn(
         bundle, normalizer, optimizer, padded_shape=padded_shape,
         grid_shape=grid_shape, static=static,
     )
 
-    def step(params, state, starts):
-        return inner(params, state, *source.gather(starts))
+    def step(params, state, starts, rng=None):
+        return inner(params, state, *source.gather(starts), rng)
 
     return step
 
@@ -323,6 +332,7 @@ def fit(
     else:
         params, state = init_params, init_state
     optimizer = make_optimizer(params, config.learning_rate, tuple(config.betas))
+    rng = torch.Generator(device=device).manual_seed(config.seed)
     if init_opt_state is not None:
         load_optimizer_state(optimizer, params, init_opt_state)
 
@@ -358,7 +368,7 @@ def fit(
             batches = async_batches(train_dataset, bs, shuffle=True, seed=config.seed,
                                     epoch=epoch, device=device)
         for batch in batches:
-            state, metrics = train_step(params, state, *batch)
+            state, metrics = train_step(params, state, *batch, rng=rng)
             losses.append(metrics["loss"])
             r2s.append(metrics["r2"])
 
@@ -391,6 +401,7 @@ def fit(
             save_checkpoint(
                 os.path.join(config.snapshot_dir, f"epoch-{epoch:03d}"),
                 params, optimizer, learning_rate=lr_now, epoch=epoch,
+                model_state=state,
             )
             if verbose:
                 print("Learning Rate:", [lr_now])

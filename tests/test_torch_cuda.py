@@ -2,8 +2,10 @@
 card: the fused ConvLSTM cell forward (B1) in its plain, emit_gates and xg
 modes, the fused cell backward (B2) and its dW kernels on their own, the
 SAME data-gradient conv (B3), and the two training routes built on them
-(the whole-scan BPTT and the per-cell Functions); and the serving loops
-replayed as CUDA graphs against their eager bodies.
+(the whole-scan BPTT and the per-cell Functions); the serving loops
+replayed as CUDA graphs against their eager bodies; and the UNet's forward
+on the card against the CPU, and its 6-channel closed loop as graph
+replays against its eager body.
 
 Needs an NVIDIA GPU and nvcc; every test here skips without a CUDA device.
 On a machine with a card, from the repository root:
@@ -888,3 +890,62 @@ def test_exported_artifact_on_the_card_equals_the_live_rollout(device, tmp_path)
     assert fn.runner.captures == 1 and fn.device.type == "cuda"
     with pytest.raises(ValueError, match="exported for cuda"):
         load_rollout_info(path, device="cpu")
+
+
+def _unet(device, in_channels, features=(8, 16, 32, 64)):
+    from nasa_niswan_tpu_torch import bridge
+    from nasa_niswan_tpu_torch.models.registry import build_model
+
+    bundle = build_model("UNet-c", in_channels=in_channels, unet_features=features)
+    params, state = bundle.init(torch.Generator().manual_seed(0), "cpu")
+    # running statistics set to a random batch's, so that eval normalizes
+    # as training does (fresh ones leave only the head's bias in the output)
+    x = torch.randn((2, 64, 64, in_channels), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        _, new = bundle.apply(params, state, x, training=True)
+    state = bridge.tree_unflatten(state, [
+        (n - 0.9 * o) / 0.1 for n, o in zip(bridge.tree_leaves(new), bridge.tree_leaves(state))])
+    to = lambda tree: bridge.tree_map(lambda t: t.detach().to(device), tree)  # noqa: E731
+    return bundle, params, state, to(params), to(state)
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_unet_forward_on_the_card_equals_the_cpu(device, training):
+    """cuDNN's f32 convs (TF32 off) against the CPU's on the same weights:
+    the output and the new running statistics within 1e-4 of their largest
+    magnitude."""
+    from nasa_niswan_tpu_torch import bridge
+
+    bundle, params, state, p_dev, s_dev = _unet(device, 5)
+    x = torch.tensor(np.random.default_rng(4).standard_normal((4, 64, 64, 5)),
+                     dtype=torch.float32)
+    with torch.no_grad():
+        want, want_s = bundle.apply(params, state, x, training=training)
+        got, got_s = bundle.apply(p_dev, s_dev, x.to(device), training=training)
+    for g, w in zip(bridge.tree_leaves((got, got_s)), bridge.tree_leaves((want, want_s))):
+        assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+def test_graph_unet6_feedback_chunk_equals_eager(device):
+    """The UNet-6ch closed loop: each chunk one graph replay, bit-equal to
+    the eager body, the feedback frame chained across two chunks; the
+    chunk captures once, and recaptures after the weights change in place."""
+    from nasa_niswan_tpu_torch.evalx.evaluate import make_feedback_chunk
+
+    bundle, _, _, params, state = _unet(device, 6)
+    rng = np.random.default_rng(5)
+    norm = Normalizer(rng.uniform(-0.2, 0.2, 6).astype(np.float32),
+                      rng.uniform(0.8, 1.2, 6).astype(np.float32), 0.1, 1.5)
+    frames = torch.tensor(rng.standard_normal((10, 6, 48, 60)), dtype=torch.float32,
+                          device=device)
+    run = make_feedback_chunk(bundle, norm, padded_shape=(64, 64), grid_shape=(48, 60))
+    prev_g = prev_e = frames[0, 5]
+    for s in (0, 5):
+        _, prev_g, p_g = run(params, state, prev_g, frames[s : s + 5])
+        _, prev_e, p_e = run.eager(params, state, prev_e, frames[s : s + 5])
+        assert torch.equal(p_g, p_e) and torch.equal(prev_g, prev_e)
+    assert run.runner.captures == 1
+    params["head"]["b"].add_(0.5)
+    _, _, p_g = run(params, state, prev_g, frames[:5])
+    _, _, p_e = run.eager(params, state, prev_g, frames[:5])
+    assert torch.equal(p_g, p_e) and run.runner.captures == 2

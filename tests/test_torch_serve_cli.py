@@ -2,15 +2,15 @@
 against the JAX package's on the snapshots the JAX trainer writes: the
 open- and closed-loop routes give the same ``.nc`` predictions, a carry
 persisted by either package resumes in the other, a split run equals one
-run, an exported artifact serves what the live rollout serves, and what
-the port does not serve yet raises.  Both CLIs run in-process; the port on
+run, an exported artifact serves what the live rollout serves, the
+single-step snapshots serve on their own route, and what the port does
+not serve yet raises.  Both CLIs run in-process; the port on
 the CPU (``--device cpu``).
 
 Tolerances: the two packages' predictions at atol 2e-5, that of
 tests/test_torch_rollout.py for the same computation (XLA's f32 convs
 against the port's plain cell); one package against itself, bit-equal."""
 
-import json
 import os
 import shutil
 
@@ -21,9 +21,15 @@ torch = pytest.importorskip("torch")
 
 from nasa_niswan_tpu.rollout.__main__ import main as j_serve  # noqa: E402
 from nasa_niswan_tpu_torch.data.ncio import open_nc  # noqa: E402
+from nasa_niswan_tpu_torch.evalx.evaluate import (  # noqa: E402
+    predict_test_feedback,
+    predict_test_set,
+)
 from nasa_niswan_tpu_torch.evalx.snapshot import load_snapshot  # noqa: E402
 from nasa_niswan_tpu_torch.rollout.__main__ import main as t_serve  # noqa: E402
 from nasa_niswan_tpu_torch.rollout.export import export_rollout  # noqa: E402
+
+from test_torch_feedback import single_step_snapshot  # noqa: E402
 
 ATOL = 2e-5
 
@@ -170,19 +176,25 @@ def test_serving_cli_refusals(canonical_snap, tmp_path, argv):
 
 
 @pytest.mark.parametrize("model", ["UNet-clisnap", "PIX2PIX-clisnap"])
-def test_single_step_snapshot_raises(canonical_snap, tmp_path, model):
-    """The single-step families are not ported yet: a snapshot of one (the
-    canonical snapshot's configurations.json naming that family) raises
-    the registry's error."""
-    snap = _snap(canonical_snap, tmp_path, "u")
-    path = os.path.join(snap, "configurations.json")
-    with open(path) as f:
-        cfg = json.load(f)
-    cfg["model"] = model
-    with open(path, "w") as f:
-        json.dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _port("--run-dir", snap, "--out", str(tmp_path / "o.nc"))
+def test_single_step_snapshot_raises(tmp_path, model):
+    """A single-step snapshot (UNet-6ch: its closed loop; PIX2PIX: its
+    one-frame samples) serves its whole test split on the ``single_step``
+    route, the predictions those of the evaluation path; the flags of the
+    recurrent stream raise with the JAX CLI's messages."""
+    snap = single_step_snapshot(str(tmp_path / "s"), model)
+    out = str(tmp_path / "o.nc")
+    summary = _port("--run-dir", snap, "--out", out, "--chunk", "5")
+    loaded = load_snapshot(snap, device="cpu")
+    predict = predict_test_feedback if loaded.feedback_single else predict_test_set
+    want = predict(loaded.bundle, loaded.params, loaded.eval_state, loaded.dataset,
+                   padded_shape=loaded.padded_shape)["PDs"]
+    assert summary["route"] == "single_step" and summary["suggested_spinup_steps"] == 0
+    assert summary["steps"] == len(loaded.dataset)
+    np.testing.assert_array_equal(_read(out)[0], want)
+    for argv, msg in ((["--state-out", str(tmp_path / "c.npz")], "LSTM-family"),
+                      (["--skip", "1"], "full split"), (["--steps", "2"], "full split")):
+        with pytest.raises(SystemExit, match=msg):
+            _port("--run-dir", snap, "--out", out, *argv)
 
 
 def test_closed_loop_state_in_needs_the_feedback_frame(canonical_snap, seq2seq_snap,

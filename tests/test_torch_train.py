@@ -270,8 +270,7 @@ def test_cli_device_is_explicit(monkeypatch):
                                       synthetic_grid=(16, 24), device="cpu"))
     assert xs.shape == (20, 8, 16, 24) and y.shape == (20, 16, 24)
     assert TrainConfig(mode="seq2seq", levels=20, device="cpu").in_channels == 63
-    with pytest.raises(NotImplementedError):
-        build_model("UNet-x", in_channels=5)
+    assert build_model("UNet-x", in_channels=5).is_sequence is False
     assert model_family("LSTM-64K5.32K3.16K3-E33OMA-8C-BCB-x") == "LSTM"
 
 
