@@ -143,7 +143,34 @@ Phases, each printing its own lines:
       on full-width UNet-6ch and PIX2PIX snapshots of seeded weights over a
       240-step stream (test split 48 steps: depth cut), the serving CLI on
       route ``single_step`` equal to the evaluation's predictions.  No
-      kernel of the port runs in (r): its launch counts are read as zero.
+      kernel of the port runs in (r): its launch counts are read as zero;
+  (s) parallel/ on a one-rank NCCL group made in this process (destroyed
+      at the end): at (d)'s full width the spatially sharded rollout over
+      two chained 48-step chunks (halo exchange, B1 on each halo-extended
+      tile, eager) against (d)'s graph-replayed requests, and the sharded
+      closed loop (48 steps) against ``make_closed_loop_chunk``, each with
+      exact B1 counts, predictions and carries held to max |d| <= TOL_CHUNK
+      of the std (the same launches on the same data: bit-equal expected);
+      the data-parallel step on the remat route (``make_device_train_step``
+      with the mesh; bs 8, T 48, 3 steps, exact B1/B2/B3 counts) bit-equal
+      to the step without it in parameters and loss (an all-reduce over
+      one rank is the identity); B1 at the three serving layers on
+      (lat, lon) = (1, 1) (the zero-extended 104 x 158 / 102 x 156 frame
+      the one-rank path runs), (2, 2) and (2, 7) tiles with halos cut from
+      the frame: every tile against the plain cell on its inputs
+      (TOL_CELL), and the tiles stitched against B1 on the whole frame
+      (bit-equal expected, |d| <= TOL_CELL held), every tile shape on the
+      wgmma mainloop; the sharded rollout's ms/step
+      (eager; host clock and profiler device time) beside the
+      single-device graph's, and the sum over the tiles of B1's device time
+      beside the whole frame's (launches replayed in a CUDA graph, CUDA
+      events; eager times beside them); the serving CLI with
+      ``--sharded 1 1`` (one rank spawned, NCCL) against the unsharded CLI
+      on full-width config #2 and #3 snapshots (max |d| <= TOL_CHUNK of
+      the std).  With two cards
+      or more a two-rank phase (launch.spawn, NCCL): the (1, 1, 2) sharded
+      rollout against the single-device rollout and the dp = 2 step against
+      the one-rank step; with one card it says that phase was not run.
 
 Then one JSON line describing each kernel (launches summed over the counted
 main-path runs, a launch with two modes on counted once; the largest error
@@ -2423,6 +2450,333 @@ def phase_cli(device, mode: str = "windowed", tag: str = "", **overrides) -> Non
         shutil.rmtree(root, ignore_errors=True)
 
 
+# (s) B1 on (lat, lon) tiles of the 100 x 154 frame at the serving layers;
+# (1, 1) is the zero-extended whole frame the one-rank sharded path runs
+TILE_MESHES = ((1, 1), (2, 2), (2, 7))
+SHARD_CHUNKS = 2  # chained 48-step chunks of the sharded rollout
+DP_STEPS = 3
+
+
+def graph_ms(fn, n: int = 48, reps: int = 5) -> float:
+    """Device time of one ``fn()`` launched ``n`` times back to back in a
+    CUDA graph, replayed ``reps`` times (CUDA events): a launch's time
+    without the host's dispatch, as it runs in a serving graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
+def _tiled_b1(device, gen, shape, tiles) -> dict:
+    """B1 on every halo-extended tile of a (lat, lon) cut of one frame (the
+    halos sliced from the zero-padded frame): each tile against the plain
+    cell on the same inputs (TOL_CELL), and the stitched tiles against B1 on
+    the whole frame; returns the max |d| of both, bit-equality and the
+    times."""
+    B, H, W, cin, hid, k = shape
+    lat, lon = tiles
+    p, th, tw = k // 2, H // lat, W // lon
+    ext = (B, th + 2 * p, tw + 2 * p, cin, hid, k)
+    plan = check_wgmma(ext, "[s]")
+    xh = torch.randn((B, H, W, cin), generator=gen, device=device).to(torch.bfloat16)
+    c = torch.randn((B, H, W, hid), generator=gen, device=device)
+    w = (torch.randn((k, k, cin, 4 * hid), generator=gen, device=device)
+         / (k * k * cin) ** 0.5).to(torch.bfloat16)
+    b = 0.1 * torch.randn((4 * hid,), generator=gen, device=device)
+    h_full, c_full = fused_cell_forward(xh, c, w, b)
+    xp, cp = (torch.nn.functional.pad(t, (0, 0, p, p, p, p)) for t in (xh, c))
+    cut = [(i, j, xp[:, i * th:i * th + th + 2 * p, j * tw:j * tw + tw + 2 * p].contiguous(),
+            cp[:, i * th:i * th + th + 2 * p, j * tw:j * tw + tw + 2 * p].contiguous())
+           for i in range(lat) for j in range(lon)]
+    h_st, c_st = torch.empty_like(h_full), torch.empty_like(c_full)
+    d_plain = 0.0
+    for i, j, xt, ct in cut:
+        ht, ct2 = fused_cell_forward(xt, ct, w, b)
+        hp, cp2 = fused_cell_forward_plain(xt, ct, w, b)
+        d_plain = max(d_plain, (ht - hp).abs().max().item(), (ct2 - cp2).abs().max().item())
+        h_st[:, i * th:(i + 1) * th, j * tw:(j + 1) * tw] = ht[:, p:p + th, p:p + tw]
+        c_st[:, i * th:(i + 1) * th, j * tw:(j + 1) * tw] = ct2[:, p:p + th, p:p + tw]
+    torch.cuda.synchronize()
+    d = max((h_st - h_full).abs().max().item(), (c_st - c_full).abs().max().item())
+    bit = torch.equal(h_st, h_full) and torch.equal(c_st, c_full)
+    check(d_plain <= TOL_CELL, f"[s] B1 vs plain on {tiles} tiles of {ext[1]} x {ext[2]} "
+          f"{d_plain:.3e}")
+    check(d <= TOL_CELL, f"[s] B1 on {tiles} tiles vs the whole frame {d:.3e}")
+    _, _, xt, ct = cut[0]  # every tile has the one extended shape
+    n = lat * lon
+    tile_ms = cuda_ms(lambda: fused_cell_forward(xt, ct, w, b))
+    plain_ms = cuda_ms(lambda: fused_cell_forward_plain(xt, ct, w, b))
+    full_ms = cuda_ms(lambda: fused_cell_forward(xh, c, w, b))
+    tile_rep = graph_ms(lambda: fused_cell_forward(xt, ct, w, b))
+    full_rep = graph_ms(lambda: fused_cell_forward(xh, c, w, b))
+    row = _row(ext, tile_ms, plain_ms, cell_work(*ext), plan=plan, replay_ms=tile_rep,
+               max_abs_err=d_plain,
+               launches_per_step=f"{n} per serving step on {lat} x {lon} tiles")
+    print(f"[s] B1 {shape} on {lat} x {lon} tiles of {ext[1]} x {ext[2]}: every tile vs "
+          f"the plain cell max |d| {d_plain:.3e} (tol {TOL_CELL:g}); stitched vs "
+          f"whole frame max |d| {d:.3e} ({'bit-equal' if bit else 'not bit-equal'}); "
+          f"{n} tiles {n * tile_rep:.4f} ms vs whole frame {full_rep:.4f} ms of device time "
+          f"in a graph (x{n * tile_rep / full_rep:.3f}; pixels x"
+          f"{n * ext[1] * ext[2] / (H * W):.3f}), eager {n * tile_ms:.4f} vs {full_ms:.4f} "
+          f"ms, one tile {tile_rep:.4f} ms against its bound {row['bound_ms']:.4f}, "
+          f"{plan} mainloop")
+    return {"d": d, "d_plain": d_plain, "bit": bit, "row": row}
+
+
+def _timed_steps(step, params, batches):
+    """The metrics of one step per batch, and the mean host-clock ms of the
+    steps after the first."""
+    metrics, times = [], []
+    for idx in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(step(params, None, idx)[1])
+        torch.cuda.synchronize()
+        times.append(1000 * (time.perf_counter() - t0))
+    return metrics, float(np.mean(times[1:]))
+
+
+def _rel_std(got, want):
+    """(max |d|, rms |d|) over the std of ``want``, and bit-equality."""
+    d = (got - want).float()
+    scale = want.float().std().item()
+    return (d.abs().max().item() / scale, d.pow(2).mean().sqrt().item() / scale,
+            torch.equal(got, want))
+
+
+def phase_sharded(device, serve, train, stats, smi) -> None:
+    """(s) the sharded serving and data-parallel paths on a one-rank NCCL
+    group, and B1 on halo-extended tiles."""
+    from nasa_niswan_tpu_torch.parallel import spatial
+    from nasa_niswan_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    store = tempfile.mkdtemp(prefix="smoke-nccl-")
+    init_distributed("file://" + os.path.join(store, "store"), 1, 0, device_type="cuda")
+    try:
+        mesh = make_mesh()
+        cfg, params, norm, forcings = (serve[k] for k in ("cfg", "params", "norm", "forcings"))
+        geo = dict(padded_shape=PADDED, grid_shape=GRID)
+        roll = spatial.make_sharded_rollout_fn(cfg, norm, mesh, **geo)
+        roll(params, forcings[0][:, :1])  # warm-up: one step
+        torch.cuda.synchronize()
+        _set_counts(0)
+        t0 = time.perf_counter()
+        state, preds = None, []
+        for f in forcings[:SHARD_CHUNKS]:
+            p, state = roll(params, f, state)
+            preds.append(p)
+        torch.cuda.synchronize()
+        t_sh = time.perf_counter() - t0
+        _expect_counts("[s] sharded rollout",
+                       convlstm_cell=len(HIDDEN) * SHARD_CHUNKS * STEPS)
+        t0 = time.perf_counter()
+        ref_state, ref = None, []
+        for f in forcings[:SHARD_CHUNKS]:
+            p, ref_state = serve["rollout"](params, f, ref_state)
+            ref.append(p)
+        torch.cuda.synchronize()
+        t_graph = time.perf_counter() - t0
+        for n, (p, q) in enumerate(zip(preds, ref)):
+            check(p.shape == q.shape and bool(torch.isfinite(p).all()),
+                  f"[s] sharded chunk {n}: shape {tuple(p.shape)}, finite")
+            mx, rms, bit = _rel_std(p, q)
+            print(f"[s] sharded rollout (1, 1, 1), chunk {n + 1} of {SHARD_CHUNKS} vs the "
+                  f"graph: max|d|/std {mx:.3e} rms/std {rms:.3e} "
+                  f"({'bit-equal' if bit else 'not bit-equal'})")
+            check(mx <= TOL_CHUNK, f"[s] sharded rollout max|d|/std {mx:.3e}")
+        carry = spatial.gather_state(state, mesh)
+        dc = max((a - b).abs().max().item()
+                 for hc, rc in zip(carry, ref_state) for a, b in zip(hc, rc))
+        print(f"[s] carry after {SHARD_CHUNKS} chunks vs the graph's: max|d| {dc:.3e} "
+              f"(tol {TOL_CHUNK:g})")
+        check(dc <= TOL_CHUNK, f"[s] sharded carry max|d| {dc:.3e}")
+        n_steps = SHARD_CHUNKS * STEPS
+        dev_sh, _ = _profile(lambda: roll(params, forcings[0], state))
+        dev_graph, _ = _profile(lambda: serve["rollout"](params, forcings[0], ref_state))
+        print(f"[s] sharded rollout (eager, 1 rank) {1000 * t_sh / n_steps:.4f} ms/step vs "
+              f"single-device graph {1000 * t_graph / n_steps:.4f} ms/step over {n_steps} "
+              f"steps on the host clock; device time (profiler kernel sum, one chunk) "
+              f"{dev_sh / STEPS:.4f} vs {dev_graph / STEPS:.4f} ms/step (C={C}, B=1, bf16) "
+              f"on {smi}")
+
+        fb_norm = Normalizer(norm.x_mean[:-1], norm.x_std[:-1], norm.y_mean, norm.y_std)
+        x_chunk = forcings[0][0, :, : C - 1]
+        prev = torch.randn((1, *GRID), generator=torch.Generator(device=device)
+                           .manual_seed(SEED), device=device)
+        ref_chunk = make_closed_loop_chunk(cfg, fb_norm, **geo)
+        st_ref, prev_ref, fb_ref = ref_chunk(params, zero_closed_loop_state(cfg, PADDED, device),
+                                             prev, x_chunk)
+        chunk = spatial.make_sharded_feedback_rollout(cfg, fb_norm, mesh, **geo)
+        torch.cuda.synchronize()
+        _set_counts(0)
+        st_sh, prev_sh, fb_sh = chunk(params, None, prev, x_chunk)
+        torch.cuda.synchronize()
+        _expect_counts("[s] sharded closed loop", convlstm_cell=len(HIDDEN) * STEPS)
+        mx, rms, bit = _rel_std(fb_sh, fb_ref)
+        print(f"[s] sharded closed loop, {STEPS} steps vs make_closed_loop_chunk (graph): "
+              f"max|d|/std {mx:.3e} rms/std {rms:.3e} "
+              f"({'bit-equal' if bit else 'not bit-equal'})")
+        dprev = (prev_sh - prev_ref).abs().max().item()
+        dst = max((a - b).abs().max().item()
+                  for hc, rc in zip(spatial.gather_state(st_sh, mesh), st_ref)
+                  for a, b in zip(hc, rc))
+        print(f"[s] sharded closed loop: last prediction max|d| {dprev:.3e}, carry max|d| "
+              f"{dst:.3e} (tol {TOL_CHUNK:g})")
+        check(bool(torch.isfinite(fb_sh).all()) and prev_sh.shape == prev_ref.shape
+              and max(mx, dprev, dst) <= TOL_CHUNK,
+              f"[s] sharded closed loop max|d|/std {mx:.3e}, prev {dprev:.3e}, "
+              f"carry {dst:.3e}")
+
+        bundle = build_model("LSTM-smoke", **train["kw"])
+        pa, pb = _copy_params(train["init"]), _copy_params(train["init"])
+        step_a = train["make_step"](bundle, pa)
+        step_b = make_device_train_step(bundle, train["ds"].normalizer,
+                                        make_optimizer(pb, 1e-3, (0.5, 0.999)), train["src"],
+                                        mesh=mesh, **train["geo"])
+        order = train["order"]
+        batches = [order[s * TRAIN_BS:(s + 1) * TRAIN_BS] for s in range(DP_STEPS)]
+        torch.cuda.synchronize()
+        _set_counts(0)
+        mb, t_dp = _timed_steps(step_b, pb, batches)
+        want = len(HIDDEN) * TRAIN_T * DP_STEPS
+        _expect_counts("[s] data-parallel step (1 rank)", convlstm_cell=want, cell_bwd=want,
+                       conv_same=want)
+        ma, t_one = _timed_steps(step_a, pa, batches)
+        same = all(torch.equal(a, b) for a, b in zip(param_leaves(pa), param_leaves(pb)))
+        loss_eq = all(torch.equal(a["loss"], b["loss"]) for a, b in zip(ma, mb))
+        dr2 = max(abs(a["r2"].item() - b["r2"].item()) for a, b in zip(ma, mb))
+        print(f"[s] data-parallel step, 1 rank, remat route (bs {TRAIN_BS}, T {TRAIN_T}), "
+              f"{DP_STEPS} steps vs make_device_train_step: parameters "
+              f"{'bit-equal' if same else 'differ'}, losses "
+              f"{'bit-equal' if loss_eq else 'differ'}, |d R2| {dr2:.3e} (R2 from summed "
+              f"statistics); steps after the first {t_dp:.1f} vs {t_one:.1f} ms/step "
+              f"(host clock; the first builds the optimizer state and, for the DP "
+              f"step, NCCL's communicator) on {smi}")
+        check(same and loss_eq and dr2 <= 1e-5, "[s] one-rank DP step != the device step")
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    _sharded_clis()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for tiles in TILE_MESHES:
+        for shape in CELL_SHAPES[:3]:
+            res = _tiled_b1(device, gen, shape, tiles)
+            stats["convlstm_cell"]["by_shape"].append(res["row"])
+            stats["convlstm_cell"]["max_abs_err"] = max(stats["convlstm_cell"]["max_abs_err"],
+                                                        res["d_plain"])
+
+    if torch.cuda.device_count() < 2:
+        print("[s] the cross-card phase needs >= 2 cards; "
+              f"{torch.cuda.device_count()} visible: not run")
+        return
+    from nasa_niswan_tpu_torch.parallel import launch
+
+    out = launch.spawn(two_rank_phase, 2, "cuda", "cuda", dict(
+        C=C, hidden=HIDDEN, kernels=KERNELS, grid=GRID, padded=PADDED, steps=STEPS,
+        bs=TRAIN_BS, T=TRAIN_T), timeout=600)
+    print(f"[s] two ranks on two cards: {out[0]}")
+    check(out[0]["rollout_max"] <= TOL_CHUNK and out[0]["dp_loss_rel"] <= 1e-5,
+          f"[s] two-rank phase {out[0]}")
+
+
+def _sharded_clis() -> None:
+    """(s) the serving CLI with ``--sharded 1 1`` (one rank spawned on the
+    card by launch.spawn, NCCL) against the unsharded CLI, on full-width
+    config #2 and config #3 (closed loop) snapshots."""
+    root = tempfile.mkdtemp(prefix="niswan_sharded_")
+    try:
+        for name, fields in (("c2", dict(levels=20)), ("s2s", dict(mode="seq2seq"))):
+            run_dir = _snapshot(root, name, **fields)
+            out = lambda n, d=run_dir: os.path.join(d, n)  # noqa: E731
+            argv = ["--run-dir", run_dir, "--chunk", str(CLI_CHUNK)]
+            one = serve_cli.main([*argv, "--out", out("one.nc")])
+            t0 = time.perf_counter()
+            sh = serve_cli.main([*argv, "--out", out("sharded.nc"), "--sharded", "1", "1"])
+            t_sh = time.perf_counter() - t0
+            a, b = _nc(out("one.nc")), _nc(out("sharded.nc"))
+            check(sh["sharded"] == [1, 1] and sh["route"] == one["route"]
+                  and a.shape == b.shape and np.isfinite(b).all(),
+                  f"[s] --sharded 1 1 {name}: {sh}, shape {b.shape}")
+            mx = float(np.abs(a - b).max() / a.std())
+            print(f"[s] serving CLI --sharded 1 1 ({name}, {sh['route']}, one rank spawned "
+                  f"on the card, NCCL): {sh['steps']} steps vs the unsharded CLI max|d|/std "
+                  f"{mx:.3e} (tol {TOL_CHUNK:g}; "
+                  f"{'bit-equal' if np.array_equal(a, b) else 'not bit-equal'}); "
+                  f"{t_sh:.1f} s with the rank's start-up")
+            check(mx <= TOL_CHUNK, f"[s] --sharded 1 1 {name} max|d|/std {mx:.3e}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def two_rank_phase(rank: int, device_type: str, size: dict) -> dict:
+    """The two-rank checks of (s), one rank per device: the (1, 1, 2)
+    sharded rollout against the single-device rollout (eager) on rank 0's
+    device, and the dp = 2 remat step against the one-rank step on the same
+    global batch.  ``size`` gives the widths (the card's full width; small
+    on the CPU)."""
+    from nasa_niswan_tpu_torch.parallel import spatial
+    from nasa_niswan_tpu_torch.parallel.mesh import make_mesh
+
+    C_, grid, padded, T = size["C"], tuple(size["grid"]), tuple(size["padded"]), size["T"]
+    mesh = make_mesh(1, 1, 2)
+    dev = mesh.device
+    cfg = ConvLSTMConfig(in_channels=C_, hidden_channels=tuple(size["hidden"]),
+                         kernel_sizes=tuple(size["kernels"]), compute_dtype="bfloat16")
+    params = convlstm_init(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    rng = np.random.default_rng(SEED)
+    f = torch.as_tensor(rng.standard_normal((1, size["steps"], C_, *grid), dtype=np.float32),
+                        device=dev)
+    norm = Normalizer(np.zeros(C_, np.float32), np.ones(C_, np.float32), 0.0, 1.0)
+    geo = dict(padded_shape=padded, grid_shape=grid)
+    t0 = time.perf_counter()
+    p, _ = spatial.make_sharded_rollout_fn(cfg, norm, mesh, **geo)(params, f)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_sh = time.perf_counter() - t0
+    out = {}
+    if rank == 0:
+        q, _ = make_rollout_fn(cfg, norm, device=dev, **geo).eager(params, f)
+        out["rollout_rms"] = ((p - q).pow(2).mean().sqrt() / q.std()).item()
+        out["rollout_max"] = ((p - q).abs().max() / q.std()).item()
+        out["sharded_ms_per_step"] = 1000 * t_sh / size["steps"]
+
+    dmesh = make_mesh(2, 1, 1)
+    data = synthetic_e33oma_90d(T=2 * T + 8, H=grid[0], W=grid[1], seed=SEED)
+    ds = SequenceDataset(data, period="train", sequence_length=T, in_channels=5)
+    bundle = build_model("LSTM-dp2", in_channels=5, hidden_channels=tuple(size["hidden"]),
+                         kernel_sizes=tuple(size["kernels"]), compute_dtype="bfloat16")
+    idx = np.arange(size["bs"]) % len(ds)
+    x, y = (np.stack(a) for a in zip(*(ds[int(i)] for i in idx)))
+    bl = size["bs"] // 2
+    init, _ = bundle.init(torch.Generator().manual_seed(SEED), dev)
+    pd = _copy_params(init)
+    step = make_train_step(bundle, ds.normalizer, make_optimizer(pd, 1e-3, (0.5, 0.999)),
+                           mesh=dmesh, **geo)
+    _, m = step(pd, None, x[rank * bl:(rank + 1) * bl], y[rank * bl:(rank + 1) * bl])
+    if rank == 0:
+        p1 = _copy_params(init)
+        one = make_train_step(bundle, ds.normalizer, make_optimizer(p1, 1e-3, (0.5, 0.999)),
+                              **geo)
+        _, m1 = one(p1, None, x, y)
+        out["dp_loss_rel"] = abs(m["loss"].item() - m1["loss"].item()) / m1["loss"].item()
+    return out
+
+
 def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2460,6 +2814,7 @@ def main() -> None:
     phase_clis(device)
     phase_multitracer(device, serve, smi)
     phase_single_step(device, smi)
+    phase_sharded(device, serve, train, stats, smi)
     check(all(LAUNCHED[name] > 0 for name in COUNTERS), f"kernels never launched: {LAUNCHED}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

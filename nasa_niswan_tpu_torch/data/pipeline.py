@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import queue as queue_mod
 import threading
-from typing import Iterator, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +60,16 @@ def batch_indices(n: int, batch_size: int, *, shuffle: bool = True, seed: int = 
     stop = n - (n % batch_size) if drop_last else n
     for start in range(0, stop, batch_size):
         yield order[start : start + batch_size]
+
+
+def shard_indices(idx: np.ndarray, batch_size: int, rank: int, n: int) -> np.ndarray:
+    """Part ``rank`` of ``n`` equal parts of one batch's indices, the batch
+    first padded to ``batch_size`` by repeating its last index."""
+    if batch_size % n:
+        raise ValueError(f"batch_size {batch_size} does not split over {n} ranks")
+    idx = np.concatenate([idx, np.repeat(idx[-1:], batch_size - len(idx))])
+    part = batch_size // n
+    return idx[rank * part : (rank + 1) * part]
 
 
 def batch_iterator(
@@ -151,6 +161,7 @@ def async_batches(
     prefetch: int = 2,
     device="cuda",
     to_device: bool = True,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Iterator:
     """Background-thread batch pipeline in ``batch_iterator``'s order.
 
@@ -164,6 +175,12 @@ def async_batches(
 
     Yields tuples of tensors on ``device`` (usable on the consumer's stream
     without further waiting), or of numpy arrays with ``to_device=False``.
+
+    ``shard=(r, n)`` yields part r of n equal parts of each batch (a
+    data-parallel rank's share, in ``batch_iterator``'s order), a partial
+    last batch (``drop_last=False``) first padded to ``batch_size`` by
+    repeating its last sample (``shard_indices``; (0, 1) keeps every batch
+    whole and pads the partial one).
     """
     q: queue_mod.Queue = queue_mod.Queue(maxsize=max(1, prefetch))
     stop = threading.Event()
@@ -184,6 +201,8 @@ def async_batches(
                                       seed=seed, drop_last=drop_last, epoch=epoch):
                 if stop.is_set():
                     return
+                if shard is not None:
+                    idx = shard_indices(idx, batch_size, *shard)
                 cols = list(zip(*(dataset[int(i)] for i in idx)))
                 if stager is None:
                     item = tuple(np.stack(col) for col in cols)

@@ -1,7 +1,8 @@
 """Evaluation metrics on torch tensors (counterpart of
 nasa_niswan_tpu/evalx/metrics.py, the reference's acceptance criteria):
 
-  r2            sklearn r2_score on flattened arrays (train.py:114)
+  r2            sklearn r2_score on flattened arrays (train.py:114); its
+                sufficient statistics r2_stats / r2_from_stats
   r2_temporal   per-timestep R^2 over flattened maps (test.ipynb cell 12)
   r2_spatial    per-gridpoint R^2 over time, 1 - ss_res/ss_tot (cell 16)
   pearson_r     scipy.stats.pearsonr statistic (cell 22)
@@ -52,6 +53,21 @@ def r2(y_true, y_pred) -> torch.Tensor:
     ss_res = torch.sum((y_true - y_pred) ** 2)
     ss_tot = torch.sum((y_true - torch.mean(y_true)) ** 2)
     return 1.0 - ss_res / ss_tot
+
+
+def r2_stats(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    """R^2's sufficient statistics on flattened tensors, (ss_res, sum y,
+    sum y^2, n) in f32: summed over batches or ranks, ``r2_from_stats`` of
+    the sums is the R^2 of all the values together."""
+    yf, pf = y_true.reshape(-1).float(), y_pred.reshape(-1).float()
+    return torch.stack([torch.sum((yf - pf) ** 2), torch.sum(yf), torch.sum(yf * yf),
+                        torch.tensor(float(yf.numel()), device=yf.device)])
+
+
+def r2_from_stats(stats: torch.Tensor) -> torch.Tensor:
+    """R^2 from ``r2_stats``: 1 - ss_res / (sum y^2 - (sum y)^2 / n)."""
+    ss_res, s_y, s_y2, n = stats
+    return 1.0 - ss_res / (s_y2 - s_y * s_y / n)
 
 
 def r2_temporal(y_true, y_pred) -> torch.Tensor:

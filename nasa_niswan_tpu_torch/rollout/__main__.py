@@ -20,7 +20,17 @@ loop, ``evalx.evaluate.predict_test_feedback``, each chunk a graph replay
 on the card; the others' one-frame samples), over the whole split and
 with no carry to persist, so ``--state-in``, ``--state-out``,
 ``--artifact``, ``--skip`` and ``--steps`` are refused there.
-``--sharded`` waits for the port of ``parallel/``.
+
+``--sharded LAT LON`` serves an LSTM snapshot, open or closed loop, with
+the padded grid cut into LAT x LON tiles over as many ranks, one device
+each (``cuda:0`` .., or CPU processes with ``--device cpu``), started by
+``parallel/launch.spawn`` (parallel/spatial.py: halo exchange, the fused
+cell on each tile).  Every rank reads the snapshot and the stream; rank 0
+writes the predictions, the carry (gathered to the global layout, so a
+sharded run resumes an unsharded one's carry and the reverse) and the
+summary.  The sharded chunks run eagerly, without CUDA graphs.  It is
+refused with ``--artifact`` (a single-device program), for a single-step
+snapshot, and when the padded grid does not tile evenly.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -91,7 +102,7 @@ def _write_predictions(path: str, preds: np.ndarray, species: str, *, t0_index: 
     )
 
 
-def main(argv=None):
+def _parse(argv):
     p = argparse.ArgumentParser(
         description="Serve a trained emulator: chunked rollout -> netCDF.")
     p.add_argument("--run-dir", required=True,
@@ -125,29 +136,76 @@ def main(argv=None):
                         "when it fits in this many GB (0 disables)")
     p.add_argument("--sharded", nargs=2, type=int, default=None,
                    metavar=("LAT", "LON"),
-                   help="shard the grid over a (lat, lon) device mesh (not "
-                        "ported yet)")
+                   help="shard the padded grid over a (lat, lon) mesh of "
+                        "LAT*LON ranks, one device each")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda; cpu to ask "
                         "for the CPU)")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = _parse(argv)
     _positive("--chunk", args.chunk)
     if args.steps is not None:
         _positive("--steps", args.steps)
     if args.skip < 0:
         raise SystemExit(f"--skip must be >= 0, got {args.skip}")
     if args.sharded:
-        raise SystemExit(
-            "--sharded waits for the port of parallel/ (the explicit-halo "
-            "spatial rollout); serve on one device"
-        )
+        from nasa_niswan_tpu_torch.parallel import launch
 
+        lat, lon = args.sharded
+        _check_sharded(args, lat, lon)
+        argv = sys.argv[1:] if argv is None else list(argv)
+        return launch.spawn(_serve_rank, lat * lon, torch.device(args.device).type,
+                            argv)[0]
+
+    from nasa_niswan_tpu_torch.train.__main__ import resolve_device
+
+    return serve(args, resolve_device(args.device))
+
+
+def _check_sharded(args, lat: int, lon: int) -> None:
+    """``--sharded``'s refusals, before any rank starts (the JAX CLI's
+    ``_build_mesh`` and its flag checks)."""
+    from nasa_niswan_tpu_torch.parallel.launch import check_devices
+    from nasa_niswan_tpu_torch.train.config import TrainConfig
+
+    if lat < 1 or lon < 1:
+        raise SystemExit(f"--sharded {lat} {lon}: both must be >= 1")
+    if args.artifact:
+        raise SystemExit("--sharded serves the live sharded rollout; a frozen "
+                         "--artifact is a single-device program")
+    cfg = TrainConfig.load(os.path.join(args.run_dir, "configurations.json"))
+    if cfg.family != "LSTM":
+        raise SystemExit("--sharded applies to LSTM-family snapshots (the recurrent "
+                         f"scan is what shards); this is {cfg.family}")
+    H, W = cfg.input_size
+    if H % lat or W % lon:
+        raise SystemExit(f"--sharded {lat} {lon}: the padded grid {H}x{W} must tile "
+                         "evenly (H % lat == 0 and W % lon == 0)")
+    try:
+        check_devices(lat * lon, torch.device(args.device).type)
+    except RuntimeError as e:
+        raise SystemExit(f"--sharded {lat} {lon}: {e}") from None
+
+
+def _serve_rank(rank: int, argv):
+    """One rank of ``--sharded``: the (1, lat, lon) mesh, then ``serve``."""
+    from nasa_niswan_tpu_torch.parallel.mesh import make_mesh
+
+    args = _parse(argv)
+    mesh = make_mesh(1, *args.sharded)
+    return serve(args, mesh.device, mesh)
+
+
+def serve(args, device: torch.device, mesh=None):
+    """Serve the snapshot on ``device``, sharded over ``mesh`` when given
+    (every rank calls it; rank 0 writes).  Returns the summary."""
     from nasa_niswan_tpu_torch.evalx.snapshot import load_snapshot
     from nasa_niswan_tpu_torch.rollout.autoregressive import model_days_per_min
     from nasa_niswan_tpu_torch.rollout.export import load_rollout_state, save_rollout_state
-    from nasa_niswan_tpu_torch.train.__main__ import resolve_device
 
-    device = resolve_device(args.device)
     artifact = None
     if args.artifact:
         from nasa_niswan_tpu_torch.rollout.export import load_rollout_info
@@ -179,13 +237,19 @@ def main(argv=None):
             raise SystemExit("--artifact serves the open-loop rollout; this is a "
                              "seq2seq (closed-loop) snapshot")
         preds, final_state, prev_norm = _serve_closed_loop(snap, args, state_in,
-                                                           prev_in, device)
+                                                           prev_in, device, mesh)
     elif recurrent:
-        preds, final_state = _serve_open_loop(snap, args, state_in, artifact, device)
+        preds, final_state = _serve_open_loop(snap, args, state_in, artifact, device, mesh)
         prev_norm = None
     else:
         preds = _serve_single_step(snap, args)
     elapsed = time.perf_counter() - t_serve
+    if mesh is not None:
+        from nasa_niswan_tpu_torch.parallel.spatial import gather_state
+
+        final_state = gather_state(final_state, mesh)
+        if mesh.rank:
+            return None
 
     if args.state_out:
         save_rollout_state(args.state_out, final_state, prev_norm=prev_norm)
@@ -204,6 +268,7 @@ def main(argv=None):
         ),
         "out": out_path,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "sharded": list(mesh.shape[1:]) if mesh is not None else None,
     }
     with open(os.path.join(args.run_dir, "serve_summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
@@ -219,10 +284,10 @@ def _check_state_out(args, T: int, chunk: int, what: str) -> None:
         )
 
 
-def _serve_open_loop(snap, args, state_in, artifact, device):
+def _serve_open_loop(snap, args, state_in, artifact, device, mesh=None):
     """Configs #1/#2: the rollout over the raw forcing stream, chunked with
     a carried state; through ``artifact`` (``load_rollout_info``'s result)
-    when one was given."""
+    when one was given, sharded over ``mesh`` when given."""
     from nasa_niswan_tpu_torch.evalx.evaluate import run_chunked_episode_carry
     from nasa_niswan_tpu_torch.rollout.autoregressive import make_rollout_fn
 
@@ -248,10 +313,19 @@ def _serve_open_loop(snap, args, state_in, artifact, device):
     else:
         chunk = min(args.chunk, T)
         _check_state_out(args, T, chunk, "--chunk")
-        rollout = make_rollout_fn(
-            snap.bundle.config, ds.normalizer, padded_shape=snap.padded_shape,
-            grid_shape=grid_shape, static=snap.static,
-        )
+        geo = dict(padded_shape=snap.padded_shape, grid_shape=grid_shape,
+                   static=snap.static)
+        if mesh is not None:
+            from nasa_niswan_tpu_torch.parallel.spatial import (
+                make_sharded_rollout_fn,
+                scatter_state,
+            )
+
+            rollout = make_sharded_rollout_fn(snap.bundle.config, ds.normalizer, mesh,
+                                              **geo)
+            state_in = None if state_in is None else scatter_state(state_in, mesh)
+        else:
+            rollout = make_rollout_fn(snap.bundle.config, ds.normalizer, **geo)
         state = state_in  # None: zero carry
         run = lambda x_chunk, st: rollout(snap.params, x_chunk[None], st)  # noqa: E731
 
@@ -281,9 +355,10 @@ def _serve_single_step(snap, args) -> np.ndarray:
     return out["PDs"]
 
 
-def _serve_closed_loop(snap, args, state_in, prev_in, device):
+def _serve_closed_loop(snap, args, state_in, prev_in, device, mesh=None):
     """Config #3: the feedback channel carries the model's own previous
-    prediction; re-seeded from the ground truth only at a cold start."""
+    prediction; re-seeded from the ground truth only at a cold start;
+    sharded over ``mesh`` when given."""
     from nasa_niswan_tpu_torch.evalx.evaluate import (
         make_closed_loop_chunk,
         run_chunked_episode_carry,
@@ -310,10 +385,17 @@ def _serve_closed_loop(snap, args, state_in, prev_in, device):
     T = frames.shape[0]
     chunk = min(args.chunk, T)
     _check_state_out(args, T, chunk, "--chunk")
-    run_chunk = make_closed_loop_chunk(
-        snap.bundle.config, norm, padded_shape=snap.padded_shape,
-        grid_shape=tuple(targets.shape[-2:]),
-    )
+    geo = dict(padded_shape=snap.padded_shape, grid_shape=tuple(targets.shape[-2:]))
+    if mesh is not None:
+        from nasa_niswan_tpu_torch.parallel.spatial import (
+            make_sharded_feedback_rollout,
+            scatter_state,
+        )
+
+        run_chunk = make_sharded_feedback_rollout(snap.bundle.config, norm, mesh, **geo)
+        state = scatter_state(state, mesh)
+    else:
+        run_chunk = make_closed_loop_chunk(snap.bundle.config, norm, **geo)
     preds, (state, prev_norm) = run_chunked_episode_carry(
         lambda st, prev, x: run_chunk(snap.params, st, prev, x),
         [state, prev_norm], _device_resident(frames, args.resident_gb, device), chunk,

@@ -23,8 +23,14 @@ Two routes, as in the JAX package (``_make_forward_chunk``):
 The Bernoulli draws come from an explicit ``torch.Generator`` (uniform <
 teacher_prob, as ``jax.random.bernoulli`` draws); ``external_draws=True``
 takes a precomputed (T, B) matrix instead, the seam that lets two
-implementations consume the same scheduled-sampling choices.  The mesh and
-shard_map steps are not ported yet.
+implementations consume the same scheduled-sampling choices.
+
+``make_seq2seq_train_step`` with a mesh (``fit_seq2seq(dp_devices=N)``) is
+the counterpart of ``make_seq2seq_train_step_shardmap``: each rank of a
+(dp,) mesh runs the chunk on its share of the batch and the gradients are
+averaged by parallel/dp.py's one all-reduce.  The draws stay global: every
+rank draws the whole batch's (T, B) matrix from the same generator and
+takes its own columns, so the trajectory is the single-device one.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 from nasa_niswan_tpu_torch.core.padding import pad_geo
 from nasa_niswan_tpu_torch.data.dataset import Normalizer
 from nasa_niswan_tpu_torch.data.pipeline import async_batches
+from nasa_niswan_tpu_torch.evalx.metrics import r2_from_stats, r2_stats
 from nasa_niswan_tpu_torch.models.convlstm import CellFn, ConvLSTMConfig, GradsFn
 from nasa_niswan_tpu_torch.ops.convgrad import cell_grads
 from nasa_niswan_tpu_torch.ops.convlstm_bptt import combined_cells
@@ -52,23 +59,6 @@ def inverse_sigmoid_schedule(epoch: int, k: float = 10.0) -> float:
     """Teacher-forcing probability k/(k+exp(epoch/k)): starts near 1,
     anneals toward 0 (the classic scheduled-sampling decay)."""
     return k / (k + math.exp(epoch / k))
-
-
-def _r2_from_stats(stats):
-    """Chunk R^2 from the sufficient statistics ``(ss_res, s_y, s_y2, n)``."""
-    ss_res, s_y, s_y2, n = stats
-    return 1.0 - ss_res / (s_y2 - s_y * s_y / n)
-
-
-def _chunk_stats(ys, preds):
-    """Chunk-level R^2 sufficient statistics in normalized space (f32)."""
-    flat_y, flat_p = ys.reshape(-1), preds.reshape(-1)
-    return (
-        torch.sum((flat_y - flat_p) ** 2),
-        torch.sum(flat_y),
-        torch.sum(flat_y * flat_y),
-        torch.tensor(float(flat_y.numel()), device=ys.device),
-    )
 
 
 def _draws(gen_or_draws, teacher_prob, T, B, device, external):
@@ -93,10 +83,11 @@ def _make_forward_chunk(
     grads_fn: GradsFn = cell_grads,
 ):
     """``forward_chunk(params, x, prev0, y, gen_or_draws, teacher_prob) ->
-    (loss, (ss_res, s_y, s_y2, n))`` on device tensors: x raw (B, T, C-1,
-    H, W) forcings, prev0 raw (B, H, W) concentration one step before the
-    chunk, y raw (B, T, H, W) targets; the fifth argument is a
-    ``torch.Generator`` or, with ``external_draws``, a (T, B) 0/1 matrix."""
+    (loss, stats)`` on device tensors, stats the normalized chunk's R^2
+    statistics (``evalx/metrics.r2_stats``): x raw (B, T, C-1, H, W)
+    forcings, prev0 raw (B, H, W) concentration one step before the chunk,
+    y raw (B, T, H, W) targets; the fifth argument is a ``torch.Generator``
+    or, with ``external_draws``, a (T, B) 0/1 matrix."""
     if config.in_channels < 2:
         raise ValueError("seq2seq feedback training needs a feedback channel")
     dt = config.torch_dtype
@@ -127,7 +118,7 @@ def _make_forward_chunk(
             err = ys - preds
             # equal to the per-step mean of means below (equal-size steps)
             loss = torch.mean(err**2) + torch.mean(torch.abs(err))
-            return loss, _chunk_stats(ys, preds)
+            return loss, r2_stats(ys, preds)
 
         head_w, head_b = params["head"]["w"], params["head"]["b"]
         prev, losses, preds = prev0n, [], []
@@ -144,7 +135,7 @@ def _make_forward_chunk(
             prev = torch.where(draws[t][:, None, None] > 0, ys[t], pred)
             preds.append(pred)
         preds = torch.stack(preds)
-        return torch.stack(losses).mean(), _chunk_stats(ys, preds)
+        return torch.stack(losses).mean(), r2_stats(ys, preds)
 
     return forward_chunk
 
@@ -161,27 +152,45 @@ def make_seq2seq_train_step(
     padded_shape: Tuple[int, int],
     grid_shape: Tuple[int, int],
     external_draws: bool = False,
+    mesh=None,
 ):
     """``step(params, x, prev0, y, gen_or_draws, teacher_prob) -> metrics``:
     one Adam update of ``params`` in place from a raw (x, prev0, y) batch
     (numpy or tensors, moved to the parameters' device unless already
     there); metrics are device scalars ``loss`` and ``r2``.
     ``gen_or_draws`` is a ``torch.Generator`` or, with ``external_draws``,
-    a (T, B) 0/1 matrix."""
+    a (T, B) 0/1 matrix.
+
+    With a ``mesh`` (parallel/mesh.py, dp ranks) the batch is this rank's
+    share (B / dp samples) of a global batch: the (T, B) draws are the
+    whole batch's (drawn from a generator in the same state on every rank,
+    or given) and this rank takes its columns; between the backward and
+    the Adam step ``parallel/dp.reduce_gradients`` averages the gradients
+    and the loss and sums R^2's statistics, so every rank takes the same
+    step and the metrics are the global batch's."""
     forward_chunk = _make_forward_chunk(
         config, normalizer, padded_shape=padded_shape, grid_shape=grid_shape,
-        external_draws=external_draws,
+        external_draws=True,
     )
+    r, n = (0, 1) if mesh is None else (mesh.index("dp"), mesh.dp)
+    if mesh is not None:
+        from nasa_niswan_tpu_torch.parallel.dp import reduce_gradients
 
     def train_step(params, x, prev0, y, gen_or_draws, teacher_prob):
         dev = _device_of(params)
         x, prev0, y = (torch.as_tensor(a, device=dev) for a in (x, prev0, y))
+        bl, T = x.shape[:2]
+        draws = _draws(gen_or_draws, teacher_prob, T, bl * n, dev,
+                       external_draws)[:, r * bl:(r + 1) * bl]
         optimizer.zero_grad(set_to_none=True)
-        loss, stats = forward_chunk(params, x, prev0, y, gen_or_draws, teacher_prob)
+        loss, stats = forward_chunk(params, x, prev0, y, draws, teacher_prob)
         loss.backward()
-        optimizer.step()
         with torch.no_grad():
-            return {"loss": loss.detach(), "r2": _r2_from_stats(stats)}
+            if mesh is not None:
+                loss, stats = reduce_gradients(params, loss, stats, mesh)
+            metrics = {"loss": loss.detach(), "r2": r2_from_stats(stats)}
+        optimizer.step()
+        return metrics
 
     return train_step
 
@@ -207,7 +216,7 @@ def make_seq2seq_eval_step(
         with torch.no_grad():
             no_teacher = torch.zeros(x.shape[1], x.shape[0])
             loss, stats = forward_chunk(params, x, prev0, y, no_teacher, 0.0)
-            return loss, _r2_from_stats(stats)
+            return loss, r2_from_stats(stats)
 
     return eval_step
 
@@ -230,9 +239,16 @@ def fit_seq2seq(
     verbose: bool = True,
     snapshot_dir: Optional[str] = None,
     checkpoint_every: int = 0,
+    dp_devices: int = 1,
 ):
     """Scheduled-sampling training over a Seq2SeqDataset, on the
     parameters' device.  Returns (params, optimizer, history).
+
+    ``dp_devices`` > 1 trains data-parallel: called on every rank of a
+    process group of that size (``parallel/launch.spawn``), the parameters
+    on the rank's device, each rank takes its share of every batch
+    (``make_seq2seq_train_step`` with the mesh, draws global), validation runs whole
+    batches on every rank, and rank 0 alone prints and writes checkpoints.
 
     Batches come in ``batch_iterator``'s order (shuffled by seed and epoch,
     the JAX package's order) through ``async_batches``: a producer thread
@@ -249,10 +265,17 @@ def fit_seq2seq(
         )
     normalizer = normalizer or dataset.normalizer
     optimizer = make_optimizer(params, learning_rate, betas)
-    step = make_seq2seq_train_step(
-        config, normalizer, optimizer, padded_shape=padded_shape,
-        grid_shape=grid_shape,
-    )
+    geo = dict(padded_shape=padded_shape, grid_shape=grid_shape)
+    shard, lead, mesh = (0, 1), True, None
+    if dp_devices > 1:
+        from nasa_niswan_tpu_torch.parallel.mesh import make_mesh
+
+        if batch_size % dp_devices:
+            raise ValueError(f"batch_size ({batch_size}) must be divisible by "
+                             f"dp_devices ({dp_devices})")
+        mesh = make_mesh(dp=dp_devices)
+        shard, lead = (mesh.index("dp"), dp_devices), mesh.rank == 0
+    step = make_seq2seq_train_step(config, normalizer, optimizer, mesh=mesh, **geo)
     eval_step = None
     if val_dataset is not None:
         eval_step = make_seq2seq_eval_step(
@@ -265,7 +288,7 @@ def fit_seq2seq(
         losses, r2s = [], []
         for x_b, p0_b, y_b in async_batches(
             dataset, batch_size, shuffle=True, seed=seed, epoch=epoch,
-            device=_device_of(params),
+            device=_device_of(params), shard=shard,
         ):
             m = step(params, x_b, p0_b, y_b, gen, tp)
             losses.append(m["loss"])
@@ -288,13 +311,13 @@ def fit_seq2seq(
                 v_r2s.append(r2v)
             rec["r2_val"] = float(torch.stack(v_r2s).mean())
         history.append(rec)
-        if verbose:
+        if verbose and lead:
             extra = f", R2V: {rec['r2_val']:.5f}" if "r2_val" in rec else ""
             print(
                 f"[seq2seq] Epoch: {epoch}, tf_prob: {tp:.3f}, "
                 f"Loss: {rec['loss']:.5f}, R2: {rec['r2']:.5f}{extra}"
             )
-        if snapshot_dir and checkpoint_every and epoch % checkpoint_every == 0:
+        if lead and snapshot_dir and checkpoint_every and epoch % checkpoint_every == 0:
             save_checkpoint(
                 os.path.join(snapshot_dir, f"epoch-{epoch:03d}"),
                 params, optimizer, learning_rate=learning_rate, epoch=epoch,

@@ -24,7 +24,13 @@ C = 3 L + 2, data/fusion.fuse_levels).  Two modes:
   windowed snapshot (the canonical protocol: windowed train, seq2seq
   fine-tune, rollout); ``--schedule-k`` sets the teacher-forcing decay.
 
-Not ported yet: data parallelism.
+``--dp-devices N`` > 1 trains either mode data-parallel on N ranks, one
+device each (``cuda:0`` .. ``cuda:N-1``, or N CPU processes with
+``--device cpu``), started by ``parallel/launch.spawn`` (or joined under
+torchrun): each rank runs its share of every batch, gradients are averaged
+by one all-reduce per step (parallel/dp.py), rank 0 writes the snapshot.
+The single-step families are refused there: their data parallelism (global
+BatchNorm statistics) is not ported.
 """
 
 from __future__ import annotations
@@ -134,7 +140,7 @@ def run_seq2seq(config: TrainConfig, data, device: torch.device):
         data[f"{config.species}_conc"].shape[-2:]
     )
     params, optimizer, history = fit_seq2seq(
-        model_cfg, params, train_ds,
+        model_cfg, params, train_ds, dp_devices=config.dp_devices,
         val_dataset=val_ds,
         padded_shape=tuple(config.input_size),
         grid_shape=grid,
@@ -148,18 +154,61 @@ def run_seq2seq(config: TrainConfig, data, device: torch.device):
         checkpoint_every=config.checkpoint_every,
     )
     # logger.npy: loss / train R2 / val R2, the reference's three arrays
-    os.makedirs(config.snapshot_dir, exist_ok=True)
-    with open(os.path.join(config.snapshot_dir, "logger.npy"), "wb") as f:
-        np.save(f, np.array([h["loss"] for h in history]))
-        np.save(f, np.array([h["r2"] for h in history]))
-        np.save(f, np.array([h.get("r2_val", np.nan) for h in history]))
+    if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+        os.makedirs(config.snapshot_dir, exist_ok=True)
+        with open(os.path.join(config.snapshot_dir, "logger.npy"), "wb") as f:
+            np.save(f, np.array([h["loss"] for h in history]))
+            np.save(f, np.array([h["r2"] for h in history]))
+            np.save(f, np.array([h.get("r2_val", np.nan) for h in history]))
     return {"params": params, "optimizer": optimizer, "history": history}
 
 
 def main(config: TrainConfig):
+    if config.dp_devices > 1:
+        return run_data_parallel(config)
     device = resolve_device(config.device)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"{config.model} deployed on {kind}")
+    return train(config, device)
+
+
+def run_data_parallel(config: TrainConfig):
+    """``--dp-devices N``: N ranks, each running ``train`` on its own device;
+    returns rank 0's result (parameters on the CPU, no optimizer)."""
+    from nasa_niswan_tpu_torch.parallel import launch
+
+    n = config.dp_devices
+    if config.mode == "windowed" and config.family != "LSTM":
+        raise SystemExit(
+            f"--dp-devices {n}: data-parallel training of the single-step families "
+            f"({config.family}: UNet BatchNorm state, pix2pix, the GAN step) with "
+            "global-batch statistics is not ported (ROADMAP, queue A: DP of the "
+            "stateful single-step families); train them with --dp-devices 1")
+    if config.batch_size % n:
+        raise SystemExit(f"--dp-devices {n}: --batch-size {config.batch_size} must be "
+                         "divisible by it")
+    device_type = torch.device(config.device).type
+    kind = torch.cuda.get_device_name(0) if device_type == "cuda" and \
+        torch.cuda.is_available() else device_type
+    print(f"{config.model} deployed on {n} x {kind}")
+    return launch.spawn(_train_rank, n, device_type, config)[0]
+
+
+def _train_rank(rank: int, config: TrainConfig):
+    from nasa_niswan_tpu_torch.bridge import tree_map
+    from nasa_niswan_tpu_torch.parallel.mesh import rank_device
+
+    out = train(config, rank_device(torch.device(config.device).type))
+    if rank:
+        return None
+    out = {k: v for k, v in out.items() if k != "optimizer"}
+    out["params"] = tree_map(lambda t: t.detach().cpu(), out["params"])
+    return out
+
+
+def train(config: TrainConfig, device: torch.device):
+    """Build the data and the model and train on ``device`` (a rank's,
+    when ``config.dp_devices`` > 1)."""
     data = load_data(config)
     if config.mode == "seq2seq":
         return run_seq2seq(config, data, device)
@@ -200,7 +249,13 @@ def main(config: TrainConfig):
         print("Number of Epochs:", meta.get("epoch"))
         print("Learning Rate:", meta.get("learning_rate"))
 
-    return fit(
+    if config.dp_devices > 1:
+        from nasa_niswan_tpu_torch.parallel.dp import fit_data_parallel
+
+        run = fit_data_parallel
+    else:
+        run = fit
+    return run(
         bundle, train_ds, val_ds, config, device=device, static=static,
         init_params=init_params, init_state=init_state,
         init_opt_state=init_opt_state, start_epoch=start_epoch,

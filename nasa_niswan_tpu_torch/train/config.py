@@ -8,9 +8,11 @@ in the other: unknown keys are ignored on read, missing ones take their
 defaults.  ``precompute_input_conv`` (the hoisted input conv, which trains
 through the per-cell route), ``schedule_k`` (the seq2seq teacher-forcing
 decay), ``unet_features`` and ``pix2pix_features`` (the single-step
-families' widths) mean what they mean there.  The JAX package's other TPU settings
-(``cell_impl``, ``dp_devices``, ``checkpoint_backend``) have no counterpart;
-``device`` is the port's own.
+families' widths) and ``dp_devices`` (data-parallel ranks, one device
+each) mean what they mean there.  The JAX package's other TPU settings
+(``cell_impl``, ``checkpoint_backend``) have no counterpart; ``device`` is
+the port's own (with ``dp_devices`` > 1, its type: rank r trains on
+``cuda:r``).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ class TrainConfig:
     schedule_k: float = 10.0  # seq2seq teacher-forcing decay constant
     unet_features: Tuple[int, ...] = (64, 128, 256, 512)  # UNet encoder widths
     pix2pix_features: int = 64  # pix2pix Generator base width
+    dp_devices: int = 1  # data-parallel ranks (parallel/dp.py)
     # --- the port's own ---
     device: str = "cuda"  # torch device the run trains on
 
@@ -157,6 +160,7 @@ def parse_args(argv=None) -> TrainConfig:
                    default=d["unet_features"].default)
     p.add_argument("--pix2pix-features", type=int,
                    default=d["pix2pix_features"].default)
+    p.add_argument("--dp-devices", type=int, default=d["dp_devices"].default)
     p.add_argument("--device", type=str, default=d["device"].default)
     ns = p.parse_args(argv)
     kwargs = {k.replace("-", "_"): v for k, v in vars(ns).items()}

@@ -36,9 +36,10 @@ import torch
 
 from nasa_niswan_tpu_torch.core.padding import crop_to_grid
 from nasa_niswan_tpu_torch.data.dataset import Normalizer, make_preprocess_fn
-from nasa_niswan_tpu_torch.data.pipeline import async_batches, batch_indices
-from nasa_niswan_tpu_torch.evalx.metrics import r2
+from nasa_niswan_tpu_torch.data.pipeline import async_batches, batch_indices, shard_indices
+from nasa_niswan_tpu_torch.evalx.metrics import r2, r2_from_stats, r2_stats
 from nasa_niswan_tpu_torch.models.registry import ModelBundle
+from nasa_niswan_tpu_torch.parallel.mesh import gather_axis
 from nasa_niswan_tpu_torch.train.checkpoint import (
     load_optimizer_state,
     param_leaves,
@@ -90,23 +91,42 @@ def build_train_step_fn(
     padded_shape: Optional[Tuple[int, int]],
     grid_shape: Tuple[int, int] = (90, 144),
     static: Optional[np.ndarray] = None,
+    mesh=None,
 ) -> Callable:
     """``step(params, state, x_raw, y_raw, rng=None) -> (new_state,
     metrics)`` on device tensors: preprocess, loss, backward, one Adam
     update of ``params`` in place; ``rng`` (a ``torch.Generator`` on the
     device) drives the model's dropout; metrics are device scalars
-    ``loss`` and ``r2``."""
+    ``loss`` and ``r2``.
+
+    With a ``mesh`` (parallel/mesh.py, dp ranks) the batch is this rank's
+    share of a global batch, and between the backward and the Adam step
+    one all-reduce (``parallel/dp.reduce_gradients``) averages the
+    gradients and the loss over the dp ranks and sums R^2's statistics:
+    every rank takes the same step and reports the global batch's
+    metrics.  Only the stateless ConvLSTM family trains so: a model state
+    (the UNet's BatchNorm statistics) would be computed per rank."""
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
     loss_fn = make_loss_fn(bundle, grid_shape)
+    if mesh is not None:
+        from nasa_niswan_tpu_torch.parallel.dp import reduce_gradients
+
+        if bundle.family != "LSTM":
+            raise ValueError(f"data-parallel training takes the ConvLSTM family, not "
+                             f"{bundle.family}")
 
     def train_step(params, state, x_raw, y_raw, rng=None):
         x, y = preprocess(x_raw, y_raw)
         optimizer.zero_grad(set_to_none=True)
         loss, (pred, new_state) = loss_fn(params, state, x, y, rng)
         loss.backward()
-        optimizer.step()
         with torch.no_grad():
-            metrics = {"loss": loss.detach(), "r2": r2(y, pred)}
+            if mesh is None:
+                metrics = {"loss": loss.detach(), "r2": r2(y, pred)}
+            else:
+                loss, stats = reduce_gradients(params, loss, r2_stats(y, pred), mesh)
+                metrics = {"loss": loss, "r2": r2_from_stats(stats)}
+        optimizer.step()
         return new_state, metrics
 
     return train_step
@@ -124,12 +144,13 @@ def make_train_step(
     padded_shape: Optional[Tuple[int, int]],
     grid_shape: Tuple[int, int] = (90, 144),
     static: Optional[np.ndarray] = None,
+    mesh=None,
 ) -> Callable:
     """The train step for host batches (numpy or tensors), moved to the
     parameters' device."""
     inner = build_train_step_fn(
         bundle, normalizer, optimizer, padded_shape=padded_shape,
-        grid_shape=grid_shape, static=static,
+        grid_shape=grid_shape, static=static, mesh=mesh,
     )
 
     def step(params, state, x_raw, y_raw, rng=None):
@@ -148,11 +169,14 @@ def build_eval_step_fn(
     grid_shape: Tuple[int, int] = (90, 144),
     static: Optional[np.ndarray] = None,
     unnormalize: bool = False,
+    mesh=None,
 ) -> Callable:
     """``step(params, state, x_raw, y_raw) -> (per-sample R^2, pred)`` on
     device tensors, without grad (the reference evaluates bs=1 and averages
     per-sample scores); pred normalized, or in physical units when
-    ``unnormalize``."""
+    ``unnormalize``.  With a ``mesh`` the batch is this rank's share of a
+    global batch, and the scores are the whole batch's, gathered over dp
+    in rank order (pred stays this rank's)."""
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
 
     def eval_step(params, state, x_raw, y_raw):
@@ -168,6 +192,8 @@ def build_eval_step_fn(
                 (flat_y - torch.mean(flat_y, dim=1, keepdim=True)) ** 2, dim=1
             )
             per_sample_r2 = 1.0 - ss_res / ss_tot
+            if mesh is not None:
+                per_sample_r2 = gather_axis(per_sample_r2, mesh, "dp", 0)
             if unnormalize:
                 pred = normalizer.unnormalize_y(pred)
         return per_sample_r2, pred
@@ -183,11 +209,12 @@ def make_eval_step(
     grid_shape: Tuple[int, int] = (90, 144),
     static: Optional[np.ndarray] = None,
     unnormalize: bool = False,
+    mesh=None,
 ) -> Callable:
     """The eval step for host batches, moved to the parameters' device."""
     inner = build_eval_step_fn(
         bundle, normalizer, padded_shape=padded_shape, grid_shape=grid_shape,
-        static=static, unnormalize=unnormalize,
+        static=static, unnormalize=unnormalize, mesh=mesh,
     )
 
     def step(params, state, x_raw, y_raw):
@@ -231,12 +258,13 @@ def make_device_train_step(
     padded_shape: Optional[Tuple[int, int]],
     grid_shape: Tuple[int, int] = (90, 144),
     static: Optional[np.ndarray] = None,
+    mesh=None,
 ) -> Callable:
     """``step(params, state, starts, rng=None) -> (new_state, metrics)`` with
     the batch gathered from the device-resident slab."""
     inner = build_train_step_fn(
         bundle, normalizer, optimizer, padded_shape=padded_shape,
-        grid_shape=grid_shape, static=static,
+        grid_shape=grid_shape, static=static, mesh=mesh,
     )
 
     def step(params, state, starts, rng=None):
@@ -254,10 +282,11 @@ def make_device_eval_step(
     grid_shape: Tuple[int, int] = (90, 144),
     static: Optional[np.ndarray] = None,
     unnormalize: bool = False,
+    mesh=None,
 ) -> Callable:
     inner = build_eval_step_fn(
         bundle, normalizer, padded_shape=padded_shape, grid_shape=grid_shape,
-        static=static, unnormalize=unnormalize,
+        static=static, unnormalize=unnormalize, mesh=mesh,
     )
 
     def step(params, state, starts):
@@ -281,14 +310,6 @@ def slabs_fit(datasets, device: torch.device) -> bool:
     return need <= free // 2
 
 
-def _pad_batch(batch, bs: int):
-    """A partial batch padded to ``bs`` by repeating its last sample."""
-    n = batch[0].shape[0]
-    if n == bs:
-        return batch
-    return tuple(torch.cat([a, a[-1:].expand(bs - n, *a.shape[1:])]) for a in batch)
-
-
 def fit(
     bundle: ModelBundle,
     train_dataset,
@@ -304,6 +325,7 @@ def fit(
     start_epoch: int = 1,
     verbose: bool = True,
     device_resident: Optional[bool] = None,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Epoch driver with the reference's logging and checkpoints.
 
@@ -315,6 +337,14 @@ def fit(
     streams.  The JAX package's 6 GiB threshold is a TPU policy and is not
     used.  Validation keeps the batch shape: a partial last batch is padded
     with its last sample and only the valid per-sample scores are kept.
+
+    ``mesh`` (parallel/mesh.py, dp ranks only; ``fit_data_parallel`` makes
+    it) trains data-parallel: called on every rank, each with its own
+    ``device``, each rank takes its share of every global batch in the
+    single-device order (``build_train_step_fn`` with the mesh: one
+    all-reduce of the gradients per step), validation splits each batch
+    over the ranks and gathers the scores, and rank 0 alone prints and
+    writes the checkpoints and the logger.
 
     Returns {params, state, optimizer, logger, elapsed_s}; logger holds the
     three reference metric arrays (MSELoss, r2_score, r2_score_val).
@@ -342,7 +372,16 @@ def fit(
             hasattr(ds, "forcing_stream") for ds in (train_dataset, val_dataset)):
         raise ValueError("device_resident=True needs datasets with frame slabs "
                          "(forcing_stream); stream the others")
-    geo = dict(padded_shape=padded, grid_shape=grid_shape, static=static)
+    geo = dict(padded_shape=padded, grid_shape=grid_shape, static=static, mesh=mesh)
+    bs = config.batch_size
+    shard, lead = (0, 1), True  # this rank's share of a batch; rank 0 writes
+    if mesh is not None:
+        if (mesh.lat, mesh.lon) != (1, 1):
+            raise ValueError("fit trains over a (dp,) mesh; the spatially sharded "
+                             "training step is not ported")
+        if bs % mesh.dp:
+            raise ValueError(f"batch_size ({bs}) must be divisible by dp ({mesh.dp})")
+        shard, lead = (mesh.index("dp"), mesh.dp), mesh.rank == 0
     if device_resident:
         train_src = DeviceWindowSource(train_dataset, device)
         val_src = DeviceWindowSource(val_dataset, device)
@@ -355,18 +394,18 @@ def fit(
 
     logger = {"MSELoss": [], "r2_score": [], "r2_score_val": []}
     step_size, gamma = config.scheduler_config
-    bs = config.batch_size
     for epoch in range(start_epoch, config.num_epochs + 1):
         set_learning_rate(
             optimizer, step_lr(config.learning_rate, step_size, gamma, epoch - 1)
         )
         losses, r2s = [], []
         if device_resident:  # batch_iterator's order, by window start
-            batches = ((torch.as_tensor(idx),) for idx in batch_indices(
-                train_src.n, bs, seed=config.seed, epoch=epoch))
+            batches = ((torch.as_tensor(shard_indices(idx, bs, *shard)),)
+                       for idx in batch_indices(train_src.n, bs, seed=config.seed,
+                                                epoch=epoch))
         else:
             batches = async_batches(train_dataset, bs, shuffle=True, seed=config.seed,
-                                    epoch=epoch, device=device)
+                                    epoch=epoch, device=device, shard=shard)
         for batch in batches:
             state, metrics = train_step(params, state, *batch, rng=rng)
             losses.append(metrics["loss"])
@@ -376,27 +415,28 @@ def fit(
         # last sample and only the valid per-sample scores are kept
         val_scores = []
         if device_resident:
-            val_batches = ((torch.as_tensor(idx),) for idx in batch_indices(
-                val_src.n, bs, shuffle=False, drop_last=False))
+            val_batches = ((torch.as_tensor(shard_indices(idx, bs, *shard)),)
+                           for idx in batch_indices(val_src.n, bs, shuffle=False,
+                                                    drop_last=False))
         else:
-            val_batches = async_batches(val_dataset, bs, shuffle=False,
-                                        drop_last=False, device=device)
-        for batch in val_batches:
-            n_valid = batch[0].shape[0]
-            per_sample, _ = eval_step(params, state, *_pad_batch(batch, bs))
-            val_scores.append(per_sample[:n_valid])
+            val_batches = async_batches(val_dataset, bs, shuffle=False, drop_last=False,
+                                        device=device, shard=shard)
+        n_val = val_src.n if device_resident else len(val_dataset)
+        for batch, start in zip(val_batches, range(0, n_val, bs)):
+            per_sample, _ = eval_step(params, state, *batch)
+            val_scores.append(per_sample[: min(bs, n_val - start)])
 
         logger["MSELoss"].append(float(torch.stack(losses).mean()))
         logger["r2_score"].append(float(torch.stack(r2s).mean()))
         logger["r2_score_val"].append(float(torch.cat(val_scores).mean()))
-        if verbose:
+        if verbose and lead:
             print(
                 f"Epoch: {epoch}, Loss: {logger['MSELoss'][-1]:.5f}, "
                 f"R2T: {logger['r2_score'][-1]:.5f}, "
                 f"R2V: {logger['r2_score_val'][-1]:.5f}"
             )
 
-        if config.checkpoint_every and epoch % config.checkpoint_every == 0:
+        if lead and config.checkpoint_every and epoch % config.checkpoint_every == 0:
             lr_now = step_lr(config.learning_rate, step_size, gamma, epoch - 1)
             save_checkpoint(
                 os.path.join(config.snapshot_dir, f"epoch-{epoch:03d}"),
@@ -406,15 +446,15 @@ def fit(
             if verbose:
                 print("Learning Rate:", [lr_now])
 
-    # reference logger.npy: three consecutive np.save's in one file
-    os.makedirs(config.snapshot_dir, exist_ok=True)
-    with open(os.path.join(config.snapshot_dir, "logger.npy"), "wb") as f:
-        np.save(f, np.array(logger["MSELoss"]))
-        np.save(f, np.array(logger["r2_score"]))
-        np.save(f, np.array(logger["r2_score_val"]))
+    if lead:  # reference logger.npy: three consecutive np.save's in one file
+        os.makedirs(config.snapshot_dir, exist_ok=True)
+        with open(os.path.join(config.snapshot_dir, "logger.npy"), "wb") as f:
+            np.save(f, np.array(logger["MSELoss"]))
+            np.save(f, np.array(logger["r2_score"]))
+            np.save(f, np.array(logger["r2_score_val"]))
 
     elapsed = time.time() - since
-    if verbose:
+    if verbose and lead:
         print(f"Training complete in {elapsed // 60:.0f}m {elapsed % 60:.0f}s")
     return {
         "params": params,

@@ -5,7 +5,9 @@ SAME data-gradient conv (B3), and the two training routes built on them
 (the whole-scan BPTT and the per-cell Functions); the serving loops
 replayed as CUDA graphs against their eager bodies; and the UNet's forward
 on the card against the CPU, and its 6-channel closed loop as graph
-replays against its eager body.
+replays against its eager body; parallel/: B1 on halo-extended tiles
+against the whole frame, the sharded rollout and closed loop on a one-rank
+NCCL group, and (with two cards) two NCCL ranks.
 
 Needs an NVIDIA GPU and nvcc; every test here skips without a CUDA device.
 On a machine with a card, from the repository root:
@@ -949,3 +951,117 @@ def test_graph_unet6_feedback_chunk_equals_eager(device):
     _, _, p_g = run(params, state, prev_g, frames[:5])
     _, _, p_e = run.eager(params, state, prev_g, frames[:5])
     assert torch.equal(p_g, p_e) and run.runner.captures == 2
+
+
+# ---- parallel/: B1 on halo-extended tiles, one-rank NCCL, two ranks ----
+
+# the three serving layers of the canonical model (C = 62), B = 1
+SERVING_LAYERS = [(1, 100, 154, 62 + 64, 64, 5), (1, 100, 154, 64 + 32, 32, 3),
+                  (1, 100, 154, 32 + 16, 16, 3)]
+
+
+@pytest.mark.parametrize("tiles", [(1, 1), (2, 2), (2, 7), (5, 2)], ids=lambda t: "%dx%d" % t)
+@pytest.mark.parametrize("shape", SERVING_LAYERS, ids=lambda s: f"k{s[-1]}-hid{s[-2]}")
+def test_tiled_cell_on_the_card_equals_the_full_grid(device, shape, tiles):
+    """B1 (bf16) on every halo-extended tile of a (lat, lon) cut of the
+    100 x 154 frame (halos sliced from the zero-padded frame; tiles such as
+    54 x 81, 54 x 26, 24 x 81, and at (1, 1) the 104 x 158 / 102 x 156
+    frame of the one-rank sharded path) agrees with the plain cell on its
+    inputs (|d| <= 1e-3, B1's limit), and the tiles stitched equal B1 on
+    the whole frame bit for bit: a pixel's sum does not depend on where it
+    lies in a tile."""
+    import torch.nn.functional as F
+
+    B, H, W, cin, hid, k = shape
+    lat, lon = tiles
+    p, th, tw = k // 2, H // lat, W // lon
+    xh, c, w, b = _cell_inputs(device, torch.bfloat16, *shape)
+    h_full, c_full = fused_cell_forward(xh, c, w, b)
+    xp, cp = (F.pad(t, (0, 0, p, p, p, p)) for t in (xh, c))
+    h_st, c_st = torch.empty_like(h_full), torch.empty_like(c_full)
+    for i in range(lat):
+        for j in range(lon):
+            rows, cols = slice(i * th, i * th + th + 2 * p), slice(j * tw, j * tw + tw + 2 * p)
+            tile = (xp[:, rows, cols].contiguous(), cp[:, rows, cols].contiguous(), w, b)
+            ht, ct = fused_cell_forward(*tile)
+            hp, cpl = fused_cell_forward_plain(*tile)
+            assert (ht - hp).abs().max().item() <= 1e-3
+            assert (ct - cpl).abs().max().item() <= 1e-3
+            h_st[:, i * th:(i + 1) * th, j * tw:(j + 1) * tw] = ht[:, p:p + th, p:p + tw]
+            c_st[:, i * th:(i + 1) * th, j * tw:(j + 1) * tw] = ct[:, p:p + th, p:p + tw]
+    assert torch.equal(h_st, h_full) and torch.equal(c_st, c_full)
+
+
+@pytest.fixture
+def nccl_world1(device, tmp_path):
+    """A one-rank NCCL group in this process, destroyed after the test."""
+    from nasa_niswan_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed(f"file://{tmp_path}/store", 1, 0, device_type="cuda")
+    try:
+        yield make_mesh()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _max_std(got, want):
+    assert got.shape == want.shape
+    return ((got - want).float().abs().max() / want.float().std()).item()
+
+
+def test_sharded_rollout_world1_nccl(device, nccl_world1):
+    """On a one-rank NCCL mesh (1, 1, 1) the sharded rollout (two chained
+    chunks) and the sharded closed loop equal the graph-replayed
+    single-device rollout and closed-loop chunk: the same B1 launches on
+    the same data, so bit-equal is expected and max |d| <= 1e-6 of the std
+    is held (TOL_CHUNK of chip_smoke.py), predictions and carries."""
+    from nasa_niswan_tpu_torch.evalx.evaluate import (
+        make_closed_loop_chunk,
+        zero_closed_loop_state,
+    )
+    from nasa_niswan_tpu_torch.parallel import spatial
+
+    mesh = nccl_world1
+    cfg = ConvLSTMConfig(in_channels=8, hidden_channels=(16, 8, 8), kernel_sizes=(5, 3, 3),
+                         compute_dtype="bfloat16")
+    params = convlstm_init(torch.Generator().manual_seed(0), cfg, device=device)
+    rng = np.random.default_rng(6)
+    f = torch.tensor(rng.standard_normal((1, 12, 8, 16, 24)), dtype=torch.float32,
+                     device=device)
+    norm = Normalizer(np.zeros(8, np.float32), np.ones(8, np.float32), 0.2, 1.5)
+    geo = dict(padded_shape=(20, 28), grid_shape=(16, 24))
+    sh = spatial.make_sharded_rollout_fn(cfg, norm, mesh, **geo)
+    ref = make_rollout_fn(cfg, norm, **geo)
+    s_sh = s_ref = None
+    for part in (f[:, :6], f[:, 6:]):
+        p_sh, s_sh = sh(params, part, s_sh)
+        p_ref, s_ref = ref(params, part, s_ref)
+        assert _max_std(p_sh, p_ref) <= 1e-6
+    for (h, c), (rh, rc) in zip(spatial.gather_state(s_sh, mesh), s_ref):
+        assert _max_std(h, rh) <= 1e-6 and _max_std(c, rc) <= 1e-6
+    fb_norm = Normalizer(np.zeros(7, np.float32), np.ones(7, np.float32), 0.2, 1.5)
+    prev = f[0, 0, :1] * 0.1
+    x = f[0, :, :7]
+    st_r, prev_r, fb_r = make_closed_loop_chunk(cfg, fb_norm, **geo)(
+        params, zero_closed_loop_state(cfg, (20, 28), device), prev, x)
+    st_s, prev_s, fb_s = spatial.make_sharded_feedback_rollout(cfg, fb_norm, mesh, **geo)(
+        params, None, prev, x)
+    assert _max_std(fb_s, fb_r) <= 1e-6 and _max_std(prev_s, prev_r) <= 1e-6
+    for (h, c), (rh, rc) in zip(spatial.gather_state(st_s, mesh), st_r):
+        assert _max_std(h, rh) <= 1e-6 and _max_std(c, rc) <= 1e-6
+
+
+def test_two_rank_nccl_sharded_rollout_and_dp_step(device):
+    """Two ranks on two cards (launch.spawn, NCCL): the (1, 1, 2) sharded
+    rollout against the single-device rollout (max |d| <= 1e-6 of the std:
+    B1's sums do not depend on the tile), the dp = 2 step's loss against
+    the one-rank step's (chip_smoke.py's two-rank phase, small)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one card per rank")
+    import chip_smoke
+    from nasa_niswan_tpu_torch.parallel import launch
+
+    out = launch.spawn(chip_smoke.two_rank_phase, 2, "cuda", "cuda", dict(
+        C=8, hidden=(16, 8, 8), kernels=(5, 3, 3), grid=(16, 24), padded=(20, 28),
+        steps=6, bs=4, T=4), timeout=600)
+    assert out[0]["rollout_max"] <= 1e-6 and out[0]["dp_loss_rel"] <= 1e-5

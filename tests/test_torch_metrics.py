@@ -48,6 +48,19 @@ def test_pair_metrics_match_jax(fields, name, as_tensor):
     _close(got, getattr(jm, name)(gts, pds))
 
 
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_r2_from_summed_stats_matches_jax_r2(fields, parts):
+    """R^2 rebuilt from the sufficient statistics summed over parts (the
+    data-parallel ranks' batches) is the JAX package's R^2 of the whole:
+    1 - R^2 within 1e-5 relative (a sum of squares about 0 against one
+    about the mean)."""
+    gts, pds, _, _ = fields
+    stats = sum(tm.r2_stats(torch.from_numpy(g), torch.from_numpy(p))
+                for g, p in zip(np.array_split(gts, parts), np.array_split(pds, parts)))
+    np.testing.assert_allclose(1.0 - tm.r2_from_stats(stats).item(),
+                               1.0 - float(jm.r2(gts, pds)), rtol=1e-5)
+
+
 @pytest.mark.parametrize("also_lon", [False, True])
 def test_coslat_weighted_mean_matches_jax(fields, also_lon):
     gts, _, lat, _ = fields

@@ -20,6 +20,16 @@ from nasa_niswan_tpu_torch.data import ncio, ncio_native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_reader():
+    """The JAX package's native reader loaded in this worker, whatever other
+    workers build at the same time (tests/jax_native_reader.py)."""
+    import jax_native_reader
+
+    jax_native_reader.load()
+
+
 # (values, units, calendar): the units tests/test_netcdf_real.py uses, hours
 # since with fractional steps, seconds since with a time-of-day base, days
 # across Feb 28 and a year end, and the standard calendar before its base

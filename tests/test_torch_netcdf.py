@@ -23,6 +23,15 @@ PAD = (12, 20)
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _jax_native_reader():
+    """The JAX package's native reader loaded in this worker, whatever other
+    workers build at the same time (tests/jax_native_reader.py)."""
+    import jax_native_reader
+
+    jax_native_reader.load()
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
     prev = torch.get_num_threads()
     torch.set_num_threads(1)

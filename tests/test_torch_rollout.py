@@ -222,7 +222,8 @@ def test_port_imports_no_jax():
         "ops.convlstm_cell", "ops.convgrad", "ops.convlstm_bptt",
         "models.registry", "evalx.metrics", "data.synthetic", "data.catalog",
         "train.schedule", "train.checkpoint", "train.loop", "train.config",
-        "train.__main__",
+        "train.__main__", "parallel.mesh", "parallel.launch", "parallel.halo",
+        "parallel.spatial", "parallel.dp",
     ):
         assert f"nasa_niswan_tpu_torch.{name}" in modules
     code = (

@@ -3,8 +3,8 @@ against the JAX package's on the snapshots the JAX trainer writes: the
 open- and closed-loop routes give the same ``.nc`` predictions, a carry
 persisted by either package resumes in the other, a split run equals one
 run, an exported artifact serves what the live rollout serves, the
-single-step snapshots serve on their own route, and what the port does
-not serve yet raises.  Both CLIs run in-process; the port on
+single-step snapshots serve on their own route, ``--sharded`` writes the
+unsharded run on gloo ranks, and what the port does not serve raises.  Both CLIs run in-process; the port on
 the CPU (``--device cpu``).
 
 Tolerances: the two packages' predictions at atol 2e-5, that of
@@ -162,7 +162,7 @@ def test_artifact_of_another_device_is_refused(canonical_snap, tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("argv", [
-    ["--sharded", "1", "1"],
+    ["--sharded", "3", "1"],
     ["--chunk", "0"],
     ["--skip", "-1"],
     ["--steps", "5", "--chunk", "4", "--state-out", "c.npz"],
@@ -173,6 +173,54 @@ def test_serving_cli_refusals(canonical_snap, tmp_path, argv):
     argv = [a if a != "c.npz" else str(tmp_path / a) for a in argv]
     with pytest.raises(SystemExit):
         _port("--run-dir", snap, "--out", str(tmp_path / "o.nc"), *argv)
+
+
+@pytest.mark.parametrize("which", ["canonical_snap", "seq2seq_snap"])
+def test_sharded_serving_writes_the_unsharded_run(request, tmp_path, which):
+    """``--sharded 2 2`` (four gloo ranks, 10 x 14 tiles of the 20 x 28
+    padded grid) writes the unsharded run's predictions and carry, at the
+    sharded rollout's tolerance (1e-5 of the predictions' std); its carry
+    resumes an unsharded run and the reverse."""
+    snap = _snap(request.getfixturevalue(which), tmp_path, "s")
+    one, four = str(tmp_path / "one.nc"), str(tmp_path / "four.nc")
+    c1, c4 = str(tmp_path / "c1.npz"), str(tmp_path / "c4.npz")
+    _port("--run-dir", snap, "--out", one, "--chunk", "4", "--steps", "8", "--state-out", c1)
+    s4 = _port("--run-dir", snap, "--out", four, "--chunk", "4", "--steps", "8",
+               "--state-out", c4, "--sharded", "2", "2")
+    assert s4["sharded"] == [2, 2] and s4["steps"] == 8
+    (p1, t1), (p4, t4) = _read(one), _read(four)
+    assert p4.shape == p1.shape
+    assert np.max(np.abs(p4 - p1)) <= 1e-5 * p1.std()
+    np.testing.assert_array_equal(t4, t1)
+    with np.load(c1) as a, np.load(c4) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert np.max(np.abs(b[k] - a[k])) <= 1e-5 * max(a[k].std(), 1e-30), k
+    rest1, rest4 = str(tmp_path / "r1.nc"), str(tmp_path / "r4.nc")
+    _port("--run-dir", snap, "--out", rest1, "--chunk", "4", "--skip", "8", "--state-in", c4)
+    _port("--run-dir", snap, "--out", rest4, "--chunk", "4", "--skip", "8", "--state-in", c1,
+          "--sharded", "1", "2")
+    (r1, _), (r4, _) = _read(rest1), _read(rest4)
+    assert np.max(np.abs(r4 - r1)) <= 1e-5 * r1.std()
+
+
+def test_sharded_serving_refusals(tmp_path):
+    """``--sharded`` on a grid that does not tile (the canonical 100-row
+    padded grid over 3 rows of ranks), with ``--artifact``, or for a
+    single-step snapshot is refused before any rank starts."""
+    from nasa_niswan_tpu_torch.train.config import TrainConfig
+
+    canon, unet = str(tmp_path / "canon"), str(tmp_path / "unet")
+    TrainConfig(input_size=(100, 154)).dump(canon)
+    TrainConfig(model="UNet-x", input_size=(100, 154)).dump(unet)
+    for argv, msg in (
+        (["--run-dir", canon, "--sharded", "3", "1"], "must tile evenly"),
+        (["--run-dir", canon, "--sharded", "2", "1", "--artifact", "a.pt2"], "--artifact"),
+        (["--run-dir", unet, "--sharded", "2", "2"], "LSTM-family"),
+        (["--run-dir", canon, "--sharded", "2", "2", "--device", "cuda"], "4 CUDA devices"),
+    ):
+        with pytest.raises(SystemExit, match=msg):
+            t_serve(argv if "--device" in argv else [*argv, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("model", ["UNet-clisnap", "PIX2PIX-clisnap"])

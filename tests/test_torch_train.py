@@ -131,6 +131,7 @@ def test_jax_checkpoint_and_config_resume_in_port(fixture, jax_run, tmp_path):
                         dp_devices=2, snapshot_dir=str(tmp_path)).dump()
     cfg = TrainConfig.load(path)
     assert (cfg.in_channels, cfg.hidden_channels, cfg.kernel_size) == (7, (4, 3), (3, 3))
+    assert cfg.dp_devices == 2  # read, as the JAX package's key means it
     assert cfg.device == "cuda"  # a JAX file has none: the port's default
     assert tckpt.latest_epoch_dir(str(tmp_path)) == ckpt_dir
 
