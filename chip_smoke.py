@@ -170,7 +170,32 @@ Phases, each printing its own lines:
       the std).  With two cards
       or more a two-rank phase (launch.spawn, NCCL): the (1, 1, 2) sharded
       rollout against the single-device rollout and the dp = 2 step against
-      the one-rank step; with one card it says that phase was not run.
+      the one-rank step; with one card it says that phase was not run;
+  (t) training at scale, on a one-rank NCCL group made in this process
+      (destroyed at the end): the canonical step (bs 8, T 48, 8 channels,
+      hidden 64/32/16, kernels 5/3/3) through ``make_spatial_train_step``
+      on both routes, the tile being the zero-extended frame, against the
+      single-device step from the same weights and batch: per-leaf
+      gradients within TOL_GRAD of the leaf's largest (bf16 at T 48, f32 at
+      T 8), exact launch counts over 3 counted steps, ms/step on the host
+      clock and in device time and peak memory beside the single-device
+      step's; the UNet's DP step (features 64/128/256/512, bs 8, f32, its
+      BatchNorm sums all-reduced through NCCL) against the single-device
+      step: the gradients of both in f64, per leaf within TOL_T_UNET of
+      the leaf's largest of each other and of the f64 loss gradient (the
+      f32 ones printed beside them), the f32 running statistics within
+      TOL_T_UNET of each leaf's largest (on one rank the all-reduce is the
+      identity: the global statistics across ranks are held by the CPU
+      two-rank tests); an async checkpoint (train/checkpoint_async.py) of
+      the canonical model while steps run, restored bit-equal, ms/step
+      with and without it, beside a synchronous ``save_checkpoint`` of the
+      same state; B1 (plain and emit_gates), B2, its dW kernels alone and
+      B3 on the halo-extended tiles of the (1, 1), (2, 2) and (2, 7) cuts
+      at the three training layers (B = 8), each against its plain version
+      at (c)'s, (i)'s and (f)'s bounds, with kernel, plain, bound and cuDNN
+      times and the tiles summed beside the whole frame; with two cards or more the (1, 1, 2)
+      and (1, 2, 1) sharded steps against the one-rank step (two ranks,
+      NCCL); with one card it says that part was not run.
 
 Then one JSON line describing each kernel (launches summed over the counted
 main-path runs, a launch with two modes on counted once; the largest error
@@ -179,7 +204,8 @@ time the card could take for the same work; the three B1 entries and the
 conv_same entry a row per timed shape under "by_shape"; the cell_bwd entry
 the same for B2's dW kernels launched on their own, under "dw", and for its
 gate recompute (a) alone, under "recompute", each with rows under
-"by_shape"; (m)'s rows at 126 channels join them), and last the
+"by_shape"; (m)'s rows at 126 channels and (t)'s tile rows join them, B2's
+own tile rows under the cell_bwd entry's "by_shape"), and last the
 device line ``{"ok": true, "device": {...}}``.  Any failed check raises:
 the script exits non-zero and prints no result.  It
 also exits non-zero when no CUDA device is visible.
@@ -200,8 +226,8 @@ import time
 import numpy as np
 import torch
 
-from nasa_niswan_tpu_torch.bridge import tree_leaves, tree_map, tree_unflatten
-from nasa_niswan_tpu_torch.core.padding import pad_geo
+from nasa_niswan_tpu_torch.bridge import tree_leaves, tree_map, tree_paths, tree_unflatten
+from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
 from nasa_niswan_tpu_torch.data import ncio_native, pipeline
 from nasa_niswan_tpu_torch.data.dataset import (
     Normalizer,
@@ -717,13 +743,9 @@ def phase_backward(device) -> dict:
                 times["conv_same"][0] += ms[2]
                 times["conv_same"][1] += ms[3]
                 library_ms += ms[4]
-                # B2: the gate recompute and dW, two products of the conv's
-                # size; in: xh, c, dh, dc, w, b; out: dgates, dc_prev, dw, db
-                px, kk = B * H * W, k * k * cin * 4 * hid
-                work["cell_bwd"][0] += 2 * 2.0 * px * kk
-                work["cell_bwd"][1] += (px * cin * 2 + 3 * px * hid * 4 + kk * 2
-                                        + px * 4 * hid * 2 + px * hid * 4 + kk * 4
-                                        + 2 * 16 * hid)
+                b2 = cell_bwd_work(B, H, W, cin, hid, k)
+                work["cell_bwd"][0] += b2[0]
+                work["cell_bwd"][1] += b2[1]
                 # B3: dgates (B,H,W,4h) bf16 x w' (k,k,4h,Cin) bf16 -> f32
                 b3 = conv_work(B, H, W, 4 * hid, cin, k)
                 work["conv_same"][0] += b3[0]
@@ -745,6 +767,14 @@ def phase_backward(device) -> dict:
     out["cell_bwd"]["dw"] = phase_dw(device)
     out["cell_bwd"]["recompute"] = _recompute_entry(rec_rows)
     return out
+
+
+def cell_bwd_work(B, H, W, cin, hid, k):
+    """(FLOPs, bytes) of B2: the gate recompute and dW, two products of the
+    conv's size; in xh, c, dh, dc, w, b; out dgates, dc_prev, dw, db."""
+    px, kk = B * H * W, k * k * cin * 4 * hid
+    return 2 * 2.0 * px * kk, (px * cin * 2 + 3 * px * hid * 4 + kk * 2 + px * 4 * hid * 2
+                               + px * hid * 4 + kk * 4 + 2 * 16 * hid)
 
 
 def recompute_work(B, H, W, cin, hid, k):
@@ -1452,7 +1482,7 @@ def _packed_config2(root):
 
 
 def _cell_alone(device, gen, stats, shape, tag0, launches, modes=("plain", "gates"),
-                recompute=None) -> None:
+                recompute=None, **extra) -> None:
     """B1 in ``modes`` (plain, emit_gates) and, with ``recompute`` (its
     launches), B2's gate recompute (a) alone at ``shape``, bf16, against
     their plain versions with (c)'s, (i)'s and (f)'s tolerances; each row
@@ -1484,7 +1514,7 @@ def _cell_alone(device, gen, stats, shape, tag0, launches, modes=("plain", "gate
             ms = cuda_ms(lambda: fn(xh, c, w, b), 10)
             plain_ms = cuda_ms(lambda: plain(xh, c, w, b), 3)
         row = _row(shape, ms, plain_ms, cell_work(*shape, gates=mode == "gates"), plan=plan,
-                   max_abs_err=max(err), launches_per_step=launches[mode])
+                   max_abs_err=max(err), launches_per_step=launches[mode], **extra)
         stats[name]["by_shape"].append(row)
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], *err)
         print(line + f"; bit-identical reruns; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -2777,6 +2807,446 @@ def two_rank_phase(rank: int, device_type: str, size: dict) -> dict:
     return out
 
 
+# (t) training at scale: the canonical step with the grid sharded, on a
+# one-rank NCCL mesh (the tile is the zero-extended frame); B2, its dW
+# kernels and B3 on the halo-extended tiles of TILE_MESHES; the one-rank
+# UNet DP step (global BatchNorm through NCCL); an async checkpoint while
+# steps run
+T_STEPS = 3
+TOL_T_UNET = 1e-5
+UNET_NOISE = ("conv1/b", "conv2/b")  # conv biases ahead of BatchNorm: zero gradient
+UNET_SHOWN = "dec4/block/conv1/w"  # the leaf farthest from its f64 value in earlier runs
+
+
+def _leaf_rel(got, want):
+    """Per leaf ``_rel_max``."""
+    return [_rel_max(g, w) for g, w in zip(got, want)]
+
+
+def _one_step_grads(step_of, bundle, init, x_raw, y_raw):
+    """The gradients one step leaves in ``.grad`` (after its all-reduce)
+    from a copy of ``init``, and the step's loss."""
+    p = _copy_params(init)
+    _, m = step_of(bundle, p)(p, None, x_raw, y_raw)
+    return [t.grad.detach().clone() for t in param_leaves(p)], m["loss"].item()
+
+
+def _timed_host(step, params, batches):
+    """Host-clock ms/step over ``batches`` (synchronised), and the last
+    metrics."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x_raw, y_raw in batches:
+        _, m = step(params, None, x_raw, y_raw)
+    torch.cuda.synchronize()
+    return 1000 * (time.perf_counter() - t0) / len(batches), m
+
+
+def _spatial_steps(device, train, mesh, smi) -> None:
+    """(t) the canonical step sharded over the one-rank mesh, both routes,
+    against the single-device step: per-leaf gradients (bf16 at T 48, f32
+    at T 8) within TOL_GRAD of the leaf's largest, exact launch counts over
+    T_STEPS counted steps, ms/step (host clock and profiler device time)
+    and peak memory beside the single-device step's."""
+    from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
+
+    src, ds, geo, init, kw = (train[k] for k in ("src", "ds", "geo", "init", "kw"))
+    order = train["order"]
+    batches = [src.gather(order[s * TRAIN_BS:(s + 1) * TRAIN_BS]) for s in range(T_STEPS + 1)]
+    x_raw, y_raw = batches[0]
+
+    def sharded(bundle, p):
+        return make_spatial_train_step(bundle, ds.normalizer,
+                                       make_optimizer(p, 1e-3, (0.5, 0.999)), mesh, **geo)
+
+    def one(bundle, p):
+        return make_train_step(bundle, ds.normalizer, make_optimizer(p, 1e-3, (0.5, 0.999)),
+                               **geo)
+
+    for route, remat in (("remat", True), ("per-cell", False)):
+        for dtype, T in (("bfloat16", TRAIN_T), ("float32", GRAD_T)):
+            bundle = build_model("LSTM-smoke", remat=remat, **dict(kw, compute_dtype=dtype))
+            g_sh, l_sh = _one_step_grads(sharded, bundle, init, x_raw[:, :T], y_raw)
+            g_one, l_one = _one_step_grads(one, bundle, init, x_raw[:, :T], y_raw)
+            rel = _leaf_rel(g_sh, g_one)
+            print(f"[t] sharded step (1, 1, 1), {route} route, {dtype}, T={T}: loss "
+                  f"{l_sh:.6f} vs single-device {l_one:.6f}; per-leaf max |d g| / max |g| "
+                  f"{max(rel):.3e} (tol {TOL_GRAD[dtype]:g}); leaves "
+                  f"{[f'{r:.1e}' for r in rel]}")
+            check(max(rel) <= TOL_GRAD[dtype] and abs(l_sh - l_one) <= 1e-3 * abs(l_one),
+                  f"[t] sharded {route} {dtype} gradients {max(rel):.3e}, loss {l_sh} vs "
+                  f"{l_one}")
+            del g_sh, g_one
+        bundle = build_model("LSTM-smoke", remat=remat, **kw)
+        times = {}
+        for name, make in (("sharded", sharded), ("single-device", one)):
+            p = _copy_params(init)
+            step = make(bundle, p)
+            step(p, None, *batches[0])  # warm-up: Adam's state, allocator growth
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if name == "sharded":
+                _set_counts(0)
+            ms, m = _timed_host(step, p, batches[1:])
+            if name == "sharded":
+                n = len(HIDDEN) * TRAIN_T * T_STEPS
+                want = (dict(convlstm_cell=n, cell_bwd=n, conv_same=n) if remat else
+                        dict(convlstm_cell_gates=n, conv_same=n - T_STEPS, conv_dw=n))
+                _expect_counts(f"[t] sharded step, {route} route", **want)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            dev_ms, _ = _profile(lambda: step(p, None, *batches[1]))
+            check(bool(torch.isfinite(m["loss"])), f"[t] {name} {route} loss")
+            times[name] = (ms, dev_ms, peak)
+            del p, step
+            torch.cuda.empty_cache()
+        (a, da, pa), (b, db, pb) = times["sharded"], times["single-device"]
+        print(f"[t] {route} route (bs {TRAIN_BS}, T {TRAIN_T}, C={TRAIN_C}, bf16), "
+              f"{T_STEPS} steps: sharded (1 rank) {a:.1f} ms/step host clock, {da:.1f} ms "
+              f"device (profiler kernel sum), peak {pa:.2f} GiB; single-device {b:.1f} "
+              f"ms/step, {db:.1f} ms device, peak {pb:.2f} GiB on {smi}")
+
+
+def _b2_alone(device, gen, shape, tag0, **extra) -> dict:
+    """B2 (``fused_cell_bwd``: gate recompute, elementwise backward, dW) at
+    one shape, bf16, on the wgmma plan, against its plain version with
+    (f)'s bounds, reruns bit-identical; the shape's row (kernel, plain and
+    bound times, the largest |error|)."""
+    B, H, W, cin, hid, k = shape
+    plan = check_wgmma(shape, f"{tag0} cell_bwd")
+    rand = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa: E731
+    xh, c, dh, dc = rand(B, H, W, cin).bfloat16(), rand(B, H, W, hid), rand(B, H, W, hid), \
+        rand(B, H, W, hid)
+    w = (rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5).bfloat16()
+    b = 0.1 * rand(4 * hid)
+    args = (xh, c, dh, dc, w, b)
+    got, again, want = fused_cell_bwd(*args), fused_cell_bwd(*args), fused_cell_bwd_plain(*args)
+    torch.cuda.synchronize()
+    tag = f"B={B} H={H} W={W} Cin={cin} hid={hid} k={k} bfloat16"
+    check(all(torch.equal(x, y) for x, y in zip(got, again)), f"cell_bwd reruns differ at {tag}")
+    d = {"dgates": _max_excess(got[0], want[0], 2.0**-7),
+         "dc_prev": (got[1] - want[1]).abs().max().item(),
+         "dw": _rel_max(got[2], want[2]), "db": _rel_max(got[3], want[3])}
+    check(d["dgates"] <= 1e-5, f"{tag0} dgates {d['dgates']:.3e} at {tag}")
+    for name in ("dc_prev", "dw", "db"):
+        check(d[name] <= BWD_BOUNDS[name], f"{tag0} {name} {d[name]:.3e} at {tag}")
+    err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+    ms = cuda_ms(lambda: fused_cell_bwd(*args), 5)
+    plain_ms = cuda_ms(lambda: fused_cell_bwd_plain(*args), 5)
+    row = _row(shape, ms, plain_ms, cell_bwd_work(*shape), plan=plan, library_ms=None,
+               max_abs_err=err, **extra)
+    print(f"{tag0} cell_bwd {tag}: dgates excess {d['dgates']:.3e}, |d dc_prev| "
+          f"{d['dc_prev']:.3e}, rel |d dw| {d['dw']:.3e}, |d db| {d['db']:.3e}; "
+          f"bit-identical reruns; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms, {plan} mainloop")
+    del args, got, again, want
+    return row
+
+
+def _frame_ms(device, gen, shape) -> tuple:
+    """Kernel ms of B2, dW and B3 on the whole frame at a training layer,
+    bf16 (CUDA events)."""
+    B, H, W, cin, hid, k = shape
+    rand = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa: E731
+    xh, c = rand(B, H, W, cin).bfloat16(), rand(B, H, W, hid)
+    w = (rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5).bfloat16()
+    b, g = 0.1 * rand(4 * hid), rand(B, H, W, 4 * hid).bfloat16()
+    w_flip = flip_kernel(w)
+    ms = (cuda_ms(lambda: fused_cell_bwd(xh, c, c, c, w, b), 5),
+          cuda_ms(lambda: convgrad.conv_dw(xh, g, k), 5),
+          cuda_ms(lambda: conv_same(g, w_flip), 5))
+    del xh, c, w, b, g, w_flip
+    return ms
+
+
+def _tile_kernels(device, stats, smi) -> None:
+    """(t) B1 (plain, the remat route's forward, and emit_gates, the
+    per-cell route's), B2, its dW kernels alone and B3 on the halo-extended
+    tiles of each (lat, lon) cut of TILE_MESHES at the three training
+    layers (B=8), each against its plain version at (c)'s, (i)'s and (f)'s
+    bounds, with kernel, plain, bound and cuDNN times; the cut's tiles
+    summed beside the whole frame.  The rows join the B1 entries' and the
+    cell_bwd, dw and conv_same entries' by_shape."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    entry = stats["cell_bwd"]
+    b2_rows = entry.setdefault("by_shape", [])
+    for shape in BWD_SHAPES[:3]:
+        B, H, W, cin, hid, k = shape
+        whole = _frame_ms(device, gen, shape)
+        for tiles in TILE_MESHES:
+            n, p = tiles[0] * tiles[1], k // 2
+            th, tw = H // tiles[0] + 2 * p, W // tiles[1] + 2 * p
+            per = f"{n} x {TRAIN_T} per sharded step on {tiles[0]} x {tiles[1]} tiles"
+            extra = dict(tiles=list(tiles), launches_per_step=per)
+            _cell_alone(device, gen, stats, (B, th, tw, cin, hid, k), "[t]",
+                        {"plain": per + " (remat route)", "gates": per + " (per-cell route)"},
+                        tiles=list(tiles))
+            r2 = _b2_alone(device, gen, (B, th, tw, cin, hid, k), "[t]", **extra)
+            rdw = _dw_alone(device, gen, (B, th, tw, cin, 4 * hid, k), "[t]", **extra)
+            rows3 = []
+            e3 = _b3_alone(device, gen, rows3, shapes=((B, th, tw, 4 * hid, cin, k),),
+                           tag0="[t]", **extra)
+            entry["max_abs_err"] = max(entry["max_abs_err"], r2["max_abs_err"])
+            entry["dw"]["max_abs_err"] = max(entry["dw"]["max_abs_err"],
+                                             rdw.pop("max_abs_err"))
+            stats["conv_same"]["max_abs_err"] = max(stats["conv_same"]["max_abs_err"], e3)
+            del rdw["flops"], rdw["bytes"]
+            b2_rows.append(r2)
+            entry["dw"]["by_shape"].append(rdw)
+            stats["conv_same"]["by_shape"].extend(rows3)
+            ms = (r2["ms"], rdw["ms"], rows3[0]["ms"])
+            print(f"[t] layer Cin={cin} hid={hid} k={k} on {tiles[0]} x {tiles[1]} tiles of "
+                  f"{th} x {tw} (pixels x{n * th * tw / (H * W):.3f} of the frame): {n} "
+                  f"tiles of B2 {n * ms[0]:.4f} ms, dW {n * ms[1]:.4f} ms, B3 "
+                  f"{n * ms[2]:.4f} ms vs the whole {H} x {W} frame's {whole[0]:.4f}, "
+                  f"{whole[1]:.4f}, {whole[2]:.4f} ms (x{n * ms[0] / whole[0]:.3f}, "
+                  f"x{n * ms[1] / whole[1]:.3f}, x{n * ms[2] / whole[2]:.3f}) on {smi}")
+    torch.cuda.empty_cache()
+
+
+def unet_dp_errors(unet, p0, s0, batch, normalizer, padded, grid, mesh) -> dict:
+    """The UNet's DP step on ``mesh`` and the single-device step from
+    ``p0`` / ``s0`` on one raw batch, each in f32 and in f64 (weights,
+    state and batch cast), against the gradient of the same loss through
+    ``unet.apply`` in f64 (no step, no mesh).  Per leaf with a nonzero
+    exact gradient, relative to that leaf's largest |g64| (path -> max
+    |g - g64| / max |g64|): ``f64_dp``, ``f64_one``, ``f64_d`` (dp against
+    one, both f64); ``err_dp``, ``err_one`` (the f32 steps).  ``state`` =
+    the f32 running statistics' largest per-leaf |d| / max |one|;
+    ``noise`` = the f32 conv biases ahead of a BatchNorm (a zero gradient in
+    exact arithmetic), |g| over the model's largest gradient; the f32
+    losses; the dp step's f32 state."""
+    paths = tree_paths(p0)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        cast = lambda t: t.detach().to(dtype, copy=True)  # noqa: E731  (Adam steps in place)
+        for name, m in (("dp", mesh), ("one", None)):
+            p = tree_map(lambda t: cast(t).requires_grad_(True), p0)
+            step = make_train_step(unet, normalizer, make_optimizer(p, 1e-3, (0.5, 0.999)),
+                                   padded_shape=padded, grid_shape=grid, mesh=m)
+            state, metrics = step(p, tree_map(cast, s0), *(cast(t) for t in batch))
+            out[name, dtype] = ([t.grad.detach().clone() for t in param_leaves(p)],
+                                tree_leaves(state), metrics["loss"].item(), state)
+            del p, step
+    x, y = make_preprocess_fn(normalizer, padded)(*(t.double() for t in batch))
+    p64 = tree_map(lambda t: t.detach().double().requires_grad_(True), p0)
+    pred, _ = unet.apply(p64, tree_map(lambda t: t.double(), s0), x, training=True)
+    d = y - crop_to_grid(pred[..., 0], grid)
+    g64 = torch.autograd.grad(torch.mean(d * d) + torch.mean(d.abs()), param_leaves(p64))
+    del p64, pred, d
+    scale = max(g.abs().max().item() for g in g64)
+
+    def err(got, want=g64):
+        return {path: (a.double() - b.double()).abs().max().item() / c.abs().max().item()
+                for path, a, b, c in zip(paths, got, want, g64)
+                if not path.endswith(UNET_NOISE)}
+
+    g_dp, s_dp, l_dp, state_dp = out["dp", torch.float32]
+    g_one, s_one, l_one, _ = out["one", torch.float32]
+    g_dp64, g_one64 = out["dp", torch.float64][0], out["one", torch.float64][0]
+    return dict(
+        f64_dp=err(g_dp64), f64_one=err(g_one64), f64_d=err(g_dp64, g_one64),
+        err_dp=err(g_dp), err_one=err(g_one),
+        state=max(_leaf_rel(s_dp, s_one)),
+        noise=max(max(a.abs().max().item(), b.abs().max().item()) / scale
+                  for path, a, b in zip(paths, g_dp, g_one) if path.endswith(UNET_NOISE)),
+        loss_dp=l_dp, loss_one=l_one, state_dp=state_dp)
+
+
+def _unet_dp_step(device, mesh, smi) -> None:
+    """(t) the UNet's DP step on the one-rank mesh (its BatchNorms' sums
+    all-reduced through NCCL) against the single-device step at (r)'s
+    width (``unet_dp_errors``).  On one rank the all-reduce is the
+    identity: the global statistics across ranks are held by the CPU
+    two-rank tests; here the DP code path (BatchNorm from all-reduced sums,
+    the gradient all-reduce) is held against the single-device one.  In
+    f32 a leaf whose gradient is a small difference of large terms is up to
+    7e-2 of its own largest from its f64 value in either path (printed, not
+    held), so the gradients are held in f64, per leaf within TOL_T_UNET of
+    the leaf's largest: dp against one device and both against the f64
+    gradient of the loss.  In f32: the new running statistics within
+    TOL_T_UNET of each leaf's largest, the conv biases ahead of a BatchNorm
+    below 1e-6 of the largest gradient in both, the losses rel 1e-5.
+    ms/step of both, f32."""
+    data = synthetic_e33oma_90d(T=R_FIT_T, H=GRID[0], W=GRID[1], seed=SEED)
+    ds = SingleStepDataset(data, period="train")
+    unet = build_model("UNet-t", in_channels=5, unet_features=R_FEATS)
+    p0, s0 = unet.init(torch.Generator().manual_seed(SEED), device)
+    batches = [tuple(torch.as_tensor(np.stack(a), device=device) for a in zip(
+        *(ds[i] for i in range(s * R_BS, (s + 1) * R_BS)))) for s in range(T_STEPS + 1)]
+    e = unet_dp_errors(unet, p0, s0, batches[0], ds.normalizer, R_PADDED, GRID, mesh)
+    ms = {}
+    for name, m in (("dp", mesh), ("one", None)):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True), p0)
+        step = make_train_step(unet, ds.normalizer, make_optimizer(p, 1e-3, (0.5, 0.999)),
+                               padded_shape=R_PADDED, grid_shape=GRID, mesh=m)
+        step(p, s0, *batches[0])  # warm-up
+        ms[name], _ = _timed_host(lambda q, _s, x, y: step(q, s0, x, y), p, batches[1:])
+        del p, step
+    f64 = {k: max(e[k].values()) for k in ("f64_dp", "f64_one", "f64_d")}
+    dp, one = e["err_dp"], e["err_one"]
+    shown = dict.fromkeys(k for k in (UNET_SHOWN, max(dp, key=dp.get), max(one, key=one.get))
+                          if k in dp)
+    print(f"[t] UNet DP step (1 rank, BatchNorm sums all-reduced over NCCL; features "
+          f"{R_FEATS}, bs {R_BS}, {R_PADDED[0]}x{R_PADDED[1]}) vs the single-device step: "
+          f"f32 loss {e['loss_dp']:.6f} vs {e['loss_one']:.6f}; f64 gradients, largest "
+          f"per-leaf max |d g| / max |g| of the leaf over {len(dp)} leaves: dp vs one "
+          f"{f64['f64_d']:.3e}, dp vs the f64 loss gradient {f64['f64_dp']:.3e}, one vs it "
+          f"{f64['f64_one']:.3e} (tol {TOL_T_UNET:g}); f32 gradients against the f64 loss "
+          f"gradient, per leaf (dp, one device): "
+          + "; ".join(f"{k} {dp[k]:.3e}, {one[k]:.3e}" for k in shown)
+          + f"; running statistics per leaf {e['state']:.3e} (tol {TOL_T_UNET:g}); conv "
+          f"biases ahead of BatchNorm |g| / max |g| {e['noise']:.3e} (<= 1e-6); "
+          f"{ms['dp']:.1f} vs {ms['one']:.1f} ms/step (host clock, f32) on {smi}")
+    check(max(f64.values()) <= TOL_T_UNET and e["state"] <= TOL_T_UNET
+          and e["noise"] <= 1e-6 and abs(e["loss_dp"] - e["loss_one"]) <= 1e-5 * e["loss_one"],
+          f"[t] UNet DP step: {dict((k, v) for k, v in e.items() if k != 'state_dp')}")
+    torch.cuda.empty_cache()
+
+
+ASYNC_REPS = 5
+
+
+def _async_save(device, train, smi) -> None:
+    """(t) an async checkpoint of the canonical model while steps run: the
+    restored parameters and Adam moments bit-equal to those at the first
+    save.  What a save costs the step loop, ASYNC_REPS times in turn (the
+    medians printed): T_STEPS steps alone; ``save()`` and the same number
+    of steps after it; a synchronous ``save_checkpoint`` of the same state
+    (what the npz backend does at an epoch's end) and the steps after it;
+    the cost is the time over the steps alone."""
+    from nasa_niswan_tpu_torch.train.checkpoint_async import AsyncCheckpointer
+
+    bundle = build_model("LSTM-smoke", **train["kw"])
+    params = _copy_params(train["init"])
+    opt = make_optimizer(params, 1e-3, (0.5, 0.999))
+    step = make_device_train_step(bundle, train["ds"].normalizer, opt, train["src"],
+                                  **train["geo"])
+    order = train["order"]
+    _train_run(step, params, 1, order)  # warm-up: Adam's state
+
+    def steps():
+        return _train_run(step, params, T_STEPS, order[TRAIN_BS:])[0]
+
+    def timed(save):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save()
+        t_call = time.perf_counter() - t0
+        return t_call, t_call + steps()
+
+    root = tempfile.mkdtemp(prefix="niswan_ckpt_")
+    try:
+        ck = AsyncCheckpointer(os.path.join(root, "orbax"))
+        rows = []
+        for rep in range(ASYNC_REPS):
+            plain = steps()
+            if rep == 0:
+                at_save = [t.detach().clone() for t in param_leaves(params)]
+                moments = [opt.state[t]["exp_avg"].clone() for t in param_leaves(params)]
+            call, with_async = timed(lambda: ck.save(rep + 1, params, opt, learning_rate=1e-3))
+            if rep == 0:  # the first save against the values it was given
+                ck.wait()
+                restored, opt_state, meta = ck.restore_latest(_copy_params(train["init"]))
+                same = all(torch.equal(a, b) for a, b in zip(param_leaves(restored), at_save))
+                same_m = all(np.array_equal(a, b.cpu().numpy())
+                             for a, b in zip(opt_state["exp_avg"], moments))
+                moved = not all(torch.equal(a, b)
+                                for a, b in zip(param_leaves(params), at_save))
+            ck.wait()
+            sync, with_sync = timed(lambda: save_checkpoint(
+                os.path.join(root, "npz"), params, opt, learning_rate=1e-3, epoch=rep + 1))
+            rows.append([1000 * v for v in (plain, call, with_async - plain, sync,
+                                            with_sync - plain)])
+        committed = ck.committed()
+        ck.close()
+        plain, call, cost_async, sync, cost_sync = np.median(np.array(rows), axis=0)
+        print(f"[t] async checkpoint of the canonical model ({committed}): the first save's "
+              f"restored parameters {'bit-equal' if same else 'differ'} and Adam moments "
+              f"{'bit-equal' if same_m else 'differ'} to those at the save; the steps after "
+              f"it moved the live ones: {moved}; medians of {ASYNC_REPS} (host clock): "
+              f"{T_STEPS} steps {plain / T_STEPS:.1f} ms/step alone; save() returned in "
+              f"{call:.2f} ms, its cost to the loop (the save and the {T_STEPS} steps after "
+              f"it, over the steps alone) {cost_async:.2f} ms; synchronous save_checkpoint "
+              f"{sync:.2f} ms, its cost {cost_sync:.2f} ms; per rep (steps, save(), async "
+              f"cost, sync save, sync cost) {[[round(v, 2) for v in r] for r in rows]} "
+              f"on {smi}")
+        check(same and same_m and moved and meta["epoch"] == 1, "[t] async checkpoint")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train_at_scale(device, train, stats, smi) -> None:
+    """(t) training at scale on a one-rank NCCL group made in this process
+    (destroyed at the end), the backward kernels on tiles, and two-rank
+    spatial steps when there are two cards."""
+    from nasa_niswan_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    store = tempfile.mkdtemp(prefix="smoke-nccl-")
+    init_distributed("file://" + os.path.join(store, "store"), 1, 0, device_type="cuda")
+    try:
+        mesh = make_mesh()
+        _spatial_steps(device, train, mesh, smi)
+        _unet_dp_step(device, mesh, smi)
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    _async_save(device, train, smi)
+    _tile_kernels(device, stats, smi)
+    if torch.cuda.device_count() < 2:
+        print("[t] the (1, 1, 2) and (1, 2, 1) spatial steps need >= 2 cards; "
+              f"{torch.cuda.device_count()} visible: not run")
+        return
+    from nasa_niswan_tpu_torch.parallel import launch
+
+    out = launch.spawn(two_rank_spatial_phase, 2, "cuda", dict(
+        grid=GRID, padded=PADDED, hidden=HIDDEN, kernels=KERNELS, bs=TRAIN_BS, T=TRAIN_T,
+        dtype="bfloat16"), timeout=600)
+    print(f"[t] two ranks on two cards: {out[0]}")
+    check(all(v["grad_rel"] <= TOL_GRAD["bfloat16"] and v["loss_rel"] <= 1e-3
+              for v in out[0].values()), f"[t] two-rank spatial steps {out[0]}")
+
+
+def two_rank_spatial_phase(rank: int, size: dict) -> dict:
+    """(t) on two ranks, one device each: the spatially sharded step on
+    (1, 1, 2) and (1, 2, 1) meshes, both routes, against the single-device
+    step on rank 0's device (loss and per-leaf gradients, relative to the
+    leaf's largest).  ``size`` gives the widths (the card's full width;
+    small on the CPU)."""
+    from nasa_niswan_tpu_torch.parallel.mesh import make_mesh
+    from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
+
+    grid, padded, T = tuple(size["grid"]), tuple(size["padded"]), size["T"]
+    data = synthetic_e33oma_90d(T=2 * T + 8, H=grid[0], W=grid[1], seed=SEED)
+    ds = SequenceDataset(data, period="train", sequence_length=T, in_channels=5)
+    idx = np.arange(size["bs"]) % len(ds)
+    x, y = (np.stack(a) for a in zip(*(ds[int(i)] for i in idx)))
+    geo = dict(padded_shape=padded, grid_shape=grid)
+
+    def single(b, p):
+        return make_train_step(b, ds.normalizer, make_optimizer(p, 1e-3, (0.5, 0.999)), **geo)
+
+    out = {}
+    for dims in ((1, 1, 2), (1, 2, 1)):
+        mesh = make_mesh(*dims)
+
+        def sharded(b, p, mesh=mesh):
+            return make_spatial_train_step(b, ds.normalizer,
+                                           make_optimizer(p, 1e-3, (0.5, 0.999)), mesh, **geo)
+
+        for route, remat in (("remat", True), ("per-cell", False)):
+            bundle = build_model("LSTM-sp2", remat=remat, in_channels=5,
+                                 hidden_channels=tuple(size["hidden"]),
+                                 kernel_sizes=tuple(size["kernels"]),
+                                 compute_dtype=size["dtype"])
+            init, _ = bundle.init(torch.Generator().manual_seed(SEED), mesh.device)
+            g, loss = _one_step_grads(sharded, bundle, init, x, y)
+            if rank == 0:
+                g1, loss1 = _one_step_grads(single, bundle, init, x, y)
+                out[f"{dims}/{route}"] = dict(loss_rel=abs(loss - loss1) / abs(loss1),
+                                              grad_rel=max(_leaf_rel(g, g1)))
+    return out
+
+
 def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2815,6 +3285,7 @@ def main() -> None:
     phase_multitracer(device, serve, smi)
     phase_single_step(device, smi)
     phase_sharded(device, serve, train, stats, smi)
+    phase_train_at_scale(device, train, stats, smi)
     check(all(LAUNCHED[name] > 0 for name in COUNTERS), f"kernels never launched: {LAUNCHED}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

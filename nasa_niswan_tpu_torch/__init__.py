@@ -22,9 +22,14 @@ Layering (bottom-up), as in the JAX package:
              step, exported artifacts and carry files, OAT sensitivity, the
              multi-tracer rollouts, the serving CLI, and seq2seq
              scheduled-sampling training (config #3)
-  train/     train/eval steps, fit, checkpoints, config and the training CLI
+  train/     train/eval steps, fit, checkpoints (synchronous, and
+             asynchronous with an atomic commit), config and the training CLI
   evalx/     the metric battery, the windowed, rollout and closed-loop
              evaluations, snapshot loading, plots and the evaluation CLI
+  parallel/  the (dp, lat, lon) mesh over torch.distributed, the halo
+             exchange and its transpose, spatially sharded serving and
+             training, data-parallel training
+  utils/     the run log, seeding, tracing and timing
   bridge.py  weight bridge to and from the JAX parameter tree / checkpoint
 
 Importing the package builds nothing: the CUDA kernels are compiled at the

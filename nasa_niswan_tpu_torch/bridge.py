@@ -40,6 +40,16 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [] if tree is None else [tree]
 
 
+def tree_paths(tree: Any, prefix: str = "") -> List[str]:
+    """Each leaf's path ("cells/0/w_x") in ``tree_leaves`` order: dict keys
+    and list indices joined by "/", as ``jax.tree_util`` names them."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in tree_paths(v, f"{prefix}{i}/")]
+    return [] if tree is None else [prefix.rstrip("/")]
+
+
 def tree_unflatten(template: Any, leaves) -> Any:
     """A tree shaped like ``template`` holding ``leaves`` (in
     ``tree_leaves`` order); the inverse of ``tree_leaves``."""

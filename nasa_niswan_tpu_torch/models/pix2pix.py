@@ -67,7 +67,7 @@ def _biased_conv_init(gen, in_ch, out_ch, device, transpose=False):
     return {"w": normal_002_init(gen, 4, 4, *shape, device=device), "b": b}
 
 
-def _gblock_apply(p, x, *, encoder, act, generator=None):
+def _gblock_apply(p, x, *, encoder, act, generator=None, shard=(0, 1)):
     if encoder:
         x = conv2d(x, p["w"], stride=2, padding=1, pad_mode="reflect")
     else:
@@ -75,7 +75,7 @@ def _gblock_apply(p, x, *, encoder, act, generator=None):
     x = instance_norm(x, p["norm"]["scale"], p["norm"]["bias"])
     x = torch.relu(x) if act == "relu" else leaky_relu(x, 0.2)
     if generator is not None:
-        x = dropout2d(x, 0.5, generator, training=True)
+        x = dropout2d(x, 0.5, generator, training=True, shard=shard)
     return x
 
 
@@ -101,11 +101,14 @@ def generator_apply(
     *,
     training: bool = False,
     generator: Optional[torch.Generator] = None,
+    shard: Tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
     """x: (B, H, W, C) with H, W divisible by 256 (8 stride-2 stages; smaller
     maps follow XLA's shapes, ops/conv.py).  Dropout2d(0.5) runs on decoder
     blocks 1-3 only when ``training`` and a ``generator`` (on x's device)
-    is given."""
+    is given; ``shard=(r, n)`` marks x as part r of n of a global batch (a
+    data-parallel rank's), whose masks are drawn for the whole batch
+    (``ops.conv.dropout2d``)."""
     drop = generator if training else None
     e0 = leaky_relu(conv2d(x, params["initial"]["w"], params["initial"]["b"], stride=2,
                            padding=1, pad_mode="reflect"), 0.2)
@@ -116,11 +119,12 @@ def generator_apply(
         encs.append(h)
     bn = leaky_relu(conv2d(h, params["bottleneck"]["w"], params["bottleneck"]["b"],
                            stride=2, padding=1, pad_mode="reflect"), 0.2)
-    h = _gblock_apply(params["dec1"], bn, encoder=False, act="relu", generator=drop)
+    h = _gblock_apply(params["dec1"], bn, encoder=False, act="relu", generator=drop,
+                      shard=shard)
     for i in range(2, 8):
         h = torch.cat([h, encs[8 - i]], dim=-1)  # dec2 <- enc6 ... dec7 <- enc1
         h = _gblock_apply(params[f"dec{i}"], h, encoder=False, act="relu",
-                          generator=drop if i <= 3 else None)
+                          generator=drop if i <= 3 else None, shard=shard)
     h = torch.cat([h, e0], dim=-1)
     return conv2d_transpose(h, params["final"]["w"], params["final"]["b"], stride=2,
                             padding=1)

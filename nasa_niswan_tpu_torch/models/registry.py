@@ -55,12 +55,18 @@ class ModelBundle:
     needs.
 
     ``init(generator, device)`` returns ``(params, state)``; ``apply(params,
-    state, x, *, training, rng)`` returns ``(out, new_state)`` (state is None
-    for the stateless families; the UNet's holds its BatchNorm statistics;
-    ``rng`` is a ``torch.Generator`` on x's device, PIX2PIX's dropout).
-    ``x`` is (B, T, H, W, C) for sequence models and (B, H, W, C)
-    otherwise.  Parameters are the port's tree of f32 tensors, leaves
-    requiring grad.
+    state, x, *, training, rng, mesh=None)`` returns ``(out, new_state)``
+    (state is None for the stateless families; the UNet's holds its
+    BatchNorm statistics; ``rng`` is a ``torch.Generator`` on x's device,
+    PIX2PIX's dropout).  With a ``mesh`` (parallel/mesh.py) x is this dp
+    rank's share of a global batch: the UNet's BatchNorms take the global
+    batch's statistics over the dp group and PIX2PIX draws the global
+    batch's dropout masks, so the data-parallel step equals the
+    single-device step on the global batch; the ConvLSTM's forward has
+    nothing to share.  ``x`` is (B, T, H, W, C) for sequence models and
+    (B, H, W, C) otherwise.  Parameters are the port's tree of f32
+    tensors, leaves requiring grad.  ``precompute_input_conv`` records
+    whether the ConvLSTM hoists its input conv.
     """
 
     family: str
@@ -68,6 +74,7 @@ class ModelBundle:
     is_sequence: bool
     init: Callable[..., Tuple[Any, Any]]
     apply: Callable[..., Tuple[Any, Any]]
+    precompute_input_conv: bool = False
 
 
 def build_model(
@@ -99,9 +106,10 @@ def build_model(
             params, state = unet_init(generator, ucfg, device=device)
             return _trainable(params), state
 
-        def apply(params, state, x, *, training=False, rng=None):
+        def apply(params, state, x, *, training=False, rng=None, mesh=None):
             del rng
-            return unet_apply(params, state, x, training=training)
+            group = None if mesh is None else mesh.groups["dp"]
+            return unet_apply(params, state, x, training=training, group=group)
 
         return ModelBundle("UNet", ucfg, False, init, apply)
     if family == "PIX2PIX":
@@ -110,8 +118,10 @@ def build_model(
         def init(generator: torch.Generator, device=None):
             return _trainable(generator_init(generator, gcfg, device=device)), None
 
-        def apply(params, state, x, *, training=False, rng=None):
-            return generator_apply(params, x, training=training, generator=rng), None
+        def apply(params, state, x, *, training=False, rng=None, mesh=None):
+            shard = (0, 1) if mesh is None else (mesh.index("dp"), mesh.dp)
+            return generator_apply(params, x, training=training, generator=rng,
+                                   shard=shard), None
 
         return ModelBundle("PIX2PIX", gcfg, False, init, apply)
 
@@ -126,14 +136,14 @@ def build_model(
     def init(generator: torch.Generator, device=None):
         return _trainable(convlstm_init(generator, cfg, device=device)), None
 
-    def apply(params, state, x, *, training=False, rng=None):
-        del state, training, rng
+    def apply(params, state, x, *, training=False, rng=None, mesh=None):
+        del state, training, rng, mesh
         return convlstm_apply(
             params, x, cfg, precompute_input_conv=precompute_input_conv,
             cell_fn=cell_fn, grads_fn=grads_fn,
         ), None
 
-    return ModelBundle("LSTM", cfg, True, init, apply)
+    return ModelBundle("LSTM", cfg, True, init, apply, precompute_input_conv)
 
 
 def _trainable(params):

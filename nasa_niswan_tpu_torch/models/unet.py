@@ -59,13 +59,13 @@ def _block_init(gen, in_ch, out_ch, device):
     return params, {"bn1": bn1_s, "bn2": bn2_s}
 
 
-def _block_apply(p, s, x, training):
+def _block_apply(p, s, x, training, group):
     new = {}
     for i in (1, 2):
         conv, bn = p[f"conv{i}"], f"bn{i}"
         x = conv2d(x, conv["w"], conv["b"], padding=1)
         x, (mean, var) = batch_norm(x, p[bn]["scale"], p[bn]["bias"], s[bn]["mean"],
-                                    s[bn]["var"], training=training)
+                                    s[bn]["var"], training=training, group=group)
         x = torch.relu(x)
         new[bn] = {"mean": mean, "var": var}
     return x, new
@@ -95,24 +95,27 @@ def unet_init(generator: torch.Generator, config: UNetConfig, *, device=None
     return params, state
 
 
-def unet_apply(params: Params, state: Params, x: torch.Tensor, *, training: bool = False
-               ) -> Tuple[torch.Tensor, Params]:
+def unet_apply(params: Params, state: Params, x: torch.Tensor, *, training: bool = False,
+               group=None) -> Tuple[torch.Tensor, Params]:
     """x: (B, H, W, C) NHWC, H and W divisible by 16.  Returns (out (B, H, W,
-    out_channels), new_state)."""
+    out_channels), new_state).  ``group``: the dp ranks of a data-parallel
+    step, whose BatchNorms then normalize by the global batch's statistics
+    (``ops.conv.batch_norm``)."""
     new_state: Params = {}
     skips = []
     h = x
     for i in range(1, 5):
         h, new_state[f"enc{i}"] = _block_apply(params[f"enc{i}"], state[f"enc{i}"], h,
-                                               training)
+                                               training, group)
         skips.append(h)
         h = max_pool2d(h)
     h, new_state["bottleneck"] = _block_apply(params["bottleneck"], state["bottleneck"],
-                                              h, training)
+                                              h, training, group)
     for i, skip in zip(range(4, 0, -1), reversed(skips)):
         name = f"dec{i}"
         up = params[name]["up"]
         h = conv2d_transpose(h, up["w"], up["b"], stride=2, padding=0)
         h = torch.cat([h, skip], dim=-1)  # (up, skip) order
-        h, new_state[name] = _block_apply(params[name]["block"], state[name], h, training)
+        h, new_state[name] = _block_apply(params[name]["block"], state[name], h, training,
+                                          group)
     return conv2d(h, params["head"]["w"], params["head"]["b"]), new_state

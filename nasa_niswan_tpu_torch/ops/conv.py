@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 Pair = Union[int, Tuple[int, int]]
@@ -143,6 +144,25 @@ def instance_norm(
     return out
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of ``x`` over the ranks of ``group``, on every rank; the
+    backward sums the cotangents the same way (every rank's loss reads the
+    sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
 def batch_norm(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -153,6 +173,7 @@ def batch_norm(
     training: bool,
     momentum: float = 0.1,
     eps: float = 1e-5,
+    group=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """BatchNorm2d with torch semantics over NHWC ``x``.
 
@@ -161,11 +182,23 @@ def batch_norm(
     running statistics towards them with the *unbiased* variance; eval
     normalizes by the running statistics and passes them through.  The new
     statistics are computed outside autograd and the caller's tensors are
-    left unchanged, as in the JAX package."""
+    left unchanged, as in the JAX package.
+
+    With a process ``group`` (the dp ranks of a data-parallel step, each
+    holding an equal share of the batch) training normalizes by the global
+    batch's statistics, as the JAX package's GSPMD step does: the sums
+    behind the mean and the variance are all-reduced over the group, and so
+    are their cotangents in the backward.  The running statistics then use
+    the global pixel count and are the same on every rank."""
     if training:
-        var, mean = torch.var_mean(x, dim=(0, 1, 2), correction=0)
-        with torch.no_grad():
+        if group is None:
+            var, mean = torch.var_mean(x, dim=(0, 1, 2), correction=0)
             n = x.shape[0] * x.shape[1] * x.shape[2]
+        else:
+            n = x.shape[0] * x.shape[1] * x.shape[2] * dist.get_world_size(group)
+            mean = _AllReduceSum.apply(x.sum(dim=(0, 1, 2)), group) / n
+            var = _AllReduceSum.apply((x - mean).pow(2).sum(dim=(0, 1, 2)), group) / n
+        with torch.no_grad():
             unbiased = var * n / max(n - 1, 1)
             new_mean = (1 - momentum) * running_mean + momentum * mean
             new_var = (1 - momentum) * running_var + momentum * unbiased
@@ -178,15 +211,23 @@ def batch_norm(
 
 def dropout2d(
     x: torch.Tensor, rate: float, generator: Optional[torch.Generator], *,
-    training: bool,
+    training: bool, shard: Tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
     """Channel-wise dropout (torch Dropout2d): whole channels of each sample
     are zeroed with probability ``rate`` (a (B, 1, 1, C) mask drawn from
     ``generator``, which lives on ``x``'s device); survivors are scaled by
-    1 / (1 - rate).  Off unless ``training`` and a generator is given."""
+    1 / (1 - rate).  Off unless ``training`` and a generator is given.
+
+    ``shard=(r, n)``: ``x`` is part r of n equal parts of a global batch
+    (a data-parallel rank's): the mask of the whole (n B, 1, 1, C) batch is
+    drawn and part r kept, so ranks with equal generators drop what one
+    device would drop on the global batch."""
     if not training or rate == 0.0 or generator is None:
         return x
-    u = torch.rand((x.shape[0], 1, 1, x.shape[3]), generator=generator, device=x.device)
+    r, n = shard
+    B = x.shape[0]
+    u = torch.rand((n * B, 1, 1, x.shape[3]), generator=generator, device=x.device)
+    u = u[r * B:(r + 1) * B]
     return torch.where(u < 1.0 - rate, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -1,7 +1,8 @@
 """Multi-device execution over ``torch.distributed`` (counterpart of
 nasa_niswan_tpu/parallel/): the (dp, lat, lon) mesh of ranks (mesh.py),
-starting the ranks (launch.py), halo exchange (halo.py), spatially sharded
-serving (spatial.py) and data-parallel training (dp.py)."""
+starting the ranks (launch.py), halo exchange and its transpose (halo.py),
+spatially sharded serving and training (spatial.py) and data-parallel
+training (dp.py)."""
 
 from nasa_niswan_tpu_torch.parallel.halo import (
     halo_exchange_geo,

@@ -30,9 +30,29 @@ its tile; ``gather_state`` and ``scatter_state`` turn it into the global
 carry of a carry file and back.
 
 The chunks run eagerly (no CUDA graph): NCCL's point-to-point messages in a
-captured graph are left for later work.  The GSPMD training step
-(``make_spatial_train_step``), which needs a halo exchange with a backward,
-is not ported.
+captured graph are left for later work.
+
+Training (``make_spatial_train_step``, the counterpart of the JAX
+package's GSPMD step) runs the same cells on the tile with gradients, by
+the single-device step's two routes (``config.remat``):
+
+* per-cell: ``cell_on_tile`` around the per-cell autograd Function
+  (``FusedCell``: B1 emit_gates forward; the elementwise backward, B3 and
+  B2's dW kernel backward, all on the extended tile).  The halo exchange
+  differentiates (parallel/halo.py), and the crop's backward puts exact
+  zeros on the ring, so the ring's gate cotangents are zero and the
+  extended tile's dW holds only this tile's pixels;
+* whole-scan BPTT: ``ops/convlstm_bptt.scan_cells`` with the tile cell and
+  ``_tile_grads``, its per-cell backward on the tile: xh exchanged, c, dh
+  and dc padded with the zero ring, ``ops/convgrad.cell_grads`` (B2, then
+  B3) on the extended tile, the transposed exchange applied to dxh and the
+  ring cropped off dc_prev.
+
+The loss (MSE + L1 over the cropped grid) is the global mean: each rank
+sums over its tile's part of the crop window and divides by its dp share's
+pixel count, and ``parallel/dp.reduce_gradients`` sums the gradients, the
+loss and R^2's statistics over lat and lon and averages over dp, in one
+all-reduce; every rank then takes the same Adam step.
 """
 
 from __future__ import annotations
@@ -44,21 +64,32 @@ import torch
 import torch.nn.functional as F
 
 from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
-from nasa_niswan_tpu_torch.data.dataset import DeviceConst, Normalizer, zscore_static
+from nasa_niswan_tpu_torch.data.dataset import (
+    DeviceConst,
+    Normalizer,
+    make_preprocess_fn,
+    zscore_static,
+)
+from nasa_niswan_tpu_torch.evalx.metrics import r2_from_stats, r2_stats
 from nasa_niswan_tpu_torch.models.convlstm import (
     CellFn,
     ConvLSTMConfig,
+    GradsFn,
     cell_weights,
     convlstm_apply,
     head_apply,
 )
+from nasa_niswan_tpu_torch.models.registry import ModelBundle
+from nasa_niswan_tpu_torch.ops.convgrad import cell_grads
 from nasa_niswan_tpu_torch.ops.convlstm_bptt import cells_step
 from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward
 from nasa_niswan_tpu_torch.ops.seq2seq_bptt import fb_channel
-from nasa_niswan_tpu_torch.parallel.halo import halo_exchange_zero
-from nasa_niswan_tpu_torch.parallel.mesh import Mesh, gather_tiles, local_tile
+from nasa_niswan_tpu_torch.parallel.dp import reduce_gradients
+from nasa_niswan_tpu_torch.parallel.halo import halo_exchange_zero, halo_exchange_zero_transpose
+from nasa_niswan_tpu_torch.parallel.mesh import Mesh, gather_axis, gather_tiles, local_tile
 from nasa_niswan_tpu_torch.rollout.autoregressive import _prep_frame
 from nasa_niswan_tpu_torch.rollout.multitracer import _species, _stack_states
+from nasa_niswan_tpu_torch.train.loop import per_sample_r2_score
 
 
 def cell_on_tile(xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -80,6 +111,27 @@ def _tile_cell(mesh: Mesh) -> CellFn:
     def cell(xh, c, w, b):
         return cell_on_tile(xh, c, w, b, mesh)
     return cell
+
+
+def _tile_grads(mesh: Mesh) -> GradsFn:
+    """The per-cell backward of the whole-scan BPTT on a rank's tile
+    (``cell_grads`` on the extended tile): xh (B, h, w, Cin) and c, dh, dc
+    (B, h, w, hid) of the tile in, the tile's (dxh, dc_prev) and this
+    tile's part of (dw, db) out."""
+    def grads(xh, c, dh, dc, w, b):
+        p = w.shape[0] // 2
+        if p == 0:
+            return cell_grads(xh, c, dh, dc, w, b)
+        hl, wl = xh.shape[1:3]
+
+        def ring(t):  # zeros: no cotangent reaches the ring from outside the tile
+            return F.pad(t, (0, 0, p, p, p, p))
+
+        dxh, dc_prev, dw, db = cell_grads(halo_exchange_zero(xh, p, mesh), ring(c), ring(dh),
+                                          ring(dc), w, b)
+        return (halo_exchange_zero_transpose(dxh, p, mesh),
+                dc_prev[:, p:p + hl, p:p + wl].contiguous(), dw, db)
+    return grads
 
 
 def _tile(x: torch.Tensor, mesh: Mesh, lat_axis: Optional[int] = None,
@@ -158,6 +210,111 @@ def convlstm_apply_sharded(params, x: torch.Tensor, config: ConvLSTMConfig,
         _, state = _scan_tile(params, cell_weights(params, config), x_t, state, config,
                               mesh)
         return head_apply(params, state[-1][0], config.torch_dtype)
+
+
+def _crop_window(padded_shape, grid_shape, mesh: Mesh):
+    """This tile's part of the crop window of ``crop_to_grid``: (rows,
+    cols) of the tile, (rows, cols) of the grid, as slices."""
+    parts = []
+    for axis, n_pad, n_grid in (("lat", padded_shape[0], grid_shape[0]),
+                                ("lon", padded_shape[1], grid_shape[1])):
+        size = n_pad // mesh.size(axis)
+        start, off = mesh.index(axis) * size, (n_pad - n_grid) // 2
+        lo, hi = max(start, off), min(start + size, off + n_grid)
+        hi = max(lo, hi)
+        parts.append((slice(lo - start, hi - start), slice(lo - off, hi - off)))
+    (tr, gr), (tc, gc) = parts
+    return (tr, tc), (gr, gc)
+
+
+def make_spatial_train_step(
+    bundle: ModelBundle,
+    normalizer: Normalizer,
+    optimizer: torch.optim.Optimizer,
+    mesh: Mesh,
+    *,
+    padded_shape: Tuple[int, int],
+    grid_shape: Tuple[int, int] = (90, 144),
+    static: Optional[np.ndarray] = None,
+) -> Callable:
+    """The training step with the grid sharded over ``mesh`` (dp, lat,
+    lon): ``step(params, state, x_raw, y_raw, rng=None) -> (state,
+    metrics)``, x_raw (B, T, C, h, w) and y_raw (B, h, w) the whole raw
+    global batch on every rank (tensors or numpy).  Every rank prepares the
+    whole batch, takes its dp share and its tile, runs the cells on the
+    tile by ``bundle.config``'s route and the 1x1 head, and sums its part
+    of the loss; one all-reduce of gradients, loss and R^2's statistics
+    (``reduce_gradients``), then the same Adam update of ``params`` in
+    place on every rank.  ``metrics`` are the global batch's ``loss`` and
+    ``r2``, as device scalars.  Every rank of the mesh calls it.
+
+    The ConvLSTM family only, without the hoisted input conv (its conv over
+    all frames would need halos of its own); the 1x1 head is local."""
+    if bundle.family != "LSTM":
+        raise ValueError(f"the spatially sharded step trains the ConvLSTM family, not "
+                         f"{bundle.family}")
+    if bundle.precompute_input_conv:
+        raise ValueError("the spatially sharded step runs without precompute_input_conv")
+    padded_shape = tuple(padded_shape or grid_shape)
+    _check_tiles(padded_shape, mesh)
+    cfg = bundle.config
+    preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
+    cell, grads = _tile_cell(mesh), _tile_grads(mesh)
+    (tr, tc), (gr, gc) = _crop_window(padded_shape, grid_shape, mesh)
+
+    def train_step(params, state, x_raw, y_raw, rng=None):
+        dev = mesh.device
+        x, y = preprocess(torch.as_tensor(x_raw, device=dev), torch.as_tensor(y_raw, device=dev))
+        x = _tile(x, mesh, 2, 0).contiguous()
+        y = _tile(y, mesh, batch_axis=0)
+        count = y.numel()  # the dp share's pixels of the cropped grid
+        y = y[:, gr, gc]
+        optimizer.zero_grad(set_to_none=True)
+        pred = convlstm_apply(params, x, cfg, cell_fn=cell, grads_fn=grads)[:, tr, tc, 0]
+        d = y - pred
+        loss = (torch.sum(d * d) + torch.sum(torch.abs(d))) / count
+        loss.backward()
+        with torch.no_grad():
+            loss, stats = reduce_gradients(params, loss, r2_stats(y, pred), mesh)
+        optimizer.step()
+        return state, {"loss": loss, "r2": r2_from_stats(stats)}
+
+    return train_step
+
+
+def make_spatial_eval_step(
+    bundle: ModelBundle,
+    normalizer: Normalizer,
+    mesh: Mesh,
+    *,
+    padded_shape: Tuple[int, int],
+    grid_shape: Tuple[int, int] = (90, 144),
+    static: Optional[np.ndarray] = None,
+    unnormalize: bool = False,
+) -> Callable:
+    """The eval step with the grid sharded: ``step(params, state, x_raw,
+    y_raw) -> (per-sample R^2 of the global batch, pred)``, the whole raw
+    batch on every rank; the forward is ``convlstm_apply_sharded``, its
+    tiles gathered over lat and lon and cropped, pred this rank's dp share
+    (normalized, or in physical units when ``unnormalize``)."""
+    if bundle.family != "LSTM":
+        raise ValueError(f"the spatially sharded step evaluates the ConvLSTM family, not "
+                         f"{bundle.family}")
+    padded_shape = tuple(padded_shape or grid_shape)
+    _check_tiles(padded_shape, mesh)
+    preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
+
+    def eval_step(params, state, x_raw, y_raw):
+        dev = mesh.device
+        x, y = preprocess(torch.as_tensor(x_raw, device=dev), torch.as_tensor(y_raw, device=dev))
+        tile = convlstm_apply_sharded(params, x, bundle.config, mesh)[..., 0]
+        pred = crop_to_grid(gather_tiles(tile, mesh, lat_axis=1, lon_axis=2, batch_axis=None),
+                            grid_shape)
+        scores = gather_axis(per_sample_r2_score(_tile(y, mesh, batch_axis=0), pred), mesh,
+                             "dp", 0)
+        return scores, normalizer.unnormalize_y(pred) if unnormalize else pred
+
+    return eval_step
 
 
 def make_sharded_rollout_fn(

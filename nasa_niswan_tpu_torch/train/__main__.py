@@ -3,7 +3,11 @@
 
 Writes ``configurations.json`` to the snapshot dir, trains on the device
 named by ``--device`` (default ``cuda``; there is no silent fall back to the
-CPU), checkpoints in ``epoch-NNN`` directories and writes ``logger.npy``.
+CPU), checkpoints in ``epoch-NNN`` directories and writes ``logger.npy``
+and ``logger.log`` (``utils/logging.LoggerDecorator``: the run's
+configuration and elapsed time).  ``--checkpoint-backend orbax`` saves
+asynchronously under ``<snapshot_dir>/orbax`` (train/checkpoint_async.py),
+and ``--auto-resume`` then restarts from its newest committed checkpoint.
 Data is the synthetic fixture, a packed ``.npz`` or a packed
 E33OMA-90Days-style ``.nc`` (data/netcdf.load_90days_nc); ``--levels L`` > 1
 fuses the first L levels of u/v/omega into channels (config #2 at L = 20:
@@ -29,8 +33,10 @@ device each (``cuda:0`` .. ``cuda:N-1``, or N CPU processes with
 ``--device cpu``), started by ``parallel/launch.spawn`` (or joined under
 torchrun): each rank runs its share of every batch, gradients are averaged
 by one all-reduce per step (parallel/dp.py), rank 0 writes the snapshot.
-The single-step families are refused there: their data parallelism (global
-BatchNorm statistics) is not ported.
+The single-step families train so with the global batch's BatchNorm
+statistics (UNet) and dropout masks (pix2pix), as one device would on the
+global batch.  The GAN step (train/gan.py) has no data-parallel form and
+no flag here, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from nasa_niswan_tpu_torch.models.registry import build_model
 from nasa_niswan_tpu_torch.train.checkpoint import latest_epoch_dir, load_checkpoint
 from nasa_niswan_tpu_torch.train.config import TrainConfig, parse_args
 from nasa_niswan_tpu_torch.train.loop import fit
+from nasa_niswan_tpu_torch.utils.logging import LoggerDecorator
 
 
 def resolve_device(name: str) -> torch.device:
@@ -178,12 +185,6 @@ def run_data_parallel(config: TrainConfig):
     from nasa_niswan_tpu_torch.parallel import launch
 
     n = config.dp_devices
-    if config.mode == "windowed" and config.family != "LSTM":
-        raise SystemExit(
-            f"--dp-devices {n}: data-parallel training of the single-step families "
-            f"({config.family}: UNet BatchNorm state, pix2pix, the GAN step) with "
-            "global-batch statistics is not ported (ROADMAP, queue A: DP of the "
-            "stateful single-step families); train them with --dp-devices 1")
     if config.batch_size % n:
         raise SystemExit(f"--dp-devices {n}: --batch-size {config.batch_size} must be "
                          "divisible by it")
@@ -231,19 +232,31 @@ def train(config: TrainConfig, device: torch.device):
         n_static = 0
     static = data["static"][:n_static] if n_static > 0 else None
 
-    init_params = init_state = init_opt_state = None
+    init_params = init_state = init_opt_state = meta = None
     start_epoch = 1
-    restore_dir = None
-    if config.auto_resume:
-        restore_dir = latest_epoch_dir(config.snapshot_dir)
-    elif config.use_checkpoint:
-        restore_dir = config.restore_from
-    if restore_dir:
+    if config.auto_resume or config.use_checkpoint:
         template, tmpl_state = bundle.init(
             torch.Generator().manual_seed(config.seed), device)
-        init_params, init_opt_state, init_state, meta = load_checkpoint(
-            restore_dir, template, lr=config.learning_rate, state_template=tmpl_state
-        )
+    if config.auto_resume and config.checkpoint_backend == "orbax":
+        # preemption recovery through the async backend: its commits are
+        # atomic, so a kill mid-save leaves the newest committed save
+        from nasa_niswan_tpu_torch.train.checkpoint_async import AsyncCheckpointer
+
+        ckpt = AsyncCheckpointer(os.path.join(config.snapshot_dir, "orbax"))
+        try:
+            out = ckpt.restore_latest(template, state_template=tmpl_state)
+        finally:
+            ckpt.close()
+        if out is not None:
+            init_params, init_opt_state, init_state, meta = out
+    else:
+        restore_dir = (latest_epoch_dir(config.snapshot_dir) if config.auto_resume
+                       else config.restore_from if config.use_checkpoint else None)
+        if restore_dir:
+            init_params, init_opt_state, init_state, meta = load_checkpoint(
+                restore_dir, template, lr=config.learning_rate, state_template=tmpl_state
+            )
+    if meta is not None:
         if config.auto_resume and meta.get("epoch"):
             start_epoch = int(meta["epoch"]) + 1
         print("Number of Epochs:", meta.get("epoch"))
@@ -266,4 +279,4 @@ if __name__ == "__main__":
     cfg = parse_args()
     cfg.dump()
     print("Working Directory:", cfg.snapshot_dir)
-    main(cfg)
+    LoggerDecorator(os.path.join(cfg.snapshot_dir, "logger.log"))(main)(cfg)

@@ -25,6 +25,7 @@ Restore precedence for lr: an explicit ``lr`` argument, else the stored lr.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 from typing import Any, Dict, List, Optional
@@ -88,6 +89,59 @@ def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+def checkpoint_leaves(params, optimizer: Optional[torch.optim.Optimizer] = None, *,
+                      learning_rate: Optional[float] = None, epoch: Optional[int] = None,
+                      model_state=None):
+    """What a checkpoint holds, before it is written: (``{"p<i>", "o<i>",
+    "s<i>"}`` -> tensor or numpy leaf, the meta dict).  The tensors are the
+    caller's own (parameters, Adam moments, state), not copies."""
+    p_leaves = param_leaves(params)
+    s_leaves = tree_leaves(model_state)
+    o_leaves: list = []
+    if optimizer is not None:
+        group = optimizer.param_groups[0]
+        st = optimizer_state(optimizer, params)
+        count = np.asarray(st["step"], np.int32)
+        hyper = (group["betas"][0], group["betas"][1], group["eps"], 0.0,
+                 group["lr"] if learning_rate is None else learning_rate)
+        o_leaves = [count, *(np.asarray(h, np.float32) for h in hyper), count]
+        o_leaves += st["exp_avg"] + st["exp_avg_sq"]
+    leaves = {f"p{i}": a for i, a in enumerate(p_leaves)}
+    leaves.update({f"o{i}": a for i, a in enumerate(o_leaves)})
+    leaves.update({f"s{i}": a for i, a in enumerate(s_leaves)})
+    meta = {
+        "n_params": len(p_leaves),
+        "n_opt": len(o_leaves),
+        "n_state": len(s_leaves),
+        "learning_rate": learning_rate,
+        "epoch": epoch,
+        "params_treedef": ("ConvLSTM " if "cells" in params else "") + _describe(params),
+        "opt_treedef": "inject_hyperparams(adam) (count, hyperparams, (adam count, mu, nu))"
+        if o_leaves else "",
+        "state_treedef": _describe(model_state) if s_leaves else "",
+    }
+    return leaves, meta
+
+
+def write_checkpoint(directory: str, arrays: Dict[str, np.ndarray], meta: dict) -> str:
+    """Write ``checkpoint_leaves``' numpy arrays and meta into
+    ``directory``: tmp-then-rename, npz first and meta last.  The npz is
+    built in memory and written by one call, so a writer thread gives up
+    the interpreter lock once, not once per chunk of every array."""
+    os.makedirs(directory, exist_ok=True)
+    ckpt_tmp = os.path.join(directory, CKPT_FILE + ".tmp")
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    with open(ckpt_tmp, "wb") as f:
+        f.write(buf.getbuffer())
+    os.replace(ckpt_tmp, os.path.join(directory, CKPT_FILE))
+    meta_tmp = os.path.join(directory, META_FILE + ".tmp")
+    with open(meta_tmp, "w") as f:
+        json.dump(meta, f, indent=2)
+    os.replace(meta_tmp, os.path.join(directory, META_FILE))
+    return directory
+
+
 def save_checkpoint(
     directory: str,
     params,
@@ -100,41 +154,9 @@ def save_checkpoint(
     """``model_state`` (the UNet's BatchNorm statistics) is written as the
     ``s<i>`` leaves; without it an evaluation or a resume would normalize
     by fresh (0, 1) statistics."""
-    os.makedirs(directory, exist_ok=True)
-    p_leaves = [_np(t) for t in param_leaves(params)]
-    s_leaves = [_np(t) for t in tree_leaves(model_state)]
-    o_leaves: List[np.ndarray] = []
-    if optimizer is not None:
-        group = optimizer.param_groups[0]
-        st = optimizer_state(optimizer, params)
-        count = np.asarray(st["step"], np.int32)
-        hyper = (group["betas"][0], group["betas"][1], group["eps"], 0.0,
-                 group["lr"] if learning_rate is None else learning_rate)
-        o_leaves = [count, *(np.asarray(h, np.float32) for h in hyper), count]
-        o_leaves += [_np(t) for t in st["exp_avg"] + st["exp_avg_sq"]]
-    arrays = {f"p{i}": a for i, a in enumerate(p_leaves)}
-    arrays.update({f"o{i}": a for i, a in enumerate(o_leaves)})
-    arrays.update({f"s{i}": a for i, a in enumerate(s_leaves)})
-    ckpt_tmp = os.path.join(directory, CKPT_FILE + ".tmp")
-    with open(ckpt_tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(ckpt_tmp, os.path.join(directory, CKPT_FILE))
-    meta = {
-        "n_params": len(p_leaves),
-        "n_opt": len(o_leaves),
-        "n_state": len(s_leaves),
-        "learning_rate": learning_rate,
-        "epoch": epoch,
-        "params_treedef": ("ConvLSTM " if "cells" in params else "") + _describe(params),
-        "opt_treedef": "inject_hyperparams(adam) (count, hyperparams, (adam count, mu, nu))"
-        if o_leaves else "",
-        "state_treedef": _describe(model_state) if s_leaves else "",
-    }
-    meta_tmp = os.path.join(directory, META_FILE + ".tmp")
-    with open(meta_tmp, "w") as f:
-        json.dump(meta, f, indent=2)
-    os.replace(meta_tmp, os.path.join(directory, META_FILE))
-    return directory
+    leaves, meta = checkpoint_leaves(params, optimizer, learning_rate=learning_rate,
+                                     epoch=epoch, model_state=model_state)
+    return write_checkpoint(directory, {k: _np(v) for k, v in leaves.items()}, meta)
 
 
 def load_checkpoint(directory: str, params_template, *, lr: Optional[float] = None,

@@ -8,11 +8,13 @@ in the other: unknown keys are ignored on read, missing ones take their
 defaults.  ``precompute_input_conv`` (the hoisted input conv, which trains
 through the per-cell route), ``schedule_k`` (the seq2seq teacher-forcing
 decay), ``unet_features`` and ``pix2pix_features`` (the single-step
-families' widths) and ``dp_devices`` (data-parallel ranks, one device
-each) mean what they mean there.  The JAX package's other TPU settings
-(``cell_impl``, ``checkpoint_backend``) have no counterpart; ``device`` is
-the port's own (with ``dp_devices`` > 1, its type: rank r trains on
-``cuda:r``).
+families' widths), ``dp_devices`` (data-parallel ranks, one device each)
+and ``checkpoint_backend`` mean what they mean there; ``orbax`` selects
+the port's asynchronous backend (train/checkpoint_async.py, under
+``<snapshot_dir>/orbax``), which writes the npz layout: the port cannot
+read or write orbax's own files.  ``cell_impl``, the JAX package's TPU
+setting, has no counterpart; ``device`` is the port's own (with
+``dp_devices`` > 1, its type: rank r trains on ``cuda:r``).
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ class TrainConfig:
     unet_features: Tuple[int, ...] = (64, 128, 256, 512)  # UNet encoder widths
     pix2pix_features: int = 64  # pix2pix Generator base width
     dp_devices: int = 1  # data-parallel ranks (parallel/dp.py)
+    checkpoint_backend: str = "npz"  # "npz" (epoch-NNN) | "orbax" (async, under orbax/)
     # --- the port's own ---
     device: str = "cuda"  # torch device the run trains on
 
@@ -73,6 +76,9 @@ class TrainConfig:
             )
         if self.mode not in ("windowed", "seq2seq"):
             raise ValueError(f"mode must be windowed|seq2seq, got {self.mode!r}")
+        if self.checkpoint_backend not in ("npz", "orbax"):
+            raise ValueError("checkpoint_backend must be npz|orbax, got "
+                             f"{self.checkpoint_backend!r}")
         # canonical channel counts: the 3-D fusion stack is C = 3*levels + 2,
         # seq2seq adds the feedback channel; explicit larger values (static
         # attribute channels) are kept
@@ -161,6 +167,8 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--pix2pix-features", type=int,
                    default=d["pix2pix_features"].default)
     p.add_argument("--dp-devices", type=int, default=d["dp_devices"].default)
+    p.add_argument("--checkpoint-backend", type=str,
+                   default=d["checkpoint_backend"].default, choices=("npz", "orbax"))
     p.add_argument("--device", type=str, default=d["device"].default)
     ns = p.parse_args(argv)
     kwargs = {k.replace("-", "_"): v for k, v in vars(ns).items()}

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from nasa_niswan_tpu_torch.bridge import tree_leaves
 from nasa_niswan_tpu_torch.models.pix2pix import (
@@ -48,8 +49,17 @@ def make_gan_train_step(
     builds them).  x and y are NHWC on one device, y with the
     discriminator's in_channels; ``generator`` (on that device) draws both
     generator forwards' dropout.  The losses come back as device
-    scalars."""
+    scalars.
+
+    The step has no data-parallel form: the JAX package's takes no mesh,
+    so it is refused on the ranks of a process group of more than one
+    rank, where every rank would train a model of its own."""
     del g_cfg
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise ValueError(
+            f"the GAN step has no data-parallel form (the JAX package's train/gan.py "
+            f"takes no mesh): it trains on one device, not on the "
+            f"{dist.get_world_size()} ranks of this process group")
 
     def y_cond(x):
         return x[..., : d_cfg.in_channels]

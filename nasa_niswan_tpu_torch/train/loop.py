@@ -1,5 +1,6 @@
 """Training loop: train and eval steps and the epoch driver (counterpart of
-nasa_niswan_tpu/train/loop.py, single device).
+nasa_niswan_tpu/train/loop.py): on one device, or on every rank of a mesh
+(parallel/: data-parallel, or with the grid sharded).
 
 * One train step holds the whole per-batch pipeline on the device:
   normalization, static channels and geophysical padding, the forward (for
@@ -21,8 +22,9 @@ nasa_niswan_tpu/train/loop.py, single device).
   producer thread and copied on a side stream while the step runs.  The
   single-step families' (B, C, h, w) batches always stream.
 * Checkpoints every ``checkpoint_every`` epochs in the ``epoch-NNN`` layout
-  (train/checkpoint.py), and ``logger.npy`` with the reference's three
-  arrays at the end.
+  (train/checkpoint.py; asynchronously with ``checkpoint_backend``
+  "orbax", train/checkpoint_async.py), and ``logger.npy`` with the
+  reference's three arrays at the end.
 """
 
 from __future__ import annotations
@@ -64,18 +66,20 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
 
 
 def _forward_cropped(bundle: ModelBundle, params, state, x, grid_shape, *, training,
-                     rng=None):
-    pred, new_state = bundle.apply(params, state, x, training=training, rng=rng)
+                     rng=None, mesh=None):
+    pred, new_state = bundle.apply(params, state, x, training=training, rng=rng, mesh=mesh)
     return crop_to_grid(pred[..., 0], grid_shape), new_state
 
 
-def make_loss_fn(bundle: ModelBundle, grid_shape: Tuple[int, int]) -> Callable:
+def make_loss_fn(bundle: ModelBundle, grid_shape: Tuple[int, int], mesh=None) -> Callable:
     """The training loss, MSE + L1 on the cropped grid, as
-    ``loss_fn(params, state, x, y, rng) -> (loss, (pred, new_state))``."""
+    ``loss_fn(params, state, x, y, rng) -> (loss, (pred, new_state))``;
+    with a dp ``mesh``, x is the rank's share of a global batch
+    (``ModelBundle.apply``)."""
 
     def loss_fn(params, state, x, y, rng=None):
         pred, new_state = _forward_cropped(
-            bundle, params, state, x, grid_shape, training=True, rng=rng
+            bundle, params, state, x, grid_shape, training=True, rng=rng, mesh=mesh
         )
         loss = torch.mean((y - pred) ** 2) + torch.mean(torch.abs(y - pred))
         return loss, (pred, new_state)
@@ -99,21 +103,26 @@ def build_train_step_fn(
     device) drives the model's dropout; metrics are device scalars
     ``loss`` and ``r2``.
 
-    With a ``mesh`` (parallel/mesh.py, dp ranks) the batch is this rank's
+    With a (dp,) ``mesh`` (parallel/mesh.py) the batch is this rank's
     share of a global batch, and between the backward and the Adam step
     one all-reduce (``parallel/dp.reduce_gradients``) averages the
     gradients and the loss over the dp ranks and sums R^2's statistics:
     every rank takes the same step and reports the global batch's
-    metrics.  Only the stateless ConvLSTM family trains so: a model state
-    (the UNet's BatchNorm statistics) would be computed per rank."""
+    metrics.  The UNet's BatchNorm statistics and pix2pix's dropout masks
+    are the global batch's (``ModelBundle.apply``), so the model state is
+    the same on every rank.  A mesh cut over lat or lon gives the
+    spatially sharded step (``parallel/spatial.make_spatial_train_step``),
+    which takes the whole global batch on every rank."""
+    if mesh is not None and (mesh.lat, mesh.lon) != (1, 1):
+        from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
+
+        return make_spatial_train_step(bundle, normalizer, optimizer, mesh,
+                                       padded_shape=padded_shape, grid_shape=grid_shape,
+                                       static=static)
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
-    loss_fn = make_loss_fn(bundle, grid_shape)
+    loss_fn = make_loss_fn(bundle, grid_shape, mesh)
     if mesh is not None:
         from nasa_niswan_tpu_torch.parallel.dp import reduce_gradients
-
-        if bundle.family != "LSTM":
-            raise ValueError(f"data-parallel training takes the ConvLSTM family, not "
-                             f"{bundle.family}")
 
     def train_step(params, state, x_raw, y_raw, rng=None):
         x, y = preprocess(x_raw, y_raw)
@@ -161,6 +170,16 @@ def make_train_step(
     return step
 
 
+def per_sample_r2_score(y: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """(B,) R^2 of each sample's map (residuals against the variance around
+    the sample's own mean)."""
+    flat_p = pred.reshape(pred.shape[0], -1)
+    flat_y = y.reshape(y.shape[0], -1)
+    ss_res = torch.sum((flat_y - flat_p) ** 2, dim=1)
+    ss_tot = torch.sum((flat_y - torch.mean(flat_y, dim=1, keepdim=True)) ** 2, dim=1)
+    return 1.0 - ss_res / ss_tot
+
+
 def build_eval_step_fn(
     bundle: ModelBundle,
     normalizer: Normalizer,
@@ -174,9 +193,16 @@ def build_eval_step_fn(
     """``step(params, state, x_raw, y_raw) -> (per-sample R^2, pred)`` on
     device tensors, without grad (the reference evaluates bs=1 and averages
     per-sample scores); pred normalized, or in physical units when
-    ``unnormalize``.  With a ``mesh`` the batch is this rank's share of a
-    global batch, and the scores are the whole batch's, gathered over dp
-    in rank order (pred stays this rank's)."""
+    ``unnormalize``.  With a (dp,) ``mesh`` the batch is this rank's share
+    of a global batch, and the scores are the whole batch's, gathered over
+    dp in rank order (pred stays this rank's).  A mesh cut over lat or lon
+    gives ``parallel/spatial.make_spatial_eval_step``."""
+    if mesh is not None and (mesh.lat, mesh.lon) != (1, 1):
+        from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_eval_step
+
+        return make_spatial_eval_step(bundle, normalizer, mesh, padded_shape=padded_shape,
+                                      grid_shape=grid_shape, static=static,
+                                      unnormalize=unnormalize)
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
 
     def eval_step(params, state, x_raw, y_raw):
@@ -185,13 +211,7 @@ def build_eval_step_fn(
             pred, _ = _forward_cropped(
                 bundle, params, state, x, grid_shape, training=False
             )
-            flat_p = pred.reshape(pred.shape[0], -1)
-            flat_y = y.reshape(y.shape[0], -1)
-            ss_res = torch.sum((flat_y - flat_p) ** 2, dim=1)
-            ss_tot = torch.sum(
-                (flat_y - torch.mean(flat_y, dim=1, keepdim=True)) ** 2, dim=1
-            )
-            per_sample_r2 = 1.0 - ss_res / ss_tot
+            per_sample_r2 = per_sample_r2_score(y, pred)
             if mesh is not None:
                 per_sample_r2 = gather_axis(per_sample_r2, mesh, "dp", 0)
             if unnormalize:
@@ -338,13 +358,21 @@ def fit(
     used.  Validation keeps the batch shape: a partial last batch is padded
     with its last sample and only the valid per-sample scores are kept.
 
-    ``mesh`` (parallel/mesh.py, dp ranks only; ``fit_data_parallel`` makes
-    it) trains data-parallel: called on every rank, each with its own
-    ``device``, each rank takes its share of every global batch in the
-    single-device order (``build_train_step_fn`` with the mesh: one
-    all-reduce of the gradients per step), validation splits each batch
-    over the ranks and gathers the scores, and rank 0 alone prints and
+    ``mesh`` (parallel/mesh.py; ``fit_data_parallel`` makes a (dp,) one)
+    trains on its ranks: called on every rank, each with its own
+    ``device``.  On a (dp,) mesh each rank takes its share of every global
+    batch in the single-device order (``build_train_step_fn`` with the
+    mesh: one all-reduce of the gradients per step), and validation splits
+    each batch over the ranks and gathers the scores.  On a (dp, lat, lon)
+    mesh cut over lat or lon every rank takes the whole global batch and
+    the step cuts its dp share and its tile (the spatially sharded step);
+    validation runs ``convlstm_apply_sharded``.  Rank 0 alone prints and
     writes the checkpoints and the logger.
+
+    ``config.checkpoint_backend`` "orbax" saves through
+    ``checkpoint_async.AsyncCheckpointer`` under ``<snapshot_dir>/orbax``
+    (the step loop goes on while a thread writes), closed before ``fit``
+    returns; "npz" writes each ``epoch-NNN`` directory synchronously.
 
     Returns {params, state, optimizer, logger, elapsed_s}; logger holds the
     three reference metric arrays (MSELoss, r2_score, r2_score_val).
@@ -376,12 +404,11 @@ def fit(
     bs = config.batch_size
     shard, lead = (0, 1), True  # this rank's share of a batch; rank 0 writes
     if mesh is not None:
-        if (mesh.lat, mesh.lon) != (1, 1):
-            raise ValueError("fit trains over a (dp,) mesh; the spatially sharded "
-                             "training step is not ported")
         if bs % mesh.dp:
             raise ValueError(f"batch_size ({bs}) must be divisible by dp ({mesh.dp})")
-        shard, lead = (mesh.index("dp"), mesh.dp), mesh.rank == 0
+        lead = mesh.rank == 0
+        if (mesh.lat, mesh.lon) == (1, 1):  # a spatial step cuts its own share
+            shard = (mesh.index("dp"), mesh.dp)
     if device_resident:
         train_src = DeviceWindowSource(train_dataset, device)
         val_src = DeviceWindowSource(val_dataset, device)
@@ -394,57 +421,70 @@ def fit(
 
     logger = {"MSELoss": [], "r2_score": [], "r2_score_val": []}
     step_size, gamma = config.scheduler_config
-    for epoch in range(start_epoch, config.num_epochs + 1):
-        set_learning_rate(
-            optimizer, step_lr(config.learning_rate, step_size, gamma, epoch - 1)
-        )
-        losses, r2s = [], []
-        if device_resident:  # batch_iterator's order, by window start
-            batches = ((torch.as_tensor(shard_indices(idx, bs, *shard)),)
-                       for idx in batch_indices(train_src.n, bs, seed=config.seed,
-                                                epoch=epoch))
-        else:
-            batches = async_batches(train_dataset, bs, shuffle=True, seed=config.seed,
-                                    epoch=epoch, device=device, shard=shard)
-        for batch in batches:
-            state, metrics = train_step(params, state, *batch, rng=rng)
-            losses.append(metrics["loss"])
-            r2s.append(metrics["r2"])
+    ckpt = None
+    if lead and config.checkpoint_backend == "orbax":
+        from nasa_niswan_tpu_torch.train.checkpoint_async import AsyncCheckpointer
 
-        # val keeps the batch shape: a partial final batch is padded with its
-        # last sample and only the valid per-sample scores are kept
-        val_scores = []
-        if device_resident:
-            val_batches = ((torch.as_tensor(shard_indices(idx, bs, *shard)),)
-                           for idx in batch_indices(val_src.n, bs, shuffle=False,
-                                                    drop_last=False))
-        else:
-            val_batches = async_batches(val_dataset, bs, shuffle=False, drop_last=False,
-                                        device=device, shard=shard)
-        n_val = val_src.n if device_resident else len(val_dataset)
-        for batch, start in zip(val_batches, range(0, n_val, bs)):
-            per_sample, _ = eval_step(params, state, *batch)
-            val_scores.append(per_sample[: min(bs, n_val - start)])
-
-        logger["MSELoss"].append(float(torch.stack(losses).mean()))
-        logger["r2_score"].append(float(torch.stack(r2s).mean()))
-        logger["r2_score_val"].append(float(torch.cat(val_scores).mean()))
-        if verbose and lead:
-            print(
-                f"Epoch: {epoch}, Loss: {logger['MSELoss'][-1]:.5f}, "
-                f"R2T: {logger['r2_score'][-1]:.5f}, "
-                f"R2V: {logger['r2_score_val'][-1]:.5f}"
+        ckpt = AsyncCheckpointer(os.path.join(config.snapshot_dir, "orbax"), max_to_keep=3)
+    try:
+        for epoch in range(start_epoch, config.num_epochs + 1):
+            set_learning_rate(
+                optimizer, step_lr(config.learning_rate, step_size, gamma, epoch - 1)
             )
+            losses, r2s = [], []
+            if device_resident:  # batch_iterator's order, by window start
+                batches = ((torch.as_tensor(shard_indices(idx, bs, *shard)),)
+                           for idx in batch_indices(train_src.n, bs, seed=config.seed,
+                                                    epoch=epoch))
+            else:
+                batches = async_batches(train_dataset, bs, shuffle=True, seed=config.seed,
+                                        epoch=epoch, device=device, shard=shard)
+            for batch in batches:
+                state, metrics = train_step(params, state, *batch, rng=rng)
+                losses.append(metrics["loss"])
+                r2s.append(metrics["r2"])
 
-        if lead and config.checkpoint_every and epoch % config.checkpoint_every == 0:
-            lr_now = step_lr(config.learning_rate, step_size, gamma, epoch - 1)
-            save_checkpoint(
-                os.path.join(config.snapshot_dir, f"epoch-{epoch:03d}"),
-                params, optimizer, learning_rate=lr_now, epoch=epoch,
-                model_state=state,
-            )
-            if verbose:
-                print("Learning Rate:", [lr_now])
+            # val keeps the batch shape: a partial final batch is padded with its
+            # last sample and only the valid per-sample scores are kept
+            val_scores = []
+            if device_resident:
+                val_batches = ((torch.as_tensor(shard_indices(idx, bs, *shard)),)
+                               for idx in batch_indices(val_src.n, bs, shuffle=False,
+                                                        drop_last=False))
+            else:
+                val_batches = async_batches(val_dataset, bs, shuffle=False, drop_last=False,
+                                            device=device, shard=shard)
+            n_val = val_src.n if device_resident else len(val_dataset)
+            for batch, start in zip(val_batches, range(0, n_val, bs)):
+                per_sample, _ = eval_step(params, state, *batch)
+                val_scores.append(per_sample[: min(bs, n_val - start)])
+
+            logger["MSELoss"].append(float(torch.stack(losses).mean()))
+            logger["r2_score"].append(float(torch.stack(r2s).mean()))
+            logger["r2_score_val"].append(float(torch.cat(val_scores).mean()))
+            if verbose and lead:
+                print(
+                    f"Epoch: {epoch}, Loss: {logger['MSELoss'][-1]:.5f}, "
+                    f"R2T: {logger['r2_score'][-1]:.5f}, "
+                    f"R2V: {logger['r2_score_val'][-1]:.5f}"
+                )
+
+            if lead and config.checkpoint_every and epoch % config.checkpoint_every == 0:
+                lr_now = step_lr(config.learning_rate, step_size, gamma, epoch - 1)
+                if ckpt is not None:
+                    ckpt.save(epoch, params, optimizer, learning_rate=lr_now,
+                              model_state=state)
+                else:
+                    save_checkpoint(
+                        os.path.join(config.snapshot_dir, f"epoch-{epoch:03d}"),
+                        params, optimizer, learning_rate=lr_now, epoch=epoch,
+                        model_state=state,
+                    )
+                if verbose:
+                    print("Learning Rate:", [lr_now])
+    finally:
+        if ckpt is not None:
+            ckpt.close()  # drain the saves in flight
 
     if lead:  # reference logger.npy: three consecutive np.save's in one file
         os.makedirs(config.snapshot_dir, exist_ok=True)

@@ -7,7 +7,11 @@ replayed as CUDA graphs against their eager bodies; and the UNet's forward
 on the card against the CPU, and its 6-channel closed loop as graph
 replays against its eager body; parallel/: B1 on halo-extended tiles
 against the whole frame, the sharded rollout and closed loop on a one-rank
-NCCL group, and (with two cards) two NCCL ranks.
+NCCL group, and (with two cards) two NCCL ranks; training at scale: the
+spatially sharded step and the UNet's DP step on a one-rank NCCL group
+against the device step, B2, dW and B3 at tile shapes, an async
+checkpoint of card tensors, StepTimer's CUDA events, and (with two cards)
+the two-rank sharded steps.
 
 Needs an NVIDIA GPU and nvcc; every test here skips without a CUDA device.
 On a machine with a card, from the repository root:
@@ -1065,3 +1069,145 @@ def test_two_rank_nccl_sharded_rollout_and_dp_step(device):
         C=8, hidden=(16, 8, 8), kernels=(5, 3, 3), grid=(16, 24), padded=(20, 28),
         steps=6, bs=4, T=4), timeout=600)
     assert out[0]["rollout_max"] <= 1e-6 and out[0]["dp_loss_rel"] <= 1e-5
+
+
+@pytest.mark.parametrize("route", ["remat", "per-cell"])
+def test_spatial_step_world1_nccl_matches_the_device_step(device, nccl_world1, route):
+    """On a one-rank NCCL mesh the spatially sharded step (the tile is the
+    zero-extended frame: B1, B2 and B3 on 24 x 32 / 22 x 30 tiles) leaves
+    the single-device step's gradients, f32: within 1e-5 of each leaf's
+    largest (sums over the zero ring in another order)."""
+    from nasa_niswan_tpu_torch.models.registry import build_model
+    from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
+    from nasa_niswan_tpu_torch.train.checkpoint import param_leaves
+    from nasa_niswan_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    bundle = build_model("LSTM-t", remat=route == "remat", in_channels=5,
+                         hidden_channels=(16, 8), kernel_sizes=(5, 3))
+    init, _ = bundle.init(torch.Generator().manual_seed(0), device)
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal((4, 6, 5, 16, 24)), dtype=torch.float32,
+                     device=device)
+    y = torch.tensor(rng.standard_normal((4, 16, 24)), dtype=torch.float32, device=device)
+    norm = Normalizer(np.zeros(5, np.float32), np.ones(5, np.float32), 0.0, 1.0)
+    geo = dict(padded_shape=(20, 28), grid_shape=(16, 24))
+    grads = []
+    for make in (lambda p: make_spatial_train_step(
+            bundle, norm, make_optimizer(p, 1e-3, (0.5, 0.999)), nccl_world1, **geo),
+            lambda p: make_train_step(bundle, norm, make_optimizer(p, 1e-3, (0.5, 0.999)),
+                                      **geo)):
+        p = {"cells": [{k: v.detach().clone().requires_grad_(True) for k, v in c.items()}
+                       for c in init["cells"]],
+             "head": {k: v.detach().clone().requires_grad_(True)
+                      for k, v in init["head"].items()}}
+        make(p)(p, None, x, y)
+        grads.append([t.grad for t in param_leaves(p)])
+    for a, b in zip(*grads):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(8, 54, 81, 72, 64, 5), (8, 52, 24, 48, 16, 3),
+                                   (3, 29, 37, 40, 32, 3)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_backward_kernels_on_tile_shapes(device, shape):
+    """B2, its dW kernels alone and B3 at halo-extended tile shapes (ragged
+    widths) against their plain versions, bf16 (chip_smoke.py (f)'s
+    bounds)."""
+    B, H, W, cin, hid, k = shape
+    gen = torch.Generator(device=device).manual_seed(1)
+    rand = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa: E731
+    xh, c, dh, dc = rand(B, H, W, cin).bfloat16(), rand(B, H, W, hid), rand(B, H, W, hid), \
+        rand(B, H, W, hid)
+    w = (rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5).bfloat16()
+    b = 0.1 * rand(4 * hid)
+    got, want = fused_cell_bwd(xh, c, dh, dc, w, b), fused_cell_bwd_plain(xh, c, dh, dc, w, b)
+    assert ((got[1] - want[1]).abs().max() <= 1e-4).item()
+    for g, r, tol in ((got[2], want[2], 1e-3), (got[3], want[3], 1e-4)):
+        assert ((g - r).abs().max() / r.abs().max()).item() <= tol
+    dw = conv_dw(xh, want[0], k)
+    assert ((dw - dw_per_tap(xh, want[0], k)).abs().max() / dw.abs().max()).item() <= 1e-3
+    w_flip = torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
+    dx, dx_plain = conv_same(want[0], w_flip), conv_same_plain(want[0], w_flip)
+    assert ((dx - dx_plain).abs().max() / dx_plain.abs().max()).item() <= 2e-4
+
+
+def test_async_checkpoint_of_card_tensors(device, tmp_path):
+    """``AsyncCheckpointer.save`` copies card tensors to pinned memory on a
+    side stream and returns; an in-place update queued right after it (the
+    next Adam step) does not reach the checkpoint."""
+    from nasa_niswan_tpu_torch.models.registry import build_model
+    from nasa_niswan_tpu_torch.train.checkpoint import param_leaves
+    from nasa_niswan_tpu_torch.train.checkpoint_async import AsyncCheckpointer
+    from nasa_niswan_tpu_torch.train.loop import make_optimizer
+
+    bundle = build_model("UNet-ck", in_channels=5, unet_features=(8, 16, 32, 64))
+    params, state = bundle.init(torch.Generator().manual_seed(0), device)
+    opt = make_optimizer(params, 1e-3, (0.5, 0.999))
+    out, state = bundle.apply(params, state, torch.randn(2, 32, 32, 5, device=device),
+                              training=True)
+    out.square().mean().backward()
+    opt.step()
+    before = [t.detach().clone() for t in param_leaves(params)]
+    ck = AsyncCheckpointer(str(tmp_path / "ck"))
+    ck.save(1, params, opt, model_state=state)
+    with torch.no_grad():
+        for t in param_leaves(params):
+            t.mul_(2.0).add_(1.0)
+    ck.close()
+    tmpl, tmpl_state = bundle.init(torch.Generator().manual_seed(1), device)
+    p, _, s, meta = AsyncCheckpointer(str(tmp_path / "ck")).restore_latest(
+        tmpl, state_template=tmpl_state)
+    assert meta["epoch"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(param_leaves(p), before))
+
+
+def test_step_timer_reads_cuda_events(device):
+    from nasa_niswan_tpu_torch.utils.profiling import StepTimer, device_sync
+
+    timer = StepTimer(steps_per_day=48, sync_every=2)
+    x = torch.ones(1024, 1024, device=device)
+    for _ in range(6):
+        x = x @ x / 1024.0
+        timer.tick({"x": x}, n_steps=48, batch=1)
+    device_sync(x)
+    assert isinstance(timer._mark, torch.cuda.Event)
+    assert timer.summary()["windows"] == 2 and timer.summary()["model_days_per_min"] > 0
+
+
+def test_unet_dp_world1_nccl_matches_the_device_step(device, nccl_world1):
+    """The UNet's DP step on a one-rank NCCL mesh (BatchNorm sums
+    all-reduced) against the single-device step, f32 (chip_smoke.py's
+    ``unet_dp_errors``): the f64 gradients per leaf within 1e-5 of the
+    leaf's largest, dp against one device and both against the f64 loss
+    gradient; the f32 running statistics within 1e-5 of each leaf's
+    largest, the conv biases ahead of BatchNorm below 1e-6."""
+    import chip_smoke
+    from nasa_niswan_tpu_torch.models.registry import build_model
+
+    bundle = build_model("UNet-dp", in_channels=5, unet_features=(8, 16, 32, 64))
+    p0, s0 = bundle.init(torch.Generator().manual_seed(0), device)
+    rng = np.random.default_rng(2)
+    batch = (torch.tensor(rng.standard_normal((4, 5, 16, 24)), dtype=torch.float32,
+                          device=device),
+             torch.tensor(rng.standard_normal((4, 16, 24)), dtype=torch.float32,
+                          device=device))
+    norm = Normalizer(np.zeros(5, np.float32), np.ones(5, np.float32), 0.0, 1.0)
+    e = chip_smoke.unet_dp_errors(bundle, p0, s0, batch, norm, (32, 32), (16, 24),
+                                  nccl_world1)
+    for key in ("f64_dp", "f64_one", "f64_d"):
+        assert max(e[key].values()) <= 1e-5, (key, e[key])
+    assert e["state"] <= 1e-5 and e["noise"] <= 1e-6
+
+
+def test_two_rank_nccl_spatial_steps(device):
+    """chip_smoke.py (t)'s two-rank part, small: the (1, 1, 2) and (1, 2,
+    1) sharded steps on two cards against the one-device step, f32."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one card per rank")
+    import chip_smoke
+    from nasa_niswan_tpu_torch.parallel import launch
+
+    out = launch.spawn(chip_smoke.two_rank_spatial_phase, 2, "cuda", dict(
+        grid=(16, 24), padded=(20, 28), hidden=(16, 8), kernels=(5, 3), bs=4, T=4,
+        dtype="float32"), timeout=600)
+    assert all(v["loss_rel"] <= 1e-5 and v["grad_rel"] <= 1e-4 for v in out[0].values())

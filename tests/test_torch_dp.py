@@ -222,14 +222,21 @@ def test_train_cli_dp_devices_matches_one_device(tmp_path):
         np.testing.assert_array_equal(a.numpy(), b.detach().numpy())
 
 
-def test_train_cli_dp_devices_refuses_single_step_families(tmp_path):
-    cfg = TrainConfig(model="UNet-dp", device="cpu", dp_devices=2,
-                      snapshot_dir=str(tmp_path))
-    with pytest.raises(SystemExit, match="single-step families"):
-        train_cli.main(cfg)
+def test_train_cli_dp_devices_refuses_single_step_families(tmp_path, monkeypatch):
+    """What stays refused of data-parallel training: a batch that does not
+    split over the ranks, and the GAN step on the ranks of a process group
+    (it has no data-parallel form in either package).  The UNet and
+    pix2pix train under ``--dp-devices`` (tests/test_torch_dp_stateful.py)."""
     with pytest.raises(SystemExit, match="divisible"):
-        train_cli.main(TrainConfig(device="cpu", dp_devices=3, batch_size=8,
-                                   snapshot_dir=str(tmp_path)))
+        train_cli.main(TrainConfig(model="UNet-dp", device="cpu", dp_devices=3,
+                                   batch_size=8, snapshot_dir=str(tmp_path)))
+    from nasa_niswan_tpu_torch.models.pix2pix import DiscriminatorConfig, GeneratorConfig
+    from nasa_niswan_tpu_torch.train.gan import make_gan_train_step
+
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    with pytest.raises(ValueError, match="GAN step has no data-parallel form"):
+        make_gan_train_step(GeneratorConfig(), DiscriminatorConfig(), None, None)
 
 
 def test_chip_smoke_two_rank_phase_on_gloo():

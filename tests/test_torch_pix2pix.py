@@ -69,8 +69,8 @@ def fixed_masks(n_calls: int, shape, seed: int):
         calls["jax"] += 1
         return x * m
 
-    def t_drop(x, rate, generator, *, training):
-        assert training and rate == 0.5 and generator is not None
+    def t_drop(x, rate, generator, *, training, shard=(0, 1)):
+        assert training and rate == 0.5 and generator is not None and shard == (0, 1)
         m = masks[calls["torch"] % n_calls]
         calls["torch"] += 1
         return x * torch.from_numpy(m).to(x.device)
