@@ -145,12 +145,17 @@ Phases, each printing its own lines:
       route ``single_step`` equal to the evaluation's predictions.  No
       kernel of the port runs in (r): its launch counts are read as zero;
   (s) parallel/ on a one-rank NCCL group made in this process (destroyed
-      at the end): at (d)'s full width the spatially sharded rollout over
-      two chained 48-step chunks (halo exchange, B1 on each halo-extended
-      tile, eager) against (d)'s graph-replayed requests, and the sharded
-      closed loop (48 steps) against ``make_closed_loop_chunk``, each with
-      exact B1 counts, predictions and carries held to max |d| <= TOL_CHUNK
-      of the std (the same launches on the same data: bit-equal expected);
+      at the end): at (d)'s full width each sharded serving entry point
+      (the rollout over (d)'s requests, the per-species multi-tracer
+      rollout of (q)'s 3 species, the shared-meteorology one at config
+      #5's width C = 5, the closed loop) over two chained 48-step chunks,
+      each chunk one CUDA graph replay (halo exchange, B1 on each
+      halo-extended tile, the gathers, all captured): exact B1 counts under
+      replay, bit-equal to the eager body (``.eager``, the oracle), and
+      predictions and carries within TOL_CHUNK of the unsharded graph
+      (max |d| over the std; carries absolute; bit-equal expected), the
+      replay's, the eager body's and the unsharded graph's ms/step on the
+      host clock beside the replay's device time (profiler);
       the data-parallel step on the remat route (``make_device_train_step``
       with the mesh; bs 8, T 48, 3 steps, exact B1/B2/B3 counts) bit-equal
       to the step without it in parameters and loss (an all-reduce over
@@ -160,17 +165,22 @@ Phases, each printing its own lines:
       the frame: every tile against the plain cell on its inputs
       (TOL_CELL), and the tiles stitched against B1 on the whole frame
       (bit-equal expected, |d| <= TOL_CELL held), every tile shape on the
-      wgmma mainloop; the sharded rollout's ms/step
-      (eager; host clock and profiler device time) beside the
-      single-device graph's, and the sum over the tiles of B1's device time
+      wgmma mainloop; the sum over the tiles of B1's device time
       beside the whole frame's (launches replayed in a CUDA graph, CUDA
       events; eager times beside them); the serving CLI with
       ``--sharded 1 1`` (one rank spawned, NCCL) against the unsharded CLI
       on full-width config #2 and #3 snapshots (max |d| <= TOL_CHUNK of
-      the std).  With two cards
+      the std); config #5's scripts at a size their outputs name:
+      scripts/torch_bench_sharded_rollout.py (96 steps),
+      torch_run_multitracer_demo.py (SCRIPT_DEMO) and
+      torch_run_decadal_rollout.py (SCRIPT_DECADAL) on one device and with
+      ``--sharded 1 1``, every number they write finite and the sharded
+      decade equal to the unsharded one.  With two cards
       or more a two-rank phase (launch.spawn, NCCL): the (1, 1, 2) sharded
-      rollout against the single-device rollout and the dp = 2 step against
-      the one-rank step; with one card it says that phase was not run;
+      rollout (a replay with NCCL messages captured) equal to its eager
+      body and against the single-device rollout, and the dp = 2 step
+      against the one-rank step; with one card it says that phase was not
+      run;
   (t) training at scale, on a one-rank NCCL group made in this process
       (destroyed at the end): the canonical step (bs 8, T 48, 8 channels,
       hidden 64/32/16, kernels 5/3/3) through ``make_spatial_train_step``
@@ -289,7 +299,11 @@ from nasa_niswan_tpu_torch.rollout.autoregressive import (
     model_days_per_min,
 )
 from nasa_niswan_tpu_torch.rollout.export import export_rollout
-from nasa_niswan_tpu_torch.rollout.multitracer import make_multitracer_rollout, stack_params
+from nasa_niswan_tpu_torch.rollout.multitracer import (
+    make_multitracer_rollout,
+    make_multitracer_rollout_shared,
+    stack_params,
+)
 from nasa_niswan_tpu_torch.rollout.sensitivity import oat_sensitivity
 from nasa_niswan_tpu_torch.train import __main__ as train_cli
 from nasa_niswan_tpu_torch.train import loop as train_loop
@@ -2588,88 +2602,124 @@ def _rel_std(got, want):
             torch.equal(got, want))
 
 
+def _flat(tree) -> list:
+    """The tensors of nested tuples and lists, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in _flat(x)]
+
+
+def _chained(step, fn, carry):
+    """SHARD_CHUNKS chunks through ``step(fn, carry, k) -> (preds, carry)``,
+    synchronised; (the predictions, the last carry, host-clock seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = []
+    for k in range(SHARD_CHUNKS):
+        p, carry = step(fn, carry, k)
+        preds.append(p)
+    torch.cuda.synchronize()
+    return preds, carry, time.perf_counter() - t0
+
+
+def _sharded_entries(device, serve, mesh, smi) -> None:
+    """(s) each sharded serving entry point on the one-rank mesh at full
+    width, SHARD_CHUNKS chained 48-step chunks: replayed (one CUDA graph a
+    chunk) with exact B1 counts, bit-equal to ``.eager`` (the oracle), and
+    within TOL_CHUNK of the unsharded graph (predictions over the std,
+    carries absolute); replay, eager and unsharded-graph ms/step on the
+    host clock beside the replay's device time."""
+    from nasa_niswan_tpu_torch.parallel import spatial
+
+    cfg, params, norm, forcings = (serve[k] for k in ("cfg", "params", "norm", "forcings"))
+    geo = dict(padded_shape=PADDED, grid_shape=GRID)
+    S, L = N_SPECIES, len(HIDDEN)
+    rng = np.random.default_rng(SEED + 2)
+
+    def draw(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device)
+
+    stacked = stack_params([convlstm_init(torch.Generator().manual_seed(SEED + s), cfg,
+                                          device=device) for s in range(S)])
+    mt_f = [draw(S, 1, STEPS, C, *GRID) for _ in range(SHARD_CHUNKS)]
+    # config #5's own width (4 meteorology channels and one emission)
+    cfg5 = dataclasses.replace(cfg, in_channels=5)
+    stacked5 = stack_params([convlstm_init(torch.Generator().manual_seed(SEED + 10 + s),
+                                           cfg5, device=device) for s in range(S)])
+    norms5 = [Normalizer(np.zeros(5, np.float32), np.ones(5, np.float32), 0.1 * s, 1.0 + s)
+              for s in range(S)]
+    met = [draw(1, STEPS, 4, *GRID) for _ in range(SHARD_CHUNKS)]
+    emis = [draw(S, 1, STEPS, *GRID) for _ in range(SHARD_CHUNKS)]
+    fb_norm = Normalizer(norm.x_mean[:-1], norm.x_std[:-1], norm.y_mean, norm.y_std)
+    prev0 = draw(1, *GRID)
+
+    def fb_step(fn, carry, k):
+        st, prev, p = fn(params, *carry, forcings[k][0, :, : C - 1])
+        return p, (st, prev)
+
+    entries = (
+        ("rollout", spatial.make_sharded_rollout_fn(cfg, norm, mesh, **geo),
+         serve["rollout"], lambda fn, st, k: fn(params, forcings[k], st), None, None, L,
+         lambda st: spatial.gather_state(st, mesh)),
+        ("multi-tracer", spatial.make_sharded_multitracer_rollout(cfg, [norm] * S, mesh,
+                                                                  **geo),
+         make_multitracer_rollout(cfg, [norm] * S, **geo),
+         lambda fn, st, k: fn(stacked, mt_f[k], st), None, None, S * L,
+         lambda st: spatial.gather_state(st, mesh, batch_axis=1)),
+        ("shared multi-tracer (C=5)",
+         spatial.make_sharded_multitracer_rollout_shared(cfg5, norms5, mesh, **geo),
+         make_multitracer_rollout_shared(cfg5, norms5, **geo),
+         lambda fn, st, k: fn(stacked5, met[k], emis[k], st), None, None, S * L,
+         lambda st: spatial.gather_state(st, mesh, batch_axis=1)),
+        ("closed loop", spatial.make_sharded_feedback_rollout(cfg, fb_norm, mesh, **geo),
+         make_closed_loop_chunk(cfg, fb_norm, **geo), fb_step,
+         (spatial.zero_tile_state(cfg, 1, PADDED, mesh), prev0),
+         (zero_closed_loop_state(cfg, PADDED, device), prev0), L,
+         lambda c: (spatial.gather_state(c[0], mesh), c[1])),
+    )
+    n_steps = SHARD_CHUNKS * STEPS
+    for name, sh, ref, step, init_sh, init_ref, cells, gather in entries:
+        step(sh, init_sh, 0)  # warm-up on one step, capture, replay
+        step(ref, init_ref, 0)
+        _set_counts(0)
+        got, carry, t_rep = _chained(step, sh, init_sh)
+        _expect_counts(f"[s] sharded {name}, replayed", convlstm_cell=cells * n_steps)
+        eager, carry_e, t_eager = _chained(step, sh.eager, init_sh)
+        want, carry_r, t_ref = _chained(step, ref, init_ref)
+        bit = all(torch.equal(a, b) for a, b in zip(_flat([got, carry]),
+                                                    _flat([eager, carry_e])))
+        check(all(bool(torch.isfinite(p).all()) and p.shape == q.shape
+                  for p, q in zip(got, want)), f"[s] sharded {name}: shapes, finite")
+        d_pred = max(_rel_std(p, q)[0] for p, q in zip(got, want))
+        d_carry = max((a - b).abs().max().item()
+                      for a, b in zip(_flat(gather(carry)), _flat(carry_r)))
+        dev_ms, _ = _profile(lambda: step(sh, init_sh, 0))
+        dev_ref, _ = _profile(lambda: step(ref, init_ref, 0))
+        print(f"[s] sharded {name} (1, 1, 1), {SHARD_CHUNKS} chained {STEPS}-step chunks "
+              f"(captures {sh.runner.captures}): replay vs .eager "
+              f"{'bit-equal' if bit else 'NOT bit-equal'}; vs the unsharded graph "
+              f"max|d|/std {d_pred:.3e}, carry max|d| {d_carry:.3e} (tol {TOL_CHUNK:g}); "
+              f"host clock: replay {1000 * t_rep / n_steps:.4f}, eager "
+              f"{1000 * t_eager / n_steps:.4f}, unsharded graph "
+              f"{1000 * t_ref / n_steps:.4f} ms/step; device time (profiler kernel sum, "
+              f"one chunk) replay {dev_ms / STEPS:.4f}, unsharded graph "
+              f"{dev_ref / STEPS:.4f} ms/step (B=1, bf16) on {smi}")
+        check(bit, f"[s] sharded {name}: replay != eager")
+        check(max(d_pred, d_carry) <= TOL_CHUNK,
+              f"[s] sharded {name}: vs unsharded {d_pred:.3e}, carry {d_carry:.3e}")
+
+
 def phase_sharded(device, serve, train, stats, smi) -> None:
     """(s) the sharded serving and data-parallel paths on a one-rank NCCL
-    group, and B1 on halo-extended tiles."""
-    from nasa_niswan_tpu_torch.parallel import spatial
+    group, B1 on halo-extended tiles, the sharded serving CLI and the
+    config #5 scripts."""
     from nasa_niswan_tpu_torch.parallel.mesh import init_distributed, make_mesh
 
     store = tempfile.mkdtemp(prefix="smoke-nccl-")
     init_distributed("file://" + os.path.join(store, "store"), 1, 0, device_type="cuda")
     try:
         mesh = make_mesh()
-        cfg, params, norm, forcings = (serve[k] for k in ("cfg", "params", "norm", "forcings"))
-        geo = dict(padded_shape=PADDED, grid_shape=GRID)
-        roll = spatial.make_sharded_rollout_fn(cfg, norm, mesh, **geo)
-        roll(params, forcings[0][:, :1])  # warm-up: one step
-        torch.cuda.synchronize()
-        _set_counts(0)
-        t0 = time.perf_counter()
-        state, preds = None, []
-        for f in forcings[:SHARD_CHUNKS]:
-            p, state = roll(params, f, state)
-            preds.append(p)
-        torch.cuda.synchronize()
-        t_sh = time.perf_counter() - t0
-        _expect_counts("[s] sharded rollout",
-                       convlstm_cell=len(HIDDEN) * SHARD_CHUNKS * STEPS)
-        t0 = time.perf_counter()
-        ref_state, ref = None, []
-        for f in forcings[:SHARD_CHUNKS]:
-            p, ref_state = serve["rollout"](params, f, ref_state)
-            ref.append(p)
-        torch.cuda.synchronize()
-        t_graph = time.perf_counter() - t0
-        for n, (p, q) in enumerate(zip(preds, ref)):
-            check(p.shape == q.shape and bool(torch.isfinite(p).all()),
-                  f"[s] sharded chunk {n}: shape {tuple(p.shape)}, finite")
-            mx, rms, bit = _rel_std(p, q)
-            print(f"[s] sharded rollout (1, 1, 1), chunk {n + 1} of {SHARD_CHUNKS} vs the "
-                  f"graph: max|d|/std {mx:.3e} rms/std {rms:.3e} "
-                  f"({'bit-equal' if bit else 'not bit-equal'})")
-            check(mx <= TOL_CHUNK, f"[s] sharded rollout max|d|/std {mx:.3e}")
-        carry = spatial.gather_state(state, mesh)
-        dc = max((a - b).abs().max().item()
-                 for hc, rc in zip(carry, ref_state) for a, b in zip(hc, rc))
-        print(f"[s] carry after {SHARD_CHUNKS} chunks vs the graph's: max|d| {dc:.3e} "
-              f"(tol {TOL_CHUNK:g})")
-        check(dc <= TOL_CHUNK, f"[s] sharded carry max|d| {dc:.3e}")
-        n_steps = SHARD_CHUNKS * STEPS
-        dev_sh, _ = _profile(lambda: roll(params, forcings[0], state))
-        dev_graph, _ = _profile(lambda: serve["rollout"](params, forcings[0], ref_state))
-        print(f"[s] sharded rollout (eager, 1 rank) {1000 * t_sh / n_steps:.4f} ms/step vs "
-              f"single-device graph {1000 * t_graph / n_steps:.4f} ms/step over {n_steps} "
-              f"steps on the host clock; device time (profiler kernel sum, one chunk) "
-              f"{dev_sh / STEPS:.4f} vs {dev_graph / STEPS:.4f} ms/step (C={C}, B=1, bf16) "
-              f"on {smi}")
-
-        fb_norm = Normalizer(norm.x_mean[:-1], norm.x_std[:-1], norm.y_mean, norm.y_std)
-        x_chunk = forcings[0][0, :, : C - 1]
-        prev = torch.randn((1, *GRID), generator=torch.Generator(device=device)
-                           .manual_seed(SEED), device=device)
-        ref_chunk = make_closed_loop_chunk(cfg, fb_norm, **geo)
-        st_ref, prev_ref, fb_ref = ref_chunk(params, zero_closed_loop_state(cfg, PADDED, device),
-                                             prev, x_chunk)
-        chunk = spatial.make_sharded_feedback_rollout(cfg, fb_norm, mesh, **geo)
-        torch.cuda.synchronize()
-        _set_counts(0)
-        st_sh, prev_sh, fb_sh = chunk(params, None, prev, x_chunk)
-        torch.cuda.synchronize()
-        _expect_counts("[s] sharded closed loop", convlstm_cell=len(HIDDEN) * STEPS)
-        mx, rms, bit = _rel_std(fb_sh, fb_ref)
-        print(f"[s] sharded closed loop, {STEPS} steps vs make_closed_loop_chunk (graph): "
-              f"max|d|/std {mx:.3e} rms/std {rms:.3e} "
-              f"({'bit-equal' if bit else 'not bit-equal'})")
-        dprev = (prev_sh - prev_ref).abs().max().item()
-        dst = max((a - b).abs().max().item()
-                  for hc, rc in zip(spatial.gather_state(st_sh, mesh), st_ref)
-                  for a, b in zip(hc, rc))
-        print(f"[s] sharded closed loop: last prediction max|d| {dprev:.3e}, carry max|d| "
-              f"{dst:.3e} (tol {TOL_CHUNK:g})")
-        check(bool(torch.isfinite(fb_sh).all()) and prev_sh.shape == prev_ref.shape
-              and max(mx, dprev, dst) <= TOL_CHUNK,
-              f"[s] sharded closed loop max|d|/std {mx:.3e}, prev {dprev:.3e}, "
-              f"carry {dst:.3e}")
+        _sharded_entries(device, serve, mesh, smi)
 
         bundle = build_model("LSTM-smoke", **train["kw"])
         pa, pb = _copy_params(train["init"]), _copy_params(train["init"])
@@ -2702,6 +2752,7 @@ def phase_sharded(device, serve, train, stats, smi) -> None:
         shutil.rmtree(store, ignore_errors=True)
 
     _sharded_clis()
+    _campaign_scripts(smi)
     gen = torch.Generator(device=device).manual_seed(SEED)
     for tiles in TILE_MESHES:
         for shape in CELL_SHAPES[:3]:
@@ -2720,8 +2771,8 @@ def phase_sharded(device, serve, train, stats, smi) -> None:
         C=C, hidden=HIDDEN, kernels=KERNELS, grid=GRID, padded=PADDED, steps=STEPS,
         bs=TRAIN_BS, T=TRAIN_T), timeout=600)
     print(f"[s] two ranks on two cards: {out[0]}")
-    check(out[0]["rollout_max"] <= TOL_CHUNK and out[0]["dp_loss_rel"] <= 1e-5,
-          f"[s] two-rank phase {out[0]}")
+    check(out[0]["rollout_max"] <= TOL_CHUNK and out[0]["dp_loss_rel"] <= 1e-5
+          and out[0]["replay_is_eager"], f"[s] two-rank phase {out[0]}")
 
 
 def _sharded_clis() -> None:
@@ -2753,10 +2804,83 @@ def _sharded_clis() -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# (s) config #5's scripts, at a size their outputs name
+SCRIPT_DEMO = ["--steps", "480", "--epochs", "1", "--chunk", "96"]
+SCRIPT_DECADAL = ["--train-steps", "480", "--epochs", "1", "--year-steps", "960",
+                  "--years", "2", "--chunk", "240"]
+
+
+def _script(name: str):
+    """scripts/<name>.py imported as the module ``name`` (a rank it spawns
+    imports it by that name)."""
+    import importlib.util
+
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    spec = importlib.util.spec_from_file_location(name, os.path.join(scripts, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _finite(obj) -> bool:
+    """Every number in a JSON-like object is finite."""
+    if isinstance(obj, dict):
+        return all(_finite(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(_finite(v) for v in obj)
+    return not isinstance(obj, float) or bool(np.isfinite(obj))
+
+
+def _campaign_scripts(smi) -> None:
+    """(s) scripts/torch_bench_sharded_rollout.py (the plain cell and B1
+    inside the one-rank sharded rollout, eager and replayed),
+    torch_run_multitracer_demo.py (SCRIPT_DEMO: three emulators trained,
+    served as one graph) and torch_run_decadal_rollout.py (SCRIPT_DECADAL,
+    from the demo's checkpoints) on one device and with ``--sharded 1 1``
+    (one rank spawned, NCCL): every number they write finite, the sharded
+    decade's step count and per-year R^2 equal to the unsharded one's
+    (the same launches on the same data)."""
+    root = tempfile.mkdtemp(prefix="niswan_config5_")
+    try:
+        bench = _script("torch_bench_sharded_rollout")
+        for rec in bench.main(["--steps", "96", "--reps", "2"]):
+            check(_finite(rec), f"[s] bench_sharded_rollout {rec}")
+            print(f"[s] torch_bench_sharded_rollout (96 steps, C={C}): {rec} on {smi}")
+        demo = os.path.join(root, "demo")
+        res = _script("torch_run_multitracer_demo").main([*SCRIPT_DEMO, "--out", demo])
+        check(_finite(res), f"[s] multitracer demo {res}")
+        print(f"[s] torch_run_multitracer_demo {' '.join(SCRIPT_DEMO)}: {json.dumps(res)}")
+        dec = {}
+        decadal = _script("torch_run_decadal_rollout")
+        for name, extra in (("one device", []), ("--sharded 1 1", ["--sharded", "1", "1"])):
+            dec[name] = decadal.main([*SCRIPT_DECADAL, "--ckpt-root", demo, "--out",
+                                      os.path.join(root, name.replace(" ", "_")), *extra])
+            check(_finite(dec[name]), f"[s] decadal {name} {dec[name]}")
+            print(f"[s] torch_run_decadal_rollout {' '.join(SCRIPT_DECADAL + extra)}: "
+                  f"{json.dumps(dec[name])}")
+        one, sh = dec["one device"], dec["--sharded 1 1"]
+        d_r2 = max(abs(a[k] - b[k]) for a, b in zip(one["per_year_r2"], sh["per_year_r2"])
+                   for k in a)
+        print(f"[s] decadal rollout --sharded 1 1 vs one device: {sh['total_steps']} vs "
+              f"{one['total_steps']} steps, per-year R2 max|d| {d_r2:.3e} (tol "
+              f"{TOL_CHUNK:g}), layer-1 h rms {sh['layer1_h_rms_by_year']} vs "
+              f"{one['layer1_h_rms_by_year']}")
+        check(sh["total_steps"] == one["total_steps"] and d_r2 <= TOL_CHUNK
+              and sh["layer1_h_rms_by_year"] == one["layer1_h_rms_by_year"],
+              "[s] sharded decadal rollout != one device")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def two_rank_phase(rank: int, device_type: str, size: dict) -> dict:
     """The two-rank checks of (s), one rank per device: the (1, 1, 2)
-    sharded rollout against the single-device rollout (eager) on rank 0's
-    device, and the dp = 2 remat step against the one-rank step on the same
+    sharded rollout (a graph replay on the cards, its halo messages and
+    gathers captured) equal to its eager body and against the
+    single-device rollout (eager) on rank 0's device, and the dp = 2 remat
+    step against the one-rank step on the same
     global batch.  ``size`` gives the widths (the card's full width; small
     on the CPU)."""
     from nasa_niswan_tpu_torch.parallel import spatial
@@ -2773,13 +2897,16 @@ def two_rank_phase(rank: int, device_type: str, size: dict) -> dict:
                         device=dev)
     norm = Normalizer(np.zeros(C_, np.float32), np.ones(C_, np.float32), 0.0, 1.0)
     geo = dict(padded_shape=padded, grid_shape=grid)
+    roll = spatial.make_sharded_rollout_fn(cfg, norm, mesh, **geo)
     t0 = time.perf_counter()
-    p, _ = spatial.make_sharded_rollout_fn(cfg, norm, mesh, **geo)(params, f)
+    p, _ = roll(params, f)  # on the cards: warm-up, capture (NCCL inside), replay
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_sh = time.perf_counter() - t0
+    same = bool(torch.equal(p, roll.eager(params, f)[0]))  # every rank sends its halos
     out = {}
     if rank == 0:
+        out["replay_is_eager"] = same
         q, _ = make_rollout_fn(cfg, norm, device=dev, **geo).eager(params, f)
         out["rollout_rms"] = ((p - q).pow(2).mean().sqrt() / q.std()).item()
         out["rollout_max"] = ((p - q).abs().max() / q.std()).item()
@@ -3247,13 +3374,24 @@ def two_rank_spatial_phase(rank: int, size: dict) -> dict:
     return out
 
 
+_T0 = time.perf_counter()
+
+
+def _elapsed(what: str) -> None:
+    """Where the command's time goes: seconds since the start, per phase."""
+    print(f"[time] {what} starts at {time.perf_counter() - _T0:.1f} s", flush=True)
+
+
 def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()
     device = torch.device("cuda", 0)
+    _elapsed("phase_build")
     phase_build()
+    _elapsed("phase_kernel_vs_plain")
     cell = phase_kernel_vs_plain(device)
+    _elapsed("phase_serve")
     serve = phase_serve(device)
 
     n_steps = N_REQUESTS * STEPS
@@ -3263,7 +3401,9 @@ def main() -> None:
             f"{1000 * t / n_steps:.4f} ms/step over {n_steps} steps "
             f"(C={C}, B=1, bf16) on {smi}"
         )
+    _elapsed("phase_backward")
     bwd = phase_backward(device)
+    _elapsed("phase_train")
     train = phase_train(device)
     for name in ("kernel", "plain"):
         t = train[f"t_{name}"]
@@ -3275,17 +3415,29 @@ def main() -> None:
         )
     print(f"[h] training, kernel path: peak memory {train['peak'] / 2**30:.2f} GiB")
     stats = dict(phase_modes(device, cell), convlstm_cell=cell, **bwd)
+    _elapsed("phase_per_cell")
     phase_per_cell(device, train)
+    _elapsed("phase_hoist")
     phase_hoist(device, serve, train, smi)
+    _elapsed("phase_seq2seq")
     phase_seq2seq(device, smi)
+    _elapsed("phase_config2")
     phase_config2(device, smi, stats)
+    _elapsed("phase_streamed")
     phase_streamed(device, smi)
+    _elapsed("phase_graph_serve")
     phase_graph_serve(device, serve, stats, smi)
+    _elapsed("phase_clis")
     phase_clis(device)
+    _elapsed("phase_multitracer")
     phase_multitracer(device, serve, smi)
+    _elapsed("phase_single_step")
     phase_single_step(device, smi)
+    _elapsed("phase_sharded")
     phase_sharded(device, serve, train, stats, smi)
+    _elapsed("phase_train_at_scale")
     phase_train_at_scale(device, train, stats, smi)
+    _elapsed("the summary")
     check(all(LAUNCHED[name] > 0 for name in COUNTERS), f"kernels never launched: {LAUNCHED}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

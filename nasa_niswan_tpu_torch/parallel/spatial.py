@@ -29,19 +29,33 @@ padded and cut again, as ``spatial.py:615-623`` does.  The carry stays on
 its tile; ``gather_state`` and ``scatter_state`` turn it into the global
 carry of a carry file and back.
 
-The chunks run eagerly (no CUDA graph): NCCL's point-to-point messages in a
-captured graph are left for later work.
+On a card each serving chunk is one CUDA graph replay, as every unsharded
+serving chunk is (rollout/graph.py): the chunk's device work (``body``:
+preparation, the time loop with its halo messages and gathers, head, crop)
+is captured once per input signature and replayed; its inputs (the raw
+chunk and the tile carry moved to the card) are made outside the graph, and
+the packed B1 images before the capture.  The warm-up run before a capture
+goes through one step of the chunk, so every halo exchange and gather of a
+step (every layer, both axes) has made its NCCL communicator before the
+capture.  On a one-rank axis nothing is sent and ``gather_axis`` returns
+its tile, so one card captures the tile path, the ring, the crops and the
+gathers' shapes but no NCCL message.  On the CPU (gloo) the chunks run
+eagerly.
 
 Training (``make_spatial_train_step``, the counterpart of the JAX
 package's GSPMD step) runs the same cells on the tile with gradients, by
 the single-device step's two routes (``config.remat``):
 
-* per-cell: ``cell_on_tile`` around the per-cell autograd Function
-  (``FusedCell``: B1 emit_gates forward; the elementwise backward, B3 and
-  B2's dW kernel backward, all on the extended tile).  The halo exchange
-  differentiates (parallel/halo.py), and the crop's backward puts exact
-  zeros on the ring, so the ring's gate cotangents are zero and the
-  extended tile's dW holds only this tile's pixels;
+* per-cell: ``_TileCell``, the halo exchange, ``FusedCell``'s VJP on the
+  extended tile (B1 emit_gates forward; the elementwise backward, B3 and
+  B2's dW kernel backward) and the crop as one autograd Function.  The
+  zero ring on (dh, dc) makes the ring's gate cotangents zero, so the
+  extended tile's dW holds only this tile's pixels; the transposed
+  exchange adds the halo strips' cotangents to B3's f32 dxh before its one
+  cast to the compute dtype, and the step hands it the f32 kernels, so
+  each tile's weight gradient is summed over the steps and the tiles in
+  f32 (the single-device per-cell route sums the steps' bf16 dW in bf16,
+  as JAX's ``_v2_bwd`` does);
 * whole-scan BPTT: ``ops/convlstm_bptt.scan_cells`` with the tile cell and
   ``_tile_grads``, its per-cell backward on the tile: xh exchanged, c, dh
   and dc padded with the zero ring, ``ops/convgrad.cell_grads`` (B2, then
@@ -62,6 +76,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
 from nasa_niswan_tpu_torch.data.dataset import (
@@ -81,14 +96,29 @@ from nasa_niswan_tpu_torch.models.convlstm import (
 )
 from nasa_niswan_tpu_torch.models.registry import ModelBundle
 from nasa_niswan_tpu_torch.ops.convgrad import cell_grads
-from nasa_niswan_tpu_torch.ops.convlstm_bptt import cells_step
-from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward
+from nasa_niswan_tpu_torch.ops.convlstm_bptt import cells_step, combined_cells
+from nasa_niswan_tpu_torch.ops.convlstm_cell import (
+    _cell_vjp,
+    fused_cell_forward,
+    fused_cell_gates,
+)
 from nasa_niswan_tpu_torch.ops.seq2seq_bptt import fb_channel
 from nasa_niswan_tpu_torch.parallel.dp import reduce_gradients
 from nasa_niswan_tpu_torch.parallel.halo import halo_exchange_zero, halo_exchange_zero_transpose
 from nasa_niswan_tpu_torch.parallel.mesh import Mesh, gather_axis, gather_tiles, local_tile
-from nasa_niswan_tpu_torch.rollout.autoregressive import _prep_frame
-from nasa_niswan_tpu_torch.rollout.multitracer import _species, _stack_states
+from nasa_niswan_tpu_torch.rollout.autoregressive import (
+    _prep_frame,
+    first_step,
+    flat_state,
+    nest_state,
+    serving_weights,
+)
+from nasa_niswan_tpu_torch.rollout.graph import GraphRunner
+from nasa_niswan_tpu_torch.rollout.multitracer import (
+    _species,
+    _species_weights,
+    _stack_states,
+)
 from nasa_niswan_tpu_torch.train.loop import per_sample_r2_score
 
 
@@ -96,20 +126,70 @@ def cell_on_tile(xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Te
                  mesh: Mesh, cell_fn: CellFn = fused_cell_forward):
     """One fused cell step on a rank's tile: xh (B, h, w, Cin) = [x; h] in
     the compute dtype, c (B, h, w, hid) f32; returns the tile's (h', c').
-    ``cell_fn`` is the cell run on the extended tile (a test passes the
-    plain version)."""
+    ``cell_fn`` is the cell run on the extended tile without grad (a test
+    passes the plain version).  Under grad (the per-cell training route)
+    the step is ``_TileCell``, B1's emit_gates mode on the extended tile."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xh, c, w, b)):
+        return _TileCell.apply(xh, c, w, b, mesh, w.detach().to(xh.dtype))
     p = w.shape[0] // 2
     if p == 0:
         return cell_fn(xh, c, w, b)
     hl, wl = xh.shape[1:3]
-    h2, c2 = cell_fn(halo_exchange_zero(xh, p, mesh), F.pad(c, (0, 0, p, p, p, p)), w, b)
-    return (h2[:, p:p + hl, p:p + wl].contiguous(),
-            c2[:, p:p + hl, p:p + wl].contiguous())
+    h2, c2 = cell_fn(halo_exchange_zero(xh, p, mesh), _ring(c, p), w, b)
+    return _crop(h2, p, hl, wl), _crop(c2, p, hl, wl)
 
 
-def _tile_cell(mesh: Mesh) -> CellFn:
+def _ring(t: torch.Tensor, p: int) -> torch.Tensor:
+    """A zero ring of ``p`` pixels around a (B, h, w, C) tile."""
+    return F.pad(t, (0, 0, p, p, p, p))
+
+
+def _crop(t: torch.Tensor, p: int, hl: int, wl: int) -> torch.Tensor:
+    return t[:, p:p + hl, p:p + wl].contiguous()
+
+
+class _TileCell(torch.autograd.Function):
+    """``cell_on_tile`` around the per-cell VJP of ``FusedCell``, as one
+    Function.  The forward exchanges xh's halo, pads c with the zero ring,
+    runs B1's emit_gates mode on the extended tile with ``w_low``, the
+    kernel ``w`` in xh's dtype, and crops: the launches of ``FusedCell`` on
+    the extended tile.  The backward puts the zero ring on (dh, dc), so the
+    ring's gate cotangents are zero, runs ``FusedCell``'s backward there
+    (the elementwise backward, B3 for dxh, B2's dW kernels), applies the
+    transposed exchange to B3's f32 dxh and casts the sum to xh's dtype
+    once, so a halo pixel's cotangents from the neighbours are added in
+    f32, as the whole-scan route's ``_tile_grads`` adds them.  dw is
+    returned in ``w``'s dtype: given the f32 kernel, the tile's weight
+    gradient is summed over the steps, and then over the tiles, in f32."""
+
+    @staticmethod
+    def forward(ctx, xh, c, w, b, mesh, w_low):
+        p = w.shape[0] // 2
+        hl, wl = xh.shape[1:3]
+        xe = halo_exchange_zero(xh, p, mesh) if p else xh
+        ce = _ring(c, p)
+        h2, c2, gates = fused_cell_gates(xe, ce, w_low, b)
+        ctx.save_for_backward(xe, ce, gates, w_low)
+        ctx.mesh, ctx.w_dtype = mesh, w.dtype
+        return _crop(h2, p, hl, wl), _crop(c2, p, hl, wl)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh, dc):
+        xe, ce, gates, w_low = ctx.saved_tensors
+        p = w_low.shape[0] // 2
+        hl, wl = xe.shape[1] - 2 * p, xe.shape[2] - 2 * p
+        _, dxe, dc_prev, dw, db = _cell_vjp(xe, ce, gates, w_low, _ring(dh, p), _ring(dc, p),
+                                            ctx.needs_input_grad[0])
+        dxh = None
+        if dxe is not None:
+            dxh = (halo_exchange_zero_transpose(dxe, p, ctx.mesh) if p else dxe).to(xe.dtype)
+        return dxh, _crop(dc_prev, p, hl, wl), dw.to(ctx.w_dtype), db, None, None
+
+
+def _tile_cell(mesh: Mesh, cell_fn: CellFn = fused_cell_forward) -> CellFn:
     def cell(xh, c, w, b):
-        return cell_on_tile(xh, c, w, b, mesh)
+        return cell_on_tile(xh, c, w, b, mesh, cell_fn)
     return cell
 
 
@@ -124,13 +204,10 @@ def _tile_grads(mesh: Mesh) -> GradsFn:
             return cell_grads(xh, c, dh, dc, w, b)
         hl, wl = xh.shape[1:3]
 
-        def ring(t):  # zeros: no cotangent reaches the ring from outside the tile
-            return F.pad(t, (0, 0, p, p, p, p))
-
-        dxh, dc_prev, dw, db = cell_grads(halo_exchange_zero(xh, p, mesh), ring(c), ring(dh),
-                                          ring(dc), w, b)
-        return (halo_exchange_zero_transpose(dxh, p, mesh),
-                dc_prev[:, p:p + hl, p:p + wl].contiguous(), dw, db)
+        # zeros: no cotangent reaches the ring from outside the tile
+        dxh, dc_prev, dw, db = cell_grads(halo_exchange_zero(xh, p, mesh), _ring(c, p),
+                                          _ring(dh, p), _ring(dc, p), w, b)
+        return halo_exchange_zero_transpose(dxh, p, mesh), _crop(dc_prev, p, hl, wl), dw, db
     return grads
 
 
@@ -170,22 +247,23 @@ def gather_state(state, mesh: Mesh, *, batch_axis: Optional[int] = 0) -> list:
             for hc in state]
 
 
-def _tile_state(state, config, batch, padded_shape, mesh):
+def _state_inputs(state, device, zeros) -> list:
+    """A tile carry as a chunk's flat state inputs: ``zeros()`` when
+    ``state`` is None, else its leaves as contiguous f32 on ``device``."""
     if state is None:
-        return zero_tile_state(config, batch, padded_shape, mesh)
-    return [(torch.as_tensor(h, device=mesh.device).float().contiguous(),
-             torch.as_tensor(c, device=mesh.device).float().contiguous()) for h, c in state]
+        return flat_state(zeros())
+    return [torch.as_tensor(t, device=device).float().contiguous() for t in flat_state(state)]
 
 
-def _scan_tile(params, weights, x, state, config: ConvLSTMConfig, mesh: Mesh):
+def _scan_tile(params, weights, x, state, config: ConvLSTMConfig, cell: CellFn):
     """The stacked cells over a chunk of tiles (x (B, T, h, w, C), or a
-    tuple of parts concatenated per step): (per-step head taps (B, T, h, w)
-    of the tile, final carry)."""
+    tuple of parts concatenated per step) with the tile cell ``cell``:
+    (per-step head taps (B, T, h, w) of the tile, final carry)."""
     dt = config.torch_dtype
     _, taps, state = convlstm_apply(
         params, x, config, return_per_step=True, initial_state=state,
         return_state=True, tap_fn=lambda h: head_apply(params, h, dt)[..., 0],
-        cell_fn=_tile_cell(mesh), weights=weights,
+        cell_fn=cell, weights=weights,
     )
     return taps, state
 
@@ -208,7 +286,7 @@ def convlstm_apply_sharded(params, x: torch.Tensor, config: ConvLSTMConfig,
         x_t = _tile(torch.as_tensor(x, device=mesh.device), mesh, 2, 0)
         state = zero_tile_state(config, x_t.shape[0], x.shape[2:4], mesh)
         _, state = _scan_tile(params, cell_weights(params, config), x_t, state, config,
-                              mesh)
+                              _tile_cell(mesh))
         return head_apply(params, state[-1][0], config.torch_dtype)
 
 
@@ -270,7 +348,17 @@ def make_spatial_train_step(
         count = y.numel()  # the dp share's pixels of the cropped grid
         y = y[:, gr, gc]
         optimizer.zero_grad(set_to_none=True)
-        pred = convlstm_apply(params, x, cfg, cell_fn=cell, grads_fn=grads)[:, tr, tc, 0]
+        if cfg.remat:
+            pred = convlstm_apply(params, x, cfg, cell_fn=cell, grads_fn=grads)
+        else:
+            # the f32 kernels, so each tile's weight gradient stays f32 until
+            # the all-reduce sums it; each cast to the compute dtype once
+            kernels = combined_cells(params, torch.float32)
+            low = {id(w): w.detach().to(cfg.torch_dtype) for w, _ in kernels}
+            pred = convlstm_apply(
+                params, x, cfg, weights={"cells": kernels},
+                cell_fn=lambda xh, c, w, b: _TileCell.apply(xh, c, w, b, mesh, low[id(w)]))
+        pred = pred[:, tr, tc, 0]
         d = y - pred
         loss = (torch.sum(d * d) + torch.sum(torch.abs(d))) / count
         loss.backward()
@@ -317,6 +405,38 @@ def make_spatial_eval_step(
     return eval_step
 
 
+def _sharded_entry(body, prepare, warm, inputs, outputs, mesh: Mesh) -> Callable:
+    """A sharded serving entry point ``fn(params, *args)``: ``inputs(params,
+    *args)`` makes the chunk's device inputs outside any graph (tiles cut,
+    carries moved), ``body(params, prepare(params), *inputs)`` is the
+    chunk's device work, ``outputs`` shapes what it returns.  On a CUDA
+    mesh each call replays the chunk's CUDA graph (``fn.runner``, captured
+    once per input signature after a warm-up on ``warm(inputs)``); on the
+    CPU the body runs eagerly.  ``fn.eager`` runs the body without a graph,
+    ``fn.body`` and ``fn.inputs`` are its parts."""
+    # thread_local: other threads' CUDA calls during a capture (NCCL's
+    # watchdog polls its work's events) do not invalidate it
+    runner = GraphRunner(body, prepare, warm=warm, capture_error_mode="thread_local")
+
+    def run(graph: bool, params, *args):
+        with torch.inference_mode():
+            ins = inputs(params, *args)
+            if graph and mesh.device.type == "cuda":
+                return outputs(runner(params, ins))
+            return outputs(body(params, prepare(params), *ins))
+
+    def fn(params, *args):
+        return run(True, params, *args)
+
+    fn.eager = lambda params, *args: run(False, params, *args)
+    fn.body, fn.inputs, fn.runner = body, inputs, runner
+    return fn
+
+
+def _rollout_out(out):
+    return out[0], nest_state(list(out[1:]))
+
+
 def make_sharded_rollout_fn(
     config: ConvLSTMConfig,
     normalizer: Normalizer,
@@ -326,6 +446,7 @@ def make_sharded_rollout_fn(
     grid_shape: Tuple[int, int] = (90, 144),
     static: Optional[np.ndarray] = None,
     unnormalize: bool = True,
+    cell_fn: CellFn = fused_cell_forward,
 ) -> Callable:
     """The state-carrying rollout of ``make_rollout_fn`` with the grid
     sharded over ``mesh``: ``rollout(params, forcings, initial_state=None)
@@ -333,34 +454,38 @@ def make_sharded_rollout_fn(
     every rank), preds (B, T, h, w) in physical units on every rank, state
     this rank's per-layer tile carry (B / dp, H / lat, W / lon, hidden)
     (``scatter_state`` makes one from a global carry).  Every rank of the
-    mesh calls it; it runs on the mesh's device without grad."""
+    mesh calls it; it runs on the mesh's device without grad, each call one
+    CUDA graph replay on a card (``_sharded_entry``).  ``cell_fn`` is the
+    cell run on each extended tile (``fused_cell_forward_plain``: the plain
+    version on any device)."""
     _check_tiles(padded_shape, mesh)
     dt = config.torch_dtype
     cast = dt if dt != torch.float32 else None
     static_z = None if static is None else DeviceConst(zscore_static(static))
+    cell = _tile_cell(mesh, cell_fn)
 
-    def rollout(params, forcings, initial_state=None):
-        with torch.inference_mode():
-            forcings = _tile(torch.as_tensor(forcings, device=mesh.device), mesh,
-                             batch_axis=0)
-            st = None if static_z is None else static_z.on(mesh.device)
-            xs = _tile(_prep_frame(forcings, normalizer, st, padded_shape, cast), mesh, 2)
-            state = _tile_state(initial_state, config, xs.shape[0], padded_shape, mesh)
-            taps, state = _scan_tile(params, cell_weights(params, config), xs, state,
-                                     config, mesh)
-            preds = crop_to_grid(gather_tiles(taps, mesh, lat_axis=2, lon_axis=3),
-                                 grid_shape)
-            return (normalizer.unnormalize_y(preds) if unnormalize else preds), state
+    def body(params, weights, forcings, *state):
+        st = None if static_z is None else static_z.on(forcings.device)
+        xs = _tile(_prep_frame(forcings, normalizer, st, padded_shape, cast), mesh, 2)
+        taps, state = _scan_tile(params, weights, xs, nest_state(state), config, cell)
+        preds = crop_to_grid(gather_tiles(taps, mesh, lat_axis=2, lon_axis=3), grid_shape)
+        return ((normalizer.unnormalize_y(preds) if unnormalize else preds),
+                *flat_state(state))
 
-    return rollout
+    def inputs(params, forcings, initial_state=None):
+        forcings = _tile(torch.as_tensor(forcings, device=mesh.device), mesh, batch_axis=0)
+        return [forcings, *_state_inputs(
+            initial_state, mesh.device,
+            lambda: zero_tile_state(config, forcings.shape[0], padded_shape, mesh))]
+
+    return _sharded_entry(body, lambda params: serving_weights(params, config), first_step,
+                          inputs, _rollout_out, mesh)
 
 
-def _stacked_tile_state(config, state, S, B, padded_shape, mesh):
-    if state is None:
-        return [zero_tile_state(config, B, padded_shape, mesh) for _ in range(S)]
-    return [[(torch.as_tensor(h[s], device=mesh.device).float().contiguous(),
-              torch.as_tensor(c[s], device=mesh.device).float().contiguous())
-             for h, c in state] for s in range(S)]
+def _stacked_state_inputs(state, config, S, B, padded_shape, mesh) -> list:
+    """The stacked (S, B, h, w, hidden) tile carry as flat state inputs."""
+    return _state_inputs(state, mesh.device, lambda: _stack_states(
+        [zero_tile_state(config, B, padded_shape, mesh) for _ in range(S)]))
 
 
 def make_sharded_multitracer_rollout(
@@ -376,30 +501,33 @@ def make_sharded_multitracer_rollout(
     state=None) -> (preds, state)`` with forcings (S, B, T, C, h, w) raw,
     preds (S, B, T, h, w) in physical units on every rank and the stacked
     tile carry (S, B / dp, H / lat, W / lon, hidden) (rollout/multitracer.py
-    with the grid sharded)."""
+    with the grid sharded); one CUDA graph replay per call on a card."""
     _check_tiles(padded_shape, mesh)
     S = len(normalizers)
+    cell = _tile_cell(mesh)
 
-    def rollout(stacked_params, forcings, state=None):
-        with torch.inference_mode():
-            forcings = _tile(torch.as_tensor(forcings, device=mesh.device), mesh,
-                             batch_axis=1)
-            states = _stacked_tile_state(config, state, S, forcings.shape[1], padded_shape,
-                                         mesh)
-            preds, new_states = [], []
-            for s in range(S):
-                params = _species(stacked_params, s)
-                x = normalizers[s].normalize_x(forcings[s])
-                x = _tile(torch.movedim(pad_geo(x, padded_shape), -3, -1), mesh, 2)
-                taps, st = _scan_tile(params, cell_weights(params, config), x, states[s],
-                                      config, mesh)
-                p = crop_to_grid(gather_tiles(taps, mesh, lat_axis=2, lon_axis=3),
-                                 grid_shape)
-                preds.append(normalizers[s].unnormalize_y(p))
-                new_states.append(st)
-            return torch.stack(preds), _stack_states(new_states)
+    def body(stacked_params, weights, forcings, *state):
+        state = nest_state(state)
+        preds, new_states = [], []
+        for s in range(S):
+            params = _species(stacked_params, s)
+            x = normalizers[s].normalize_x(forcings[s])
+            x = _tile(torch.movedim(pad_geo(x, padded_shape), -3, -1), mesh, 2)
+            taps, st = _scan_tile(params, weights[s], x, [(h[s], c[s]) for h, c in state],
+                                  config, cell)
+            p = crop_to_grid(gather_tiles(taps, mesh, lat_axis=2, lon_axis=3), grid_shape)
+            preds.append(normalizers[s].unnormalize_y(p))
+            new_states.append(st)
+        return (torch.stack(preds), *flat_state(_stack_states(new_states)))
 
-    return rollout
+    def inputs(stacked_params, forcings, state=None):
+        forcings = _tile(torch.as_tensor(forcings, device=mesh.device), mesh, batch_axis=1)
+        return [forcings, *_stacked_state_inputs(state, config, S, forcings.shape[1],
+                                                 padded_shape, mesh)]
+
+    # warm up on one step of the (S, B, T, ...) forcings
+    return _sharded_entry(body, _species_weights(config, S),
+                          lambda xs: [xs[0][:, :, :1], *xs[1:]], inputs, _rollout_out, mesh)
 
 
 def make_sharded_multitracer_rollout_shared(
@@ -411,12 +539,13 @@ def make_sharded_multitracer_rollout_shared(
     grid_shape: Tuple[int, int] = (90, 144),
 ) -> Callable:
     """Config #5 with the meteorology shared (what scripts/
-    run_decadal_rollout.py serves): ``rollout(stacked_params, met,
+    torch_run_decadal_rollout.py serves): ``rollout(stacked_params, met,
     emissions, state=None)`` with met (B, T, C-1, h, w) and emissions
     (S, B, T, h, w) raw.  The meteorology is normalized, cast and padded
     once and its tile feeds every species; each step concatenates it with
     the species' emission tile inside the time loop.  Returns as
-    ``make_sharded_multitracer_rollout``."""
+    ``make_sharded_multitracer_rollout``; one CUDA graph replay per call on
+    a card."""
     _check_tiles(padded_shape, mesh)
     S = len(normalizers)
     dt = config.torch_dtype
@@ -424,29 +553,34 @@ def make_sharded_multitracer_rollout_shared(
     met_norm = Normalizer(n0.x_mean[:-1], n0.x_std[:-1], n0.y_mean, n0.y_std)
     emis_norms = [Normalizer(n.x_mean[-1:], n.x_std[-1:], n.y_mean, n.y_std)
                   for n in normalizers]
+    cell = _tile_cell(mesh)
 
-    def rollout(stacked_params, met, emissions, state=None):
-        with torch.inference_mode():
-            met = _tile(torch.as_tensor(met, device=mesh.device), mesh, batch_axis=0)
-            emissions = _tile(torch.as_tensor(emissions, device=mesh.device), mesh,
-                              batch_axis=1)
-            m = met_norm.normalize_x(met).to(dt)
-            met_xs = _tile(torch.movedim(pad_geo(m, padded_shape), -3, -1), mesh, 2)
-            states = _stacked_tile_state(config, state, S, met.shape[0], padded_shape, mesh)
-            preds, new_states = [], []
-            for s in range(S):
-                params = _species(stacked_params, s)
-                e = emis_norms[s].normalize_x(emissions[s]).to(dt)
-                e = _tile(pad_geo(e, padded_shape)[..., None], mesh, 2)
-                taps, st = _scan_tile(params, cell_weights(params, config), (met_xs, e),
-                                      states[s], config, mesh)
-                p = crop_to_grid(gather_tiles(taps, mesh, lat_axis=2, lon_axis=3),
-                                 grid_shape)
-                preds.append(normalizers[s].unnormalize_y(p))
-                new_states.append(st)
-            return torch.stack(preds), _stack_states(new_states)
+    def body(stacked_params, weights, met, emissions, *state):
+        state = nest_state(state)
+        m = met_norm.normalize_x(met).to(dt)
+        met_xs = _tile(torch.movedim(pad_geo(m, padded_shape), -3, -1), mesh, 2)
+        preds, new_states = [], []
+        for s in range(S):
+            params = _species(stacked_params, s)
+            e = emis_norms[s].normalize_x(emissions[s]).to(dt)
+            e = _tile(pad_geo(e, padded_shape)[..., None], mesh, 2)
+            taps, st = _scan_tile(params, weights[s], (met_xs, e),
+                                  [(h[s], c[s]) for h, c in state], config, cell)
+            p = crop_to_grid(gather_tiles(taps, mesh, lat_axis=2, lon_axis=3), grid_shape)
+            preds.append(normalizers[s].unnormalize_y(p))
+            new_states.append(st)
+        return (torch.stack(preds), *flat_state(_stack_states(new_states)))
 
-    return rollout
+    def inputs(stacked_params, met, emissions, state=None):
+        met = _tile(torch.as_tensor(met, device=mesh.device), mesh, batch_axis=0)
+        emissions = _tile(torch.as_tensor(emissions, device=mesh.device), mesh, batch_axis=1)
+        return [met, emissions, *_stacked_state_inputs(state, config, S, met.shape[0],
+                                                       padded_shape, mesh)]
+
+    # warm up on one step of met (B, T, ...) and emissions (S, B, T, ...)
+    return _sharded_entry(body, _species_weights(config, S),
+                          lambda xs: [xs[0][:, :1], xs[1][:, :, :1], *xs[2:]], inputs,
+                          _rollout_out, mesh)
 
 
 def make_sharded_feedback_rollout(
@@ -465,29 +599,36 @@ def make_sharded_feedback_rollout(
     carry (1, H / lat, W / lon, hidden) or None for zeros.  Each step's
     prediction tiles are gathered over lat and lon, cropped, and the next
     step's feedback channel is ``pad_geo`` of that frame, cut to the tile.
-    Every dp rank of a mesh runs the same batch-1 loop."""
+    Every dp rank of a mesh runs the same batch-1 loop; one CUDA graph
+    replay per call on a card."""
     _check_tiles(padded_shape, mesh)
     dt = config.torch_dtype
     tile_cell = _tile_cell(mesh)
 
-    def run_chunk(params, state, prev_norm, x_chunk):
-        with torch.inference_mode():
-            x_chunk = torch.as_tensor(x_chunk, device=mesh.device)
-            prev = torch.as_tensor(prev_norm, device=mesh.device)
-            xn = normalizer.normalize_x(x_chunk)
-            # (Tc, 1, h, w, C-1) tiles in the compute dtype, once per chunk
-            xs = _tile(torch.movedim(pad_geo(xn, padded_shape), 1, -1)[:, None].to(dt),
-                       mesh, 2)
-            st = _tile_state(state, config, 1, padded_shape, mesh)
-            cells = cell_weights(params, config)["cells"]
-            preds = []
-            for t in range(xs.shape[0]):
-                fb = _tile(fb_channel(prev, padded_shape), mesh, 1).to(dt)
-                st = cells_step(cells, torch.cat([xs[t], fb], dim=-1), st, dt, tile_cell)
-                tap = head_apply(params, st[-1][0], dt)
-                prev = crop_to_grid(gather_tiles(tap[..., 0], mesh, lat_axis=1, lon_axis=2,
-                                                 batch_axis=None), grid_shape)
-                preds.append(prev)
-            return st, prev, normalizer.unnormalize_y(torch.cat(preds))
+    def body(params, weights, x_chunk, prev_norm, *state):
+        xn = normalizer.normalize_x(x_chunk)
+        # (Tc, 1, h, w, C-1) tiles in the compute dtype, once per chunk
+        xs = _tile(torch.movedim(pad_geo(xn, padded_shape), 1, -1)[:, None].to(dt), mesh, 2)
+        st, prev, preds = nest_state(state), prev_norm, []
+        for t in range(xs.shape[0]):
+            fb = _tile(fb_channel(prev, padded_shape), mesh, 1).to(dt)
+            st = cells_step(weights["cells"], torch.cat([xs[t], fb], dim=-1), st, dt,
+                            tile_cell)
+            tap = head_apply(params, st[-1][0], dt)
+            prev = crop_to_grid(gather_tiles(tap[..., 0], mesh, lat_axis=1, lon_axis=2,
+                                             batch_axis=None), grid_shape)
+            preds.append(prev)
+        return (prev, normalizer.unnormalize_y(torch.cat(preds)), *flat_state(st))
 
-    return run_chunk
+    def inputs(params, state, prev_norm, x_chunk):
+        return [torch.as_tensor(x_chunk, device=mesh.device),
+                torch.as_tensor(prev_norm, device=mesh.device),
+                *_state_inputs(state, mesh.device,
+                               lambda: zero_tile_state(config, 1, padded_shape, mesh))]
+
+    def outputs(out):
+        prev, preds, *st = out
+        return nest_state(st), prev, preds
+
+    return _sharded_entry(body, lambda params: serving_weights(params, config),
+                          lambda xs: [xs[0][:1], *xs[1:]], inputs, outputs, mesh)

@@ -28,8 +28,9 @@ each (``cuda:0`` .., or CPU processes with ``--device cpu``), started by
 cell on each tile).  Every rank reads the snapshot and the stream; rank 0
 writes the predictions, the carry (gathered to the global layout, so a
 sharded run resumes an unsharded one's carry and the reverse) and the
-summary.  The sharded chunks run eagerly, without CUDA graphs.  It is
-refused with ``--artifact`` (a single-device program), for a single-step
+summary.  On the cards each sharded chunk is one CUDA graph replay as
+well (parallel/spatial.py), fetched one chunk behind.  It is refused
+with ``--artifact`` (a single-device program), for a single-step
 snapshot, and when the padded grid does not tile evenly.
 """
 

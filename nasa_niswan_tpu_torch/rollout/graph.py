@@ -74,14 +74,19 @@ class GraphRunner:
     inputs the warm-up runs on (for a step loop: to one step).
     ``runner(params, inputs)`` copies the inputs into the
     graph's static buffers, replays, and returns copies of the outputs.
-    ``captures`` counts the captures made.
+    ``captures`` counts the captures made.  ``capture_error_mode`` is
+    ``torch.cuda.graph``'s: "global" (the default) fails a capture on an
+    unsafe CUDA call from any thread, "thread_local" only from the
+    capturing one (a sharded chunk: NCCL's watchdog thread polls its
+    work's events while the capture runs).
     """
 
     def __init__(self, body: Callable, prepare: Callable,
-                 warm: Optional[Callable] = None):
+                 warm: Optional[Callable] = None, capture_error_mode: str = "global"):
         self.body = body
         self.prepare = prepare
         self.warm = warm
+        self.capture_error_mode = capture_error_mode
         self.captures = 0
         self._entries = {}
         self._stream = None
@@ -107,7 +112,8 @@ class GraphRunner:
         e.graph = torch.cuda.CUDAGraph()
         before = ops.launch_counts()
         try:
-            with torch.cuda.graph(e.graph, stream=stream):
+            with torch.cuda.graph(e.graph, stream=stream,
+                                  capture_error_mode=self.capture_error_mode):
                 e.static_out = tuple(self.body(params, e.weights, *e.static_in))
         finally:
             e.launches = {k: n - before.get(k, 0)

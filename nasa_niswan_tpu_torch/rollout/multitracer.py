@@ -78,12 +78,15 @@ def _tap(params, grid_shape, dt, normalizer: Normalizer):
     return tap
 
 
+def _species_weights(config, S: int):
+    """``prepare`` of an S-species rollout: each species' serving weights,
+    made before the capture."""
+    return lambda stacked: [serving_weights(_species(stacked, s), config) for s in range(S)]
+
+
 def _runner(body, config, S, warm):
-    """The S-species GraphRunner: the per-species weights are made before
-    the capture."""
-    return GraphRunner(
-        body, lambda stacked: [serving_weights(_species(stacked, s), config)
-                               for s in range(S)], warm=warm)
+    """The S-species GraphRunner."""
+    return GraphRunner(body, _species_weights(config, S), warm=warm)
 
 
 def _run(runner, body, config, stacked_params, inputs, S):

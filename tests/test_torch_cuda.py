@@ -1055,6 +1055,60 @@ def test_sharded_rollout_world1_nccl(device, nccl_world1):
         assert _max_std(h, rh) <= 1e-6 and _max_std(c, rc) <= 1e-6
 
 
+def test_sharded_entry_points_replay_their_eager_body_world1_nccl(device, nccl_world1):
+    """On a one-rank NCCL mesh each sharded serving entry point's call is a
+    CUDA graph replay (one capture per signature), bit-equal to its eager
+    body over two chained chunks, and counts B1's launches once per
+    replay."""
+    from nasa_niswan_tpu_torch.parallel import spatial
+    from nasa_niswan_tpu_torch.rollout.multitracer import stack_params
+
+    mesh = nccl_world1
+    cfg = ConvLSTMConfig(in_channels=8, hidden_channels=(16, 8, 8), kernel_sizes=(5, 3, 3),
+                         compute_dtype="bfloat16")
+    geo = dict(padded_shape=(20, 28), grid_shape=(16, 24))
+    params = convlstm_init(torch.Generator().manual_seed(0), cfg, device=device)
+    stacked = stack_params([convlstm_init(torch.Generator().manual_seed(s), cfg,
+                                          device=device) for s in (1, 2)])
+    rng = np.random.default_rng(7)
+    f = torch.tensor(rng.standard_normal((2, 1, 8, 8, 16, 24)), dtype=torch.float32,
+                     device=device)
+    norm = Normalizer(np.zeros(8, np.float32), np.ones(8, np.float32), 0.2, 1.5)
+    fb_norm = Normalizer(np.zeros(7, np.float32), np.ones(7, np.float32), 0.2, 1.5)
+    entries = {
+        "rollout": (spatial.make_sharded_rollout_fn(cfg, norm, mesh, **geo),
+                    lambda fn, st, k: fn(params, f[0, :, 4 * k:4 * k + 4], st), 3),
+        "multi": (spatial.make_sharded_multitracer_rollout(cfg, [norm] * 2, mesh, **geo),
+                  lambda fn, st, k: fn(stacked, f[:, :, 4 * k:4 * k + 4], st), 6),
+        "shared": (spatial.make_sharded_multitracer_rollout_shared(cfg, [norm] * 2, mesh,
+                                                                   **geo),
+                   lambda fn, st, k: fn(stacked, f[0, :, 4 * k:4 * k + 4, :7],
+                                        f[:, :, 4 * k:4 * k + 4, 7], st), 6),
+        "feedback": (spatial.make_sharded_feedback_rollout(cfg, fb_norm, mesh, **geo),
+                     lambda fn, st, k: (lambda o: (o[2], o[:2]))(
+                         fn(params, *(st or (None, f[0, 0, :1, 0])),
+                            f[0, 0, 4 * k:4 * k + 4, :7])), 3),
+    }
+    for name, (fn, step, cells) in entries.items():
+        outs = {}
+        for run in (fn, fn.eager):
+            carry, preds = None, []
+            for k in range(2):
+                p, carry = step(run, carry, k)
+                preds.append(p)
+            outs[run is fn] = (preds, carry)
+        (g_p, g_c), (e_p, e_c) = outs[True], outs[False]
+        assert all(torch.equal(a, b) for a, b in zip(g_p, e_p)), name
+        if name == "feedback":
+            g_c, e_c = g_c[0], e_c[0]
+        assert all(torch.equal(a, b) for hc_g, hc_e in zip(g_c, e_c)
+                   for a, b in zip(hc_g, hc_e)), name
+        assert fn.runner.captures == 1, name
+        before = convlstm_cell.launches
+        step(fn, None, 0)
+        assert convlstm_cell.launches - before == cells * 4, name
+
+
 def test_two_rank_nccl_sharded_rollout_and_dp_step(device):
     """Two ranks on two cards (launch.spawn, NCCL): the (1, 1, 2) sharded
     rollout against the single-device rollout (max |d| <= 1e-6 of the std:

@@ -14,7 +14,20 @@ Tolerances: halos bit-equal; sharded conv 1e-6 relative; the tile cell
 step against the full-grid cell (plain versions) f32 1e-6, bf16 1e-3 (the
 kernel-vs-plain limit of PERF.md section 2); rollouts 1e-5 of the target's
 std (sums in other orders), chunked against one chunk of twice the length
-1e-6."""
+1e-6; each sharded serving entry point's call, ``.eager`` and ``.body``
+bit-equal over two chained chunks.
+
+The bf16 training step on both routes against the port's single-device
+step of the same route, per leaf relative to the leaf's largest: every
+leaf within BF16_GRAD_TOL, twice the largest distance the whole-scan
+(remat) route measures here (5.68e-3 on every mesh: the head's weight,
+whose bf16 product each tile sums on its own in both routes; every other
+remat leaf <= 6.4e-7), and the leaves both routes sum in f32 (the cells'
+biases) within BF16_BIAS_TOL (remat <= 2.4e-7, per-cell <= 4.0e-7).
+Before the per-cell route added its halo cotangents in f32 and kept each
+tile's weight gradient in f32 until the all-reduce, its biases were
+1.9e-5 - 1.9e-4 off and its kernels up to 1.34e-2 (the test prints each
+leaf's distance)."""
 
 import numpy as np
 import pytest
@@ -53,6 +66,12 @@ LAYERS = dict(hidden_channels=(8, 4), kernel_sizes=(5, 3))
 FB_GRID, FB_PADDED, FB_T, FB_CHUNK = (12, 20), (16, 24), 6, 3
 CELLS = [(k, dt) for k in (5, 3, 1) for dt in ("float32", "bfloat16")]
 CELL_TOL = {"float32": 1e-6, "bfloat16": 1e-3}
+ENTRIES = ["rollout", "multitracer", "multitracer_shared", "feedback"]
+BF16_MESHES = [(1, 1, 2), (1, 2, 2), (1, 1, 4)]
+BF16_MODEL = dict(in_channels=C, compute_dtype="bfloat16", **LAYERS)
+BF16_SEQ, BF16_BATCH = 4, 4
+BF16_GRAD_TOL = 1.1e-2  # 2 x 5.68e-3, the remat route's largest leaf distance
+BF16_BIAS_TOL = 1e-5  # the f32-summed biases: remat <= 2.4e-7
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -110,7 +129,24 @@ def case():
         fb_frames=rng.standard_normal((FB_T, 3, *FB_GRID)).astype(np.float32),
         fb_prev0=rng.standard_normal((1, *FB_GRID)).astype(np.float32),
         fb_chunk=FB_CHUNK,
+        bf16=_bf16_case(tree(0)),
     )
+
+
+def _bf16_case(params):
+    """The bf16 training step's inputs: the weights of ``case``'s rollout
+    model and a batch of the port's synthetic fixture at GRID."""
+    from nasa_niswan_tpu_torch.data.dataset import SequenceDataset
+    from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
+
+    ds = SequenceDataset(synthetic_e33oma_90d(T=40, seed=2, H=GRID[0], W=GRID[1]),
+                         period="train", sequence_length=BF16_SEQ)
+    xs, ys = zip(*(ds[i] for i in range(BF16_BATCH)))
+    n = ds.normalizer
+    return dict(model=BF16_MODEL, params=params, geo=GEO,
+                batch=(np.stack(xs), np.stack(ys)),
+                norm=(np.asarray(n.x_mean), np.asarray(n.x_std), float(n.y_mean),
+                      float(n.y_std)))
 
 
 @pytest.fixture(scope="module")
@@ -304,6 +340,57 @@ def test_sharded_feedback_rollout_matches_closed_loop(case, world, dims):
     for (h, c), (th, tc) in zip(fb["state"], st):
         _std_close(h, th.numpy())
         _std_close(c, tc.numpy())
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: "x".join(map(str, d)))
+def test_sharded_entry_points_call_eager_and_body_agree(world, dims, entry):
+    """The graph-ready split of each sharded serving entry point: the call
+    (a graph replay on a card, the body run eagerly here), ``.eager``, and
+    ``.body`` on ``.runner.prepare``'s weights and ``.inputs``' tensors give
+    bit-equal predictions and carries over two chained chunks."""
+    assert world(dims)[0]["graph"][entry]
+
+
+@pytest.fixture(scope="module")
+def bf16_single(case):
+    """The port's single-device bf16 step on both routes: its gradients."""
+    from nasa_niswan_tpu_torch.models.registry import build_model
+    from nasa_niswan_tpu_torch.train.checkpoint import param_leaves
+    from nasa_niswan_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    b = case["bf16"]
+    out = {}
+    for route, remat in (("remat", True), ("per-cell", False)):
+        params = bridge.params_from_jax(b["params"])
+        for t in param_leaves(params):
+            t.requires_grad_(True)
+        step = make_train_step(build_model("LSTM-bf16", remat=remat, **b["model"]),
+                               Normalizer(*b["norm"]),
+                               make_optimizer(params, 1e-3, (0.5, 0.999)), **GEO)
+        step(params, None, *b["batch"])
+        out[route] = [t.grad.float().numpy() for t in param_leaves(params)]
+    return out
+
+
+@pytest.mark.parametrize("route", ["remat", "per-cell"])
+@pytest.mark.parametrize("dims", BF16_MESHES, ids=lambda d: "x".join(map(str, d)))
+def test_bf16_sharded_gradients_match_the_device_step_per_leaf(world, bf16_single, dims,
+                                                               route):
+    """In bf16, each leaf of the sharded step's gradient against the
+    single-device step of the same route, relative to the leaf's largest:
+    both routes within the same bounds (BF16_GRAD_TOL; the biases, summed
+    in f32 by both, BF16_BIAS_TOL).  The per-cell route adds the halo
+    strips' cotangents to B3's f32 dxh before its one cast to bf16."""
+    got = world(dims)[0]["bf16_grads"][route]
+    want = bf16_single[route]
+    names = ["b", "w_h", "w_x"] * len(LAYERS["hidden_channels"]) + ["head/b", "head/w"]
+    rels = [float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
+            for a, b in zip(got, want)]
+    print(f"{dims} {route}: " + " ".join(f"{n} {r:.2e}" for n, r in zip(names, rels)))
+    for name, rel in zip(names, rels):
+        tol = BF16_BIAS_TOL if name == "b" else BF16_GRAD_TOL
+        assert rel <= tol, (name, rel, tol)
 
 
 def test_make_mesh_refuses_another_world_size():

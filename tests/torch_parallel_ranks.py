@@ -102,8 +102,12 @@ def spatial_world(rank, dims, case):
         fb.append(_np(p))
     fb_state = spatial.gather_state(state, mesh)
 
+    graph = graph_ready(mesh, case, cfg, params, norm, stacked, norms, fcfg, fparams)
+    grads = bf16_grads(mesh, case["bf16"]) if mesh.lat * mesh.lon > 1 else None
+
     if rank:
         return out
+    out.update(graph=graph, bf16_grads=grads)
     out.update(
         cells=cells, apply=out_apply,
         rollout=dict(p1=_np(p1), p2=_np(p2), p12=_np(p12), again=_np(again),
@@ -181,4 +185,99 @@ def dp_world(rank, case):
         TrainConfig(dp_devices=2, **case["fit"]), device="cpu", device_resident=False,
         verbose=False)
     out["streamed"] = streamed["logger"]
+    return out
+
+
+def _equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def graph_ready(mesh, case, cfg, params, norm, stacked, norms, fcfg, fparams):
+    """Each sharded serving entry point over two chained chunks three ways:
+    the call, ``.eager``, and ``.body`` on ``.runner.prepare``'s weights and
+    ``.inputs``' tensors; per entry point, whether the three agree bit for
+    bit (predictions and carries)."""
+    g = case["geo"]
+    f1, f2 = (torch.from_numpy(a) for a in case["forcings"])
+    mt_f = torch.from_numpy(case["mt_forcings"])
+    met, emis = (torch.from_numpy(a) for a in case["mt_shared"])
+    h = mt_f.shape[3] // 2
+    frames = torch.from_numpy(case["fb_frames"])
+    n = case["fb_chunk"]
+    prev0 = torch.from_numpy(case["fb_prev0"])
+
+    def via_body(fn):
+        def run(params, *args):
+            return fn.body(params, fn.runner.prepare(params), *fn.inputs(params, *args))
+        return run
+
+    def rollout_pair(run, nest):
+        p1, s1 = nest(run(params, f1))
+        p2, s2 = nest(run(params, f2, s1))
+        return [p1, p2, *(t for hc in s2 for t in hc)]
+
+    def stacked_pair(run, nest, parts):
+        p1, s1 = nest(run(stacked, *parts(slice(None, h))))
+        p2, s2 = nest(run(stacked, *parts(slice(h, None)), s1))
+        return [p1, p2, *(t for hc in s2 for t in hc)]
+
+    def feedback_pair(run, nest):
+        st1, pr1, q1 = nest(run(fparams, None, prev0, frames[:n]))
+        st2, pr2, q2 = nest(run(fparams, st1, pr1, frames[n:2 * n]))
+        return [q1, q2, pr2, *(t for hc in st2 for t in hc)]
+
+    def as_rollout(out):
+        return out if isinstance(out[1], list) else (out[0], _nest(out[1:]))
+
+    def as_feedback(out):
+        if isinstance(out[0], list):
+            return out
+        prev, preds, *st = out
+        return _nest(st), prev, preds
+
+    fb_norm = Normalizer(*case["fb_norm"])
+    entries = {
+        "rollout": (spatial.make_sharded_rollout_fn(cfg, norm, mesh, **g),
+                    lambda run: rollout_pair(run, as_rollout)),
+        "multitracer": (spatial.make_sharded_multitracer_rollout(cfg, norms, mesh, **g),
+                        lambda run: stacked_pair(run, as_rollout,
+                                                 lambda sl: (mt_f[:, :, sl],))),
+        "multitracer_shared": (
+            spatial.make_sharded_multitracer_rollout_shared(cfg, norms, mesh, **g),
+            lambda run: stacked_pair(run, as_rollout,
+                                     lambda sl: (met[:, sl], emis[:, :, sl]))),
+        "feedback": (spatial.make_sharded_feedback_rollout(fcfg, fb_norm, mesh,
+                                                           **case["fb_geo"]),
+                     lambda run: feedback_pair(run, as_feedback)),
+    }
+    out = {}
+    for name, (fn, pair) in entries.items():
+        call, eager, body = pair(fn), pair(fn.eager), pair(via_body(fn))
+        out[name] = _equal(call, eager) and _equal(call, body)
+    return out
+
+
+def _nest(flat):
+    return [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+
+
+def bf16_grads(mesh, case):
+    """One bf16 training step of the spatially sharded step on both routes
+    from the same weights and batch: the all-reduced gradients per leaf."""
+    from nasa_niswan_tpu_torch.models.registry import build_model
+    from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
+    from nasa_niswan_tpu_torch.train.checkpoint import param_leaves
+    from nasa_niswan_tpu_torch.train.loop import make_optimizer
+
+    out = {}
+    for route, remat in (("remat", True), ("per-cell", False)):
+        bundle = build_model("LSTM-bf16", remat=remat, **case["model"])
+        params = bridge.params_from_jax(case["params"])
+        for t in param_leaves(params):
+            t.requires_grad_(True)
+        step = make_spatial_train_step(bundle, Normalizer(*case["norm"]),
+                                       make_optimizer(params, 1e-3, (0.5, 0.999)), mesh,
+                                       **case["geo"])
+        step(params, None, *case["batch"])
+        out[route] = [_np(t.grad) for t in param_leaves(params)]
     return out
