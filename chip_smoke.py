@@ -205,7 +205,24 @@ Phases, each printing its own lines:
       at (c)'s, (i)'s and (f)'s bounds, with kernel, plain, bound and cuDNN
       times and the tiles summed beside the whole frame; with two cards or more the (1, 1, 2)
       and (1, 2, 1) sharded steps against the one-rank step (two ranks,
-      NCCL); with one card it says that part was not run.
+      NCCL); with one card it says that part was not run;
+  (u) configs #1-#4's campaigns at full width, cut only in steps and
+      epochs (U_RUNS; each run's cut in its printed flags): the north-star
+      year (C = 62, B = 1, bf16, 2880 steps from a 1440-step resident
+      block in chunks of 480, each a graph replay: exactly 3 x 2880 B1
+      launches in the year, the chunk's input copy timed), the train year
+      (2880 steps, 2 epochs), the seq2seq protocol (1 epoch of each
+      schedule), the year rollout (2880 steps, 10 training days, 1 epoch,
+      chunks of 480) and r02 (1 epoch of A and of B), then both examples at
+      their defaults (the quickstart with --no-figures; the served chunks
+      of the exported artifact against one rollout, 1e-6 of the largest)
+      and scripts/torch_multihost_worker.py as one OS process joined
+      through env:// on NCCL (WORLD_SIZE 1): its DP step's loss and
+      updated parameters bit-equal to make_train_step without a mesh, its
+      rollouts within 1e-6; each run's counts read from 0, every number it
+      writes finite, B1, B2 and B3 launched where it trains, its start
+      under [time]; the two-process worker only with two cards (with one
+      card it says it was not run).
 
 Then one JSON line describing each kernel (launches summed over the counted
 main-path runs, a launch with two modes on counted once; the largest error
@@ -3374,6 +3391,181 @@ def two_rank_spatial_phase(rank: int, size: dict) -> dict:
     return out
 
 
+# (u) configs #1-#4's campaigns at full width: only steps and epochs cut
+U_RUNS = (
+    ("torch_run_northstar_year", ["--steps", "2880", "--block", "1440", "--chunk", "480"]),
+    ("torch_run_train_year", ["--steps", "2880", "--epochs", "2"]),
+    ("torch_run_seq2seq_protocol", ["--epochs", "1"]),
+    ("torch_run_year_rollout", ["--steps", "2880", "--train-days", "10", "--epochs", "1",
+                                "--chunk", "480"]),
+    ("torch_run_results_r02", ["--epochs", "1", "--epochs-b", "1"]),
+)
+U_TRAINS = ("convlstm_cell", "cell_bwd", "conv_same")  # launched by every training run
+
+
+def _example(name: str):
+    """examples/<name>.py imported as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _campaign_run(tag: str, run, trains: bool = True, exact=None, show=None):
+    """``run()`` with every count set to 0 just before it and read just
+    after: every number of its result (``show(result)`` when given) finite
+    and, for a run that trains, B1 (plain), B2 and B3 launched;
+    ``exact(result)``, when given, names the exact launches of each kernel
+    (``_expect_counts``).  Adds the counts to LAUNCHED; returns the result
+    and the counts."""
+    _elapsed(f"(u) {tag}")
+    _set_counts(0)
+    t0 = time.perf_counter()
+    res = run()
+    secs = time.perf_counter() - t0
+    shown = res if show is None else show(res)
+    if exact is not None:
+        got = _expect_counts(f"[u] {tag}", **exact(res))
+    else:
+        got = _counts()
+        for name, n in got.items():
+            LAUNCHED[name] += n
+    print(f"[u] {tag}: {secs:.1f} s, launches {got}: {json.dumps(shown)}")
+    check(_finite(shown), f"[u] {tag}: a number is not finite")
+    if trains:
+        check(all(got[k] > 0 for k in U_TRAINS), f"[u] {tag}: B1, B2, B3 not all launched")
+    return res, got
+
+
+def _workers(*env) -> dict:
+    """One worker process per ``env`` (its extra environment), joined over
+    ``env://`` on NCCL; rank 0's JSON line."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_multihost_worker.py")
+    procs = [subprocess.Popen([sys.executable, path, "--port", str(port), "--rank", str(r),
+                               "--world-size", str(len(env)), "--device", "cuda"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=dict(os.environ, **e))
+             for r, e in enumerate(env)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        check(p.returncode == 0, f"[u] multihost worker failed:\n{out}\n{err[-3000:]}")
+    return json.loads(outs[0][0].strip().splitlines()[-1])
+
+
+def _multihost(device) -> None:
+    """(u) scripts/torch_multihost_worker.py as one OS process joined through
+    ``env://`` on NCCL (WORLD_SIZE 1): its DP step bit-equal (loss and the
+    updated parameters) to ``make_train_step`` without a mesh on the same
+    batch, its rollouts equal to the single-device ones; the two-process
+    form only with two cards."""
+    w = _script("torch_multihost_worker")
+    _elapsed("(u) torch_multihost_worker, one process")
+    got = _workers({})
+    for key, n in got["launches"].items():  # the worker's kernel launches
+        for name, (mod, attr) in COUNTERS.items():
+            if key == f"{mod.__name__}.{attr}":
+                LAUNCHED[name] += n
+    loss, r2, params = w.run_dp_step(None, device=device)
+    one = dict(loss=loss, r2=r2, dp_params_sha256=w.params_digest(params))
+    one.update(zip(("pred_mean", "pred_std"), w.run_spatial_rollout(None, device=device)))
+    one.update(zip(("fb_mean", "fb_std"), w.run_feedback_rollout(None, device=device)))
+    print(f"[u] torch_multihost_worker --world-size 1 (env://, NCCL): {json.dumps(got)}; "
+          f"in this process without a mesh: {json.dumps(one)}")
+    check(_finite(got), "[u] multihost worker: a number is not finite")
+    check(got["loss"] == one["loss"] and got["dp_params_sha256"] == one["dp_params_sha256"],
+          "[u] the one-rank DP step is not bit-equal to make_train_step")
+    for key in ("r2", "pred_mean", "pred_std", "fb_mean", "fb_std"):
+        rel = abs(got[key] - one[key]) / max(abs(one[key]), 1e-30)
+        check(rel <= 1e-6, f"[u] multihost {key}: {got[key]} vs {one[key]}")
+    if torch.cuda.device_count() < 2:
+        print("[u] the two-process worker needs >= 2 cards; "
+              f"{torch.cuda.device_count()} visible: not run")
+        return
+    _elapsed("(u) torch_multihost_worker, two processes")
+    two = _workers({"CUDA_VISIBLE_DEVICES": "0"}, {"CUDA_VISIBLE_DEVICES": "1"})
+    print(f"[u] torch_multihost_worker --world-size 2 on two cards: {json.dumps(two)}")
+    for key in ("loss", "r2", "pred_mean", "pred_std", "fb_mean", "fb_std"):
+        rel = abs(two[key] - one[key]) / max(abs(one[key]), 1e-30)
+        check(rel <= 1e-6, f"[u] two-process {key}: {two[key]} vs {one[key]}")
+
+
+def phase_campaigns(device, smi) -> None:
+    """(u) configs #1-#4's campaign scripts (U_RUNS), both examples at their
+    defaults (the quickstart without figures) and the multi-host worker,
+    at full width; each run's counts read from 0, every number it writes
+    finite, B1/B2/B3 launched where it trains, the north-star year's B1
+    launches exact."""
+    root = tempfile.mkdtemp(prefix="niswan_campaigns_")
+    n_layers = len(HIDDEN)
+    try:
+        for name, flags in U_RUNS:
+            out = os.path.join(root, name)
+            if name == "torch_run_train_year":
+                flags = [*flags, "--snapshot-dir", os.path.join(out, "snap"),
+                         "--out", os.path.join(out, "results.json")]
+            else:
+                flags = [*flags, "--out", out]
+            kw = {}
+            if name == "torch_run_northstar_year":
+                # the warm-up request (one eager step, then the captured
+                # chunk replayed), then the year
+                kw = dict(trains=False, exact=lambda r: dict(
+                    convlstm_cell=n_layers * (1 + r["chunk"] + r["steps"])))
+            res, got = _campaign_run(f"{name} {' '.join(flags)} (on {smi})",
+                                     lambda: _script(name).main(flags), **kw)
+            if name == "torch_run_northstar_year":
+                print(f"[u] northstar year: {res['model_days_per_min']:.1f} model-days/min, "
+                      f"{res['chunk_ms']:.3f} ms a chunk of {res['chunk']} steps, its input "
+                      f"copy {res['chunk_copy_in_ms']} ms; B1 launches in the year "
+                      f"{res['b1_plain_launches']} (want {n_layers} x {res['steps']})")
+                check(res["b1_plain_launches"] == n_layers * res["steps"],
+                      "[u] northstar year: B1 launches != 3 x steps")
+            elif name == "torch_run_train_year":
+                want = n_layers * 48 * res["optimizer_steps"]
+                check(got["cell_bwd"] == want and got["conv_same"] == want,
+                      f"[u] train year: B2 / B3 launches != 3 x 48 x steps ({want})")
+        qs = os.path.join(root, "quickstart")
+        _campaign_run(
+            f"examples/torch_quickstart.py --no-figures (on {smi})",
+            lambda: _example("torch_quickstart").main(["--no-figures", "--outdir", qs]),
+            show=lambda r: dict(r["report"]["temporal_r2_summary"],
+                                global_r2=r["report"]["global_r2"],
+                                sensitivity=r["sensitivity"], logger=r["logger"]))
+        check(os.path.isfile(os.path.join(qs, "test-results.npy")), "[u] quickstart results")
+        sv, _ = _campaign_run(
+            f"examples/torch_serving.py (on {smi})",
+            lambda: _example("torch_serving").main(["--outdir", os.path.join(root, "serving")]),
+            show=lambda r: dict(steps=int(r["preds"].shape[0]),
+                                pred_mean=float(r["preds"].mean()),
+                                artifact_bytes=os.path.getsize(r["artifact"])))
+        with torch.inference_mode():
+            want, _ = make_rollout_fn(sv["config"], sv["normalizer"], padded_shape=sv["padded"],
+                                      grid_shape=sv["preds"].shape[1:])(
+                sv["params"], sv["frames"][None])
+        want = want[0].cpu().numpy()
+        d = float(np.abs(sv["preds"] - want).max() / np.abs(want).max())
+        print(f"[u] served chunks vs one rollout: max|d|/max {d:.3e}")
+        check(np.isfinite(sv["preds"]).all() and d <= 1e-6, "[u] served chunks != rollout")
+        _multihost(device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 _T0 = time.perf_counter()
 
 
@@ -3437,6 +3629,8 @@ def main() -> None:
     phase_sharded(device, serve, train, stats, smi)
     _elapsed("phase_train_at_scale")
     phase_train_at_scale(device, train, stats, smi)
+    _elapsed("phase_campaigns")
+    phase_campaigns(device, smi)
     _elapsed("the summary")
     check(all(LAUNCHED[name] > 0 for name in COUNTERS), f"kernels never launched: {LAUNCHED}")
     print(json.dumps({"kernels": [
