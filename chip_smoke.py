@@ -222,7 +222,23 @@ Phases, each printing its own lines:
       rollouts within 1e-6; each run's counts read from 0, every number it
       writes finite, B1, B2 and B3 launched where it trains, its start
       under [time]; the two-process worker only with two cards (with one
-      card it says it was not run).
+      card it says it was not run);
+  (v) in a process of its own (its launches are not in the kernels line),
+      the profiling and benchmark scripts at a cut size (their steps,
+      reps, fixture lengths; widths full), each run's counts read from 0:
+      scripts/torch_profile_rollout.py (48 steps, every row a graph replay,
+      host and device ms/step; a 24-step full_scan replay traced and
+      summarized by torch_trace_summary.py: exactly 3 x 24 B1 launches in
+      the trace, the share of the bf16 peak in (0, 1]),
+      torch_profile_closed_loop.py (48 steps, two chunks chained; its
+      traced chunk exactly 3 x 48 B1 launches), torch_profile_seq2seq.py
+      (B 4, T 48: both routes and the pad ablation, pad_share finite),
+      torch_bench_cell.py (the serving shootout with --parity, the kernel
+      within 0.05 of the plain rollout; --train at B 4, T 8),
+      torch_bench_ncread.py (8 steps a day: native == scipy) and
+      profile_torch_train_step.py (the remat route on a 240-step fixture:
+      its traced step exactly 3 x 48 B1 and B2 (a) launches); every time
+      finite and positive.
 
 Then one JSON line describing each kernel (launches summed over the counted
 main-path runs, a launch with two modes on counted once; the largest error
@@ -3414,29 +3430,30 @@ def _example(name: str):
     return mod
 
 
-def _campaign_run(tag: str, run, trains: bool = True, exact=None, show=None):
+def _campaign_run(tag: str, run, trains: bool = True, exact=None, show=None, phase="u"):
     """``run()`` with every count set to 0 just before it and read just
     after: every number of its result (``show(result)`` when given) finite
     and, for a run that trains, B1 (plain), B2 and B3 launched;
     ``exact(result)``, when given, names the exact launches of each kernel
     (``_expect_counts``).  Adds the counts to LAUNCHED; returns the result
-    and the counts."""
-    _elapsed(f"(u) {tag}")
+    and the counts.  ``phase`` names the phase in the printed lines."""
+    _elapsed(f"({phase}) {tag}")
     _set_counts(0)
     t0 = time.perf_counter()
     res = run()
     secs = time.perf_counter() - t0
     shown = res if show is None else show(res)
     if exact is not None:
-        got = _expect_counts(f"[u] {tag}", **exact(res))
+        got = _expect_counts(f"[{phase}] {tag}", **exact(res))
     else:
         got = _counts()
         for name, n in got.items():
             LAUNCHED[name] += n
-    print(f"[u] {tag}: {secs:.1f} s, launches {got}: {json.dumps(shown)}")
-    check(_finite(shown), f"[u] {tag}: a number is not finite")
+    print(f"[{phase}] {tag}: {secs:.1f} s, launches {got}: {json.dumps(shown)}")
+    check(_finite(shown), f"[{phase}] {tag}: a number is not finite")
     if trains:
-        check(all(got[k] > 0 for k in U_TRAINS), f"[u] {tag}: B1, B2, B3 not all launched")
+        check(all(got[k] > 0 for k in U_TRAINS),
+              f"[{phase}] {tag}: B1, B2, B3 not all launched")
     return res, got
 
 
@@ -3566,6 +3583,138 @@ def phase_campaigns(device, smi) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+V_STEPS = 48  # serving steps of (v)'s rollout, closed loop and shootout runs
+V_TRACE_STEPS = 24  # the traced serving replay
+
+
+def _positive(values: dict, what: str) -> None:
+    """Every value finite and > 0."""
+    for key, v in values.items():
+        check(v is not None and bool(np.isfinite(v)) and v > 0, f"[v] {what}: {key} = {v}")
+
+
+def _times(res: dict) -> dict:
+    """The numbers of ``res`` that are times or rates: keys that begin with
+    ms_ or end in ms, _s or per_min."""
+    return {k: v for k, v in res.items() if isinstance(v, float)
+            and (k.startswith("ms_") or k.endswith(("ms", "_s", "per_min")))}
+
+
+def _summary_ok(summary: dict, b1_launches: int, what: str) -> None:
+    """A trace summary of the card: B1's launches exactly ``b1_launches``,
+    the sustained rate's share of the bf16 peak in (0, 1]."""
+    frac = summary["fraction_of_bf16_peak"]
+    check(frac is not None and 0 < frac <= 1, f"[v] {what}: fraction_of_bf16_peak {frac}")
+    print(f"[v] {what} trace summary: B1 launches {summary['launches']['b1']} (want "
+          f"{b1_launches}), device {summary['device_ms_per_step']:.4f} ms/step, "
+          f"{summary['sustained_tflops']:.1f} TFLOP/s, {frac:.4f} of the bf16 peak; "
+          f"B1 by layer {json.dumps(summary['b1_layers'])}")
+    check(summary["launches"]["b1"] == b1_launches,
+          f"[v] {what}: the trace holds {summary['launches']['b1']} B1 launches")
+
+
+def phase_profiles(device, smi) -> None:
+    """(v) the profiling and benchmark scripts at a cut size (steps, reps,
+    the train fixture's length, the day files' steps): each run's counts
+    read from 0, every number finite and every time positive; the traced
+    serving replay and closed-loop chunk hold exactly 3 B1 launches a step
+    in their trace summaries, and each summary's share of the bf16 peak is
+    in (0, 1]; the shootout's kernel-vs-plain parity within its 0.05; the
+    native netCDF reader equal to scipy."""
+    root = tempfile.mkdtemp(prefix="niswan_profiles_")
+    n_layers = len(HIDDEN)
+    try:
+        flags = ["--steps", str(V_STEPS), "--reps", "1", "--trace", os.path.join(root, "ro"),
+                 "--trace-steps", str(V_TRACE_STEPS), "--summary",
+                 os.path.join(root, "ro.json")]
+        res, got = _campaign_run(
+            f"torch_profile_rollout {' '.join(flags[:6])} (on {smi})",
+            lambda: _script("torch_profile_rollout").main(flags), trains=False,
+            show=lambda r: {k: r[k] for k in ("ms_per_step", "span_ms_per_step",
+                                              "device_ms_per_step")},
+            phase="v")
+        check(got["convlstm_cell"] > 0 and got["convlstm_cell_xg"] > 0
+              and got["conv_same"] > 0, "[v] rollout: B1 plain, B1 xg and B3 not all launched")
+        _positive(res["ms_per_step"], "rollout ms/step")
+        _positive(res["span_ms_per_step"], "rollout device span ms/step")
+        _positive(res["device_ms_per_step"], "rollout device ms/step")
+        _summary_ok(res["summary"], n_layers * V_TRACE_STEPS, "full_scan replay")
+
+        flags = ["--steps", str(V_STEPS), "--chain", "2", "--trace", os.path.join(root, "cl"),
+                 "--summary", os.path.join(root, "cl.json")]
+        res, _ = _campaign_run(
+            f"torch_profile_closed_loop {' '.join(flags[:4])} (on {smi})",
+            lambda: _script("torch_profile_closed_loop").main(flags), trains=False,
+            show=lambda r: {k: r[k] for k in ("ms_per_step", "model_days_per_min")},
+            phase="v")
+        _positive(_times(res), "closed loop")
+        _summary_ok(res["summary"], n_layers * V_STEPS, "closed-loop chunk")
+
+        flags = ["--T", "48", "--batch", "4", "--reps", "3"]
+        res, got = _campaign_run(f"torch_profile_seq2seq {' '.join(flags)} (on {smi})",
+                                 lambda: _script("torch_profile_seq2seq").main(flags),
+                                 phase="v")
+        check(got["convlstm_cell_gates"] > 0 and got["conv_dw"] > 0,
+              "[v] seq2seq: the per-cell route's B1 emit_gates and dW not launched")
+        _positive(_times(res), "seq2seq")
+        # the pad's share is finite; its sign is not held: on the host clock
+        # two timings of one route spread wider than the share (PERF.md §6)
+        check(all(bool(np.isfinite(res[k])) and -1 < res[k] < 1
+                  for k in ("pad_share", "pad_share_fused")), f"[v] seq2seq pad_share {res}")
+
+        bench = _script("torch_bench_cell")
+        flags = ["--steps", str(V_STEPS), "--reps", "1", "--parity"]
+        res, got = _campaign_run(f"torch_bench_cell {' '.join(flags)} (on {smi})",
+                                 lambda: bench.main(flags), trains=False, phase="v")
+        par = res["rows"][0]
+        check(par["max_rel_pred"] <= bench.PARITY_REL,
+              f"[v] shootout parity {par['max_rel_pred']} > {bench.PARITY_REL}")
+        for row in res["rows"][1:]:
+            _positive(_times(row), f"shootout {row['impl']}")
+        bench = _script("torch_bench_cell")
+        bench.TRAIN_T = 8
+        flags = ["--train", "--train-batches", "4", "--train-steps", "1"]
+        res, _ = _campaign_run(f"torch_bench_cell {' '.join(flags)}, T {bench.TRAIN_T} "
+                               f"(on {smi})", lambda: bench.main(flags), phase="v")
+        _positive(_times(res["rows"][0]), "shootout --train")
+
+        nc = _script("torch_bench_ncread")
+        nc.STEPS_PER_DAY, nc.REPS, nc.SAMPLES = 8, 2, 16
+        res, _ = _campaign_run(f"torch_bench_ncread, {nc.STEPS_PER_DAY} steps a day",
+                               lambda: nc.main([]), trains=False, phase="v")
+        check(res["native_equals_scipy"] is True, "[v] native reader != scipy")
+        _positive(_times(res), "ncread")
+
+        prof = _script("profile_torch_train_step")
+        prof.DATA_T = 240
+        flags = ["--routes", "remat", "--reps", "1", "--steps", "1"]
+        res, _ = _campaign_run(
+            f"profile_torch_train_step {' '.join(flags)}, fixture T {prof.DATA_T} (on {smi})",
+            lambda: prof.main(flags), show=lambda r: r["remat"], phase="v")
+        _positive(res["remat"], "train step")
+        want = n_layers * prof.SEQ
+        s = res["profile"]["summary"]
+        check(s["launches"]["b2a"] == want, f"[v] remat step trace: B2 (a) {s['launches']}")
+        _summary_ok(s, want, "remat training step")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_profiles_fresh(smi) -> None:
+    """(v) in a Python process of its own, as a user runs the scripts: in
+    this process, after the phases before it, a torch.profiler session
+    over a graph replay recorded only part of its kernels (67 of 72 B1
+    launches; kernel sums 12-72% short), where a new process records all
+    of them.  Its launches stay out of LAUNCHED."""
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    code = ("import torch, chip_smoke as cs; "
+            f"cs.phase_profiles(torch.device('cuda', 0), {smi!r})")
+    proc = subprocess.run([sys.executable, "-c", code], timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"[v] the profiling scripts' phase exited {proc.returncode}")
+
+
 _T0 = time.perf_counter()
 
 
@@ -3631,6 +3780,8 @@ def main() -> None:
     phase_train_at_scale(device, train, stats, smi)
     _elapsed("phase_campaigns")
     phase_campaigns(device, smi)
+    _elapsed("phase_profiles")
+    phase_profiles_fresh(smi)
     _elapsed("the summary")
     check(all(LAUNCHED[name] > 0 for name in COUNTERS), f"kernels never launched: {LAUNCHED}")
     print(json.dumps({"kernels": [
