@@ -184,28 +184,35 @@ Phases, each printing its own lines:
   (t) training at scale, on a one-rank NCCL group made in this process
       (destroyed at the end): the canonical step (bs 8, T 48, 8 channels,
       hidden 64/32/16, kernels 5/3/3) through ``make_spatial_train_step``
-      on both routes, the tile being the zero-extended frame, against the
-      single-device step from the same weights and batch: per-leaf
-      gradients within TOL_GRAD of the leaf's largest (bf16 at T 48, f32 at
-      T 8), exact launch counts over 3 counted steps, ms/step on the host
-      clock and in device time and peak memory beside the single-device
-      step's; the UNet's DP step (features 64/128/256/512, bs 8, f32, its
+      on the remat, per-cell and hoisted routes, the tile being the
+      zero-extended frame, against the single-device step from the same
+      weights and batch: per-leaf gradients within TOL_GRAD of the leaf's
+      largest (bf16 at T 48, f32 at T 8), exact launch counts over 3
+      counted steps of each, equal between them (the hoist: B1 xg +
+      emit_gates, B3, dW), ms/step on the host clock and in device time
+      and peak memory beside the single-device step's; the UNet's DP and
+      spatially sharded steps (features 64/128/256/512, bs 8, f32, their
       BatchNorm sums all-reduced through NCCL) against the single-device
-      step: the gradients of both in f64, per leaf within TOL_T_UNET of
-      the leaf's largest of each other and of the f64 loss gradient (the
-      f32 ones printed beside them), the f32 running statistics within
-      TOL_T_UNET of each leaf's largest (on one rank the all-reduce is the
-      identity: the global statistics across ranks are held by the CPU
-      two-rank tests); an async checkpoint (train/checkpoint_async.py) of
+      step: the gradients in f64, per leaf within TOL_T_UNET of the leaf's
+      largest of each other and of the f64 loss gradient (the f32 ones
+      printed beside them), the f32 running statistics within TOL_T_UNET
+      of each leaf's largest (on one rank the all-reduce is the identity:
+      the global statistics across ranks are held by the CPU two-rank
+      tests); the pix2pix generator's spatially sharded step (features 64,
+      256 x 256) against the single-device step, f64 gradients per leaf
+      within TOL_T_UNET; an async checkpoint (train/checkpoint_async.py) of
       the canonical model while steps run, restored bit-equal, ms/step
       with and without it, beside a synchronous ``save_checkpoint`` of the
       same state; B1 (plain and emit_gates), B2, its dW kernels alone and
       B3 on the halo-extended tiles of the (1, 1), (2, 2) and (2, 7) cuts
       at the three training layers (B = 8), each against its plain version
       at (c)'s, (i)'s and (f)'s bounds, with kernel, plain, bound and cuDNN
-      times and the tiles summed beside the whole frame; with two cards or more the (1, 1, 2)
-      and (1, 2, 1) sharded steps against the one-rank step (two ranks,
-      NCCL); with one card it says that part was not run;
+      times and the tiles summed beside the whole frame; the hoist's B3
+      forward and dW over the step's 384 frames (Cin 8 -> 256, k 5) and
+      layer 0's B1 xg + emit_gates on the whole frame and those tiles;
+      with two cards or more the (1, 1, 2) and (1, 2, 1) sharded steps
+      (three routes, the UNet in f64) against the one-rank step (two
+      ranks, NCCL); with one card it says that part was not run;
   (u) configs #1-#4's campaigns at full width, cut only in steps and
       epochs (U_RUNS; each run's cut in its printed flags): the north-star
       year (C = 62, B = 1, bf16, 2880 steps from a 1440-step resident
@@ -1530,7 +1537,8 @@ def _packed_config2(root):
 
 def _cell_alone(device, gen, stats, shape, tag0, launches, modes=("plain", "gates"),
                 recompute=None, **extra) -> None:
-    """B1 in ``modes`` (plain, emit_gates) and, with ``recompute`` (its
+    """B1 in ``modes`` (plain, emit_gates, xg: emit_gates with hoisted
+    gates, the hoisted layer 0's launch) and, with ``recompute`` (its
     launches), B2's gate recompute (a) alone at ``shape``, bf16, against
     their plain versions with (c)'s, (i)'s and (f)'s tolerances; each row
     (kernel, plain and bound times, ``launches`` per step of the named
@@ -1542,8 +1550,12 @@ def _cell_alone(device, gen, stats, shape, tag0, launches, modes=("plain", "gate
     w = (rand(k, k, cin, 4 * hid) / (k * k * cin) ** 0.5).bfloat16()
     b = 0.1 * rand(4 * hid)
     tag = f"B={B} H={H} W={W} Cin={cin} hid={hid} k={k} bfloat16"
+    xg = rand(B, H, W, 4 * hid).bfloat16() if "xg" in modes else None
     kernels = {"plain": ("convlstm_cell", fused_cell_forward, fused_cell_forward_plain),
-               "gates": ("convlstm_cell_gates", fused_cell_gates, fused_cell_gates_plain)}
+               "gates": ("convlstm_cell_gates", fused_cell_gates, fused_cell_gates_plain),
+               # the hoisted layer 0: xg and emit_gates in one launch
+               "xg": ("convlstm_cell_gates", lambda *a: fused_cell_gates(*a, xg),
+                      lambda *a: fused_cell_gates_plain(*a, xg))}
     for mode in modes:
         name, fn, plain = kernels[mode]
         with torch.no_grad():
@@ -1552,15 +1564,17 @@ def _cell_alone(device, gen, stats, shape, tag0, launches, modes=("plain", "gate
         check(all(torch.equal(g, a) for g, a in zip(got, again)), f"{tag0} {name}: reruns differ")
         err = [(g.float() - p.float()).abs().max().item() for g, p in zip(got, want)]
         check(max(err[:2]) <= TOL_CELL, f"{tag0} {name} h/c {err[:2]} at {tag}")
-        line = f"{tag0} {name} {tag}: max|dh|={err[0]:.3e} max|dc|={err[1]:.3e}"
-        if mode == "gates":
+        line = (f"{tag0} {name}{' (xg)' if mode == 'xg' else ''} {tag}: max|dh|={err[0]:.3e} "
+                f"max|dc|={err[1]:.3e}")
+        if mode != "plain":
             excess = _max_excess(got[2], want[2], 2.0**-7)
             check(excess <= 1e-5, f"{tag0} gates excess {excess:.3e} at {tag}")
             line += f", gates |d|-2^-7|ref| max {excess:.3e} (<= 1e-5)"
         with torch.no_grad():
             ms = cuda_ms(lambda: fn(xh, c, w, b), 10)
             plain_ms = cuda_ms(lambda: plain(xh, c, w, b), 3)
-        row = _row(shape, ms, plain_ms, cell_work(*shape, gates=mode == "gates"), plan=plan,
+        row = _row(shape, ms, plain_ms,
+                   cell_work(*shape, gates=mode != "plain", xg=mode == "xg"), plan=plan,
                    max_abs_err=max(err), launches_per_step=launches[mode], **extra)
         stats[name]["by_shape"].append(row)
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], *err)
@@ -2973,6 +2987,9 @@ def two_rank_phase(rank: int, device_type: str, size: dict) -> dict:
 # UNet DP step (global BatchNorm through NCCL); an async checkpoint while
 # steps run
 T_STEPS = 3
+# the canonical step's routes through make_spatial_train_step
+T_ROUTES = (("remat", dict(remat=True)), ("per-cell", dict(remat=False)),
+            ("hoist", dict(precompute_input_conv=True)))
 TOL_T_UNET = 1e-5
 UNET_NOISE = ("conv1/b", "conv2/b")  # conv biases ahead of BatchNorm: zero gradient
 UNET_SHOWN = "dec4/block/conv1/w"  # the leaf farthest from its f64 value in earlier runs
@@ -3003,10 +3020,11 @@ def _timed_host(step, params, batches):
 
 
 def _spatial_steps(device, train, mesh, smi) -> None:
-    """(t) the canonical step sharded over the one-rank mesh, both routes,
-    against the single-device step: per-leaf gradients (bf16 at T 48, f32
-    at T 8) within TOL_GRAD of the leaf's largest, exact launch counts over
-    T_STEPS counted steps, ms/step (host clock and profiler device time)
+    """(t) the canonical step sharded over the one-rank mesh, on the remat,
+    per-cell and hoisted routes (T_ROUTES), against the single-device step:
+    per-leaf gradients (bf16 at T 48, f32 at T 8) within TOL_GRAD of the
+    leaf's largest, exact launch counts over T_STEPS counted steps of each,
+    equal between the two, ms/step (host clock and profiler device time)
     and peak memory beside the single-device step's."""
     from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
 
@@ -3023,9 +3041,9 @@ def _spatial_steps(device, train, mesh, smi) -> None:
         return make_train_step(bundle, ds.normalizer, make_optimizer(p, 1e-3, (0.5, 0.999)),
                                **geo)
 
-    for route, remat in (("remat", True), ("per-cell", False)):
+    for route, opts in T_ROUTES:
         for dtype, T in (("bfloat16", TRAIN_T), ("float32", GRAD_T)):
-            bundle = build_model("LSTM-smoke", remat=remat, **dict(kw, compute_dtype=dtype))
+            bundle = build_model("LSTM-smoke", **opts, **dict(kw, compute_dtype=dtype))
             g_sh, l_sh = _one_step_grads(sharded, bundle, init, x_raw[:, :T], y_raw)
             g_one, l_one = _one_step_grads(one, bundle, init, x_raw[:, :T], y_raw)
             rel = _leaf_rel(g_sh, g_one)
@@ -3037,28 +3055,35 @@ def _spatial_steps(device, train, mesh, smi) -> None:
                   f"[t] sharded {route} {dtype} gradients {max(rel):.3e}, loss {l_sh} vs "
                   f"{l_one}")
             del g_sh, g_one
-        bundle = build_model("LSTM-smoke", remat=remat, **kw)
-        times = {}
+        bundle = build_model("LSTM-smoke", **opts, **kw)
+        times, counts = {}, {}
+        n = len(HIDDEN) * TRAIN_T * T_STEPS
+        # layer 0's first step needs no input gradient; the hoist is one
+        # more B3 (its forward) and one more dW per step, and its layer 0
+        # launches B1's xg and emit_gates modes at once (counted under
+        # emit_gates)
+        want = {"remat": dict(convlstm_cell=n, cell_bwd=n, conv_same=n),
+                "per-cell": dict(convlstm_cell_gates=n, conv_same=n - T_STEPS, conv_dw=n),
+                "hoist": dict(convlstm_cell_gates=n, conv_same=n,
+                              conv_dw=n + T_STEPS)}[route]
         for name, make in (("sharded", sharded), ("single-device", one)):
             p = _copy_params(init)
             step = make(bundle, p)
             step(p, None, *batches[0])  # warm-up: Adam's state, allocator growth
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            if name == "sharded":
-                _set_counts(0)
+            _set_counts(0)
             ms, m = _timed_host(step, p, batches[1:])
-            if name == "sharded":
-                n = len(HIDDEN) * TRAIN_T * T_STEPS
-                want = (dict(convlstm_cell=n, cell_bwd=n, conv_same=n) if remat else
-                        dict(convlstm_cell_gates=n, conv_same=n - T_STEPS, conv_dw=n))
-                _expect_counts(f"[t] sharded step, {route} route", **want)
+            counts[name] = _expect_counts(f"[t] {name} step, {route} route", **want)
             peak = torch.cuda.max_memory_allocated() / 2**30
             dev_ms, _ = _profile(lambda: step(p, None, *batches[1]))
             check(bool(torch.isfinite(m["loss"])), f"[t] {name} {route} loss")
             times[name] = (ms, dev_ms, peak)
             del p, step
             torch.cuda.empty_cache()
+        check(counts["sharded"] == counts["single-device"],
+              f"[t] {route} launches: sharded {counts['sharded']} vs single-device "
+              f"{counts['single-device']}")
         (a, da, pa), (b, db, pb) = times["sharded"], times["single-device"]
         print(f"[t] {route} route (bs {TRAIN_BS}, T {TRAIN_T}, C={TRAIN_C}, bf16), "
               f"{T_STEPS} steps: sharded (1 rank) {a:.1f} ms/step host clock, {da:.1f} ms "
@@ -3160,29 +3185,75 @@ def _tile_kernels(device, stats, smi) -> None:
                   f"{n * ms[2]:.4f} ms vs the whole {H} x {W} frame's {whole[0]:.4f}, "
                   f"{whole[1]:.4f}, {whole[2]:.4f} ms (x{n * ms[0] / whole[0]:.3f}, "
                   f"x{n * ms[1] / whole[1]:.3f}, x{n * ms[2] / whole[2]:.3f}) on {smi}")
+    _hoist_tile_kernels(device, gen, stats, smi)
     torch.cuda.empty_cache()
 
 
+def _hoist_tile_kernels(device, gen, stats, smi) -> None:
+    """(t) the hoisted route's kernels on the whole frame and on the
+    halo-extended tiles of each (lat, lon) cut of TILE_MESHES, bf16: B3 as
+    the hoisted input conv over every frame of the step (N = B T = 384,
+    Cin 8 -> 4 hid 256, k 5), B2's dW kernel over the same frames, and
+    layer 0's B1 xg + emit_gates launch (B 8, h alone: Cin 64), each
+    against its plain version as ``_b3_alone``, ``_dw_alone`` and
+    ``_cell_alone`` hold them, with kernel, plain, bound and cuDNN times;
+    the rows join conv_same's, dw's and convlstm_cell_gates' by_shape."""
+    N, k, hid = TRAIN_BS * TRAIN_T, KERNELS[0], HIDDEN[0]
+    H, W = PADDED
+    entry = stats["cell_bwd"]
+    rows3 = []
+    err = _b3_alone(device, gen, rows3, shapes=((N, H, W, TRAIN_C, 4 * hid, k),),
+                    tag0="[t] hoist", tiles=None, launches_per_step="1 per hoisted step")
+    whole = rows3[0]["ms"]
+    for tiles in TILE_MESHES:
+        n, p = tiles[0] * tiles[1], k // 2
+        th, tw = H // tiles[0] + 2 * p, W // tiles[1] + 2 * p
+        per = f"{n} per sharded hoisted step on {tiles[0]} x {tiles[1]} tiles"
+        extra = dict(tiles=list(tiles), launches_per_step=per)
+        err = max(err, _b3_alone(device, gen, rows3, shapes=((N, th, tw, TRAIN_C, 4 * hid, k),),
+                                 tag0="[t] hoist", **extra))
+        rdw = _dw_alone(device, gen, (N, th, tw, TRAIN_C, 4 * hid, k), "[t] hoist", **extra)
+        entry["dw"]["max_abs_err"] = max(entry["dw"]["max_abs_err"], rdw.pop("max_abs_err"))
+        del rdw["flops"], rdw["bytes"]
+        entry["dw"]["by_shape"].append(rdw)
+        _cell_alone(device, gen, stats, (TRAIN_BS, th, tw, hid, hid, k), "[t] hoist",
+                    {"xg": f"{n} x {TRAIN_T} per sharded hoisted step on {tiles[0]} x "
+                           f"{tiles[1]} tiles"}, modes=("xg",), tiles=list(tiles))
+        print(f"[t] hoisted conv on {tiles[0]} x {tiles[1]} tiles of {th} x {tw}: {n} tiles "
+              f"of B3 {n * rows3[-1]['ms']:.4f} ms, dW {n * rdw['ms']:.4f} ms vs B3 on the "
+              f"whole {H} x {W} frame {whole:.4f} ms on {smi}")
+    stats["conv_same"]["max_abs_err"] = max(stats["conv_same"]["max_abs_err"], err)
+    stats["conv_same"]["by_shape"].extend(rows3)
+
+
 def unet_dp_errors(unet, p0, s0, batch, normalizer, padded, grid, mesh) -> dict:
-    """The UNet's DP step on ``mesh`` and the single-device step from
-    ``p0`` / ``s0`` on one raw batch, each in f32 and in f64 (weights,
-    state and batch cast), against the gradient of the same loss through
+    """The UNet's DP step on ``mesh``, its spatially sharded step on it
+    (``make_spatial_train_step``: the tile path, halos, the gather rule,
+    BatchNorm over the mesh) and the single-device step from ``p0`` /
+    ``s0`` on one raw batch, each in f32 and in f64 (weights, state and
+    batch cast), against the gradient of the same loss through
     ``unet.apply`` in f64 (no step, no mesh).  Per leaf with a nonzero
     exact gradient, relative to that leaf's largest |g64| (path -> max
-    |g - g64| / max |g64|): ``f64_dp``, ``f64_one``, ``f64_d`` (dp against
-    one, both f64); ``err_dp``, ``err_one`` (the f32 steps).  ``state`` =
-    the f32 running statistics' largest per-leaf |d| / max |one|;
-    ``noise`` = the f32 conv biases ahead of a BatchNorm (a zero gradient in
-    exact arithmetic), |g| over the model's largest gradient; the f32
-    losses; the dp step's f32 state."""
+    |g - g64| / max |g64|): ``f64_dp``, ``f64_one``, ``f64_sp``,
+    ``f64_d`` (dp against one, both f64), ``f64_sp_d`` (sharded against
+    one); ``err_dp``, ``err_one``, ``err_sp`` (the f32 steps).  ``state``,
+    ``state_sp`` = the dp and sharded f32 running statistics' largest
+    per-leaf |d| / max |one|; ``noise`` = the f32 conv biases ahead of a
+    BatchNorm (a zero gradient in exact arithmetic), |g| over the model's
+    largest gradient; the f32 losses; the dp step's f32 state."""
+    from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
+
     paths = tree_paths(p0)
     out = {}
+    geo = dict(padded_shape=padded, grid_shape=grid)
+    steps = {"dp": lambda opt: make_train_step(unet, normalizer, opt, mesh=mesh, **geo),
+             "one": lambda opt: make_train_step(unet, normalizer, opt, **geo),
+             "sp": lambda opt: make_spatial_train_step(unet, normalizer, opt, mesh, **geo)}
     for dtype in (torch.float32, torch.float64):
         cast = lambda t: t.detach().to(dtype, copy=True)  # noqa: E731  (Adam steps in place)
-        for name, m in (("dp", mesh), ("one", None)):
+        for name, make in steps.items():
             p = tree_map(lambda t: cast(t).requires_grad_(True), p0)
-            step = make_train_step(unet, normalizer, make_optimizer(p, 1e-3, (0.5, 0.999)),
-                                   padded_shape=padded, grid_shape=grid, mesh=m)
+            step = make(make_optimizer(p, 1e-3, (0.5, 0.999)))
             state, metrics = step(p, tree_map(cast, s0), *(cast(t) for t in batch))
             out[name, dtype] = ([t.grad.detach().clone() for t in param_leaves(p)],
                                 tree_leaves(state), metrics["loss"].item(), state)
@@ -3202,14 +3273,17 @@ def unet_dp_errors(unet, p0, s0, batch, normalizer, padded, grid, mesh) -> dict:
 
     g_dp, s_dp, l_dp, state_dp = out["dp", torch.float32]
     g_one, s_one, l_one, _ = out["one", torch.float32]
-    g_dp64, g_one64 = out["dp", torch.float64][0], out["one", torch.float64][0]
+    g_sp, s_sp, l_sp, _ = out["sp", torch.float32]
+    g_dp64, g_one64, g_sp64 = (out[k, torch.float64][0] for k in ("dp", "one", "sp"))
     return dict(
         f64_dp=err(g_dp64), f64_one=err(g_one64), f64_d=err(g_dp64, g_one64),
-        err_dp=err(g_dp), err_one=err(g_one),
-        state=max(_leaf_rel(s_dp, s_one)),
-        noise=max(max(a.abs().max().item(), b.abs().max().item()) / scale
-                  for path, a, b in zip(paths, g_dp, g_one) if path.endswith(UNET_NOISE)),
-        loss_dp=l_dp, loss_one=l_one, state_dp=state_dp)
+        f64_sp=err(g_sp64), f64_sp_d=err(g_sp64, g_one64),
+        err_dp=err(g_dp), err_one=err(g_one), err_sp=err(g_sp),
+        state=max(_leaf_rel(s_dp, s_one)), state_sp=max(_leaf_rel(s_sp, s_one)),
+        noise=max(max(a.abs().max().item(), b.abs().max().item(), c.abs().max().item()) / scale
+                  for path, a, b, c in zip(paths, g_dp, g_one, g_sp)
+                  if path.endswith(UNET_NOISE)),
+        loss_dp=l_dp, loss_one=l_one, loss_sp=l_sp, state_dp=state_dp)
 
 
 def _unet_dp_step(device, mesh, smi) -> None:
@@ -3226,7 +3300,9 @@ def _unet_dp_step(device, mesh, smi) -> None:
     gradient of the loss.  In f32: the new running statistics within
     TOL_T_UNET of each leaf's largest, the conv biases ahead of a BatchNorm
     below 1e-6 of the largest gradient in both, the losses rel 1e-5.
-    ms/step of both, f32."""
+    The spatially sharded step (``make_spatial_train_step``: the tile
+    path with zero halos, BatchNorm over the mesh) is held the same way.
+    ms/step of the three, f32."""
     data = synthetic_e33oma_90d(T=R_FIT_T, H=GRID[0], W=GRID[1], seed=SEED)
     ds = SingleStepDataset(data, period="train")
     unet = build_model("UNet-t", in_channels=5, unet_features=R_FEATS)
@@ -3234,15 +3310,19 @@ def _unet_dp_step(device, mesh, smi) -> None:
     batches = [tuple(torch.as_tensor(np.stack(a), device=device) for a in zip(
         *(ds[i] for i in range(s * R_BS, (s + 1) * R_BS)))) for s in range(T_STEPS + 1)]
     e = unet_dp_errors(unet, p0, s0, batches[0], ds.normalizer, R_PADDED, GRID, mesh)
-    ms = {}
-    for name, m in (("dp", mesh), ("one", None)):
+    from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
+
+    ms, geo = {}, dict(padded_shape=R_PADDED, grid_shape=GRID)
+    for name in ("dp", "one", "sp"):
         p = tree_map(lambda t: t.detach().clone().requires_grad_(True), p0)
-        step = make_train_step(unet, ds.normalizer, make_optimizer(p, 1e-3, (0.5, 0.999)),
-                               padded_shape=R_PADDED, grid_shape=GRID, mesh=m)
+        opt = make_optimizer(p, 1e-3, (0.5, 0.999))
+        step = (make_spatial_train_step(unet, ds.normalizer, opt, mesh, **geo) if name == "sp"
+                else make_train_step(unet, ds.normalizer, opt, mesh=mesh if name == "dp"
+                                     else None, **geo))
         step(p, s0, *batches[0])  # warm-up
         ms[name], _ = _timed_host(lambda q, _s, x, y: step(q, s0, x, y), p, batches[1:])
         del p, step
-    f64 = {k: max(e[k].values()) for k in ("f64_dp", "f64_one", "f64_d")}
+    f64 = {k: max(e[k].values()) for k in ("f64_dp", "f64_one", "f64_d", "f64_sp", "f64_sp_d")}
     dp, one = e["err_dp"], e["err_one"]
     shown = dict.fromkeys(k for k in (UNET_SHOWN, max(dp, key=dp.get), max(one, key=one.get))
                           if k in dp)
@@ -3251,15 +3331,76 @@ def _unet_dp_step(device, mesh, smi) -> None:
           f"f32 loss {e['loss_dp']:.6f} vs {e['loss_one']:.6f}; f64 gradients, largest "
           f"per-leaf max |d g| / max |g| of the leaf over {len(dp)} leaves: dp vs one "
           f"{f64['f64_d']:.3e}, dp vs the f64 loss gradient {f64['f64_dp']:.3e}, one vs it "
-          f"{f64['f64_one']:.3e} (tol {TOL_T_UNET:g}); f32 gradients against the f64 loss "
+          f"{f64['f64_one']:.3e}, the spatially sharded step (make_spatial_train_step on "
+          f"the one-rank mesh) vs one {f64['f64_sp_d']:.3e}, vs the f64 loss gradient "
+          f"{f64['f64_sp']:.3e}, f32 loss {e['loss_sp']:.6f}, running statistics per leaf "
+          f"{e['state_sp']:.3e} (tol {TOL_T_UNET:g}); f32 gradients against the f64 loss "
           f"gradient, per leaf (dp, one device): "
           + "; ".join(f"{k} {dp[k]:.3e}, {one[k]:.3e}" for k in shown)
           + f"; running statistics per leaf {e['state']:.3e} (tol {TOL_T_UNET:g}); conv "
           f"biases ahead of BatchNorm |g| / max |g| {e['noise']:.3e} (<= 1e-6); "
-          f"{ms['dp']:.1f} vs {ms['one']:.1f} ms/step (host clock, f32) on {smi}")
-    check(max(f64.values()) <= TOL_T_UNET and e["state"] <= TOL_T_UNET
-          and e["noise"] <= 1e-6 and abs(e["loss_dp"] - e["loss_one"]) <= 1e-5 * e["loss_one"],
-          f"[t] UNet DP step: {dict((k, v) for k, v in e.items() if k != 'state_dp')}")
+          f"dp {ms['dp']:.1f}, sharded {ms['sp']:.1f} vs single-device {ms['one']:.1f} "
+          f"ms/step (host clock, f32) on {smi}")
+    check(max(f64.values()) <= TOL_T_UNET and max(e["state"], e["state_sp"]) <= TOL_T_UNET
+          and e["noise"] <= 1e-6
+          and max(abs(e["loss_dp"] - e["loss_one"]), abs(e["loss_sp"] - e["loss_one"]))
+          <= 1e-5 * e["loss_one"],
+          f"[t] UNet DP and sharded steps: "
+          f"{dict((k, v) for k, v in e.items() if k != 'state_dp')}")
+    torch.cuda.empty_cache()
+
+
+def _pix2pix_spatial_step(device, mesh, smi) -> None:
+    """(t) the pix2pix generator's spatially sharded step on the one-rank
+    mesh (the tile path: reflect and zero halos, InstanceNorm sums over the
+    plane, the gather rule, dropout drawn from one generator) against the
+    single-device step at (r)'s width (features 64, bs 8, 256 x 256), from
+    the same weights, batch and dropout seed.  In f32 the generator's
+    gradients at its initial weights amplify rounding through its
+    InstanceNorms over 2 x 2 maps, so the gradients are held in f64, per
+    leaf within TOL_T_UNET of the leaf's largest; the f32 losses rel 1e-5;
+    ms/step of both, f32."""
+    from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
+
+    data = synthetic_e33oma_90d(T=R_FIT_T, H=GRID[0], W=GRID[1], seed=SEED)
+    ds = SingleStepDataset(data, period="train")
+    gen = build_model("PIX2PIX-t", in_channels=5, pix2pix_features=R_PIX_FEATS)
+    p0, _ = gen.init(torch.Generator().manual_seed(SEED), device)
+    batches = [tuple(torch.as_tensor(np.stack(a), device=device) for a in zip(
+        *(ds[i] for i in range(s * R_BS, (s + 1) * R_BS)))) for s in range(T_STEPS + 1)]
+    geo = dict(padded_shape=R_PADDED, grid_shape=GRID)
+    makes = {"sp": lambda opt: make_spatial_train_step(gen, ds.normalizer, opt, mesh, **geo),
+             "one": lambda opt: make_train_step(gen, ds.normalizer, opt, **geo)}
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for name, make in makes.items():
+            p = tree_map(lambda t: t.detach().to(dtype, copy=True).requires_grad_(True), p0)
+            step = make(make_optimizer(p, 1e-3, (0.5, 0.999)))
+            rng = torch.Generator(device=device).manual_seed(SEED)
+            _, m = step(p, None, *(t.to(dtype) for t in batches[0]), rng)
+            out[name, dtype] = ([t.grad.detach().clone() for t in param_leaves(p)],
+                                m["loss"].item())
+            del p, step
+    rel = _leaf_rel(out["sp", torch.float64][0], out["one", torch.float64][0])
+    rel32 = _leaf_rel(out["sp", torch.float32][0], out["one", torch.float32][0])
+    l_sp, l_one = out["sp", torch.float32][1], out["one", torch.float32][1]
+    ms = {}
+    for name, make in makes.items():
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True), p0)
+        step = make(make_optimizer(p, 1e-3, (0.5, 0.999)))
+        rng = torch.Generator(device=device).manual_seed(SEED)
+        step(p, None, *batches[0], rng)  # warm-up
+        ms[name], m = _timed_host(lambda q, _s, x, y: step(q, None, x, y, rng), p, batches[1:])
+        check(bool(torch.isfinite(m["loss"])), f"[t] pix2pix {name} loss")
+        del p, step
+    print(f"[t] pix2pix generator, spatially sharded step (1 rank; features {R_PIX_FEATS}, "
+          f"bs {R_BS}, {R_PADDED[0]}x{R_PADDED[1]}, dropout from one seed) vs the "
+          f"single-device step: f64 gradients per leaf max |d g| / max |g| {max(rel):.3e} "
+          f"(tol {TOL_T_UNET:g}); f32 {max(rel32):.3e} (printed); f32 loss {l_sp:.6f} vs "
+          f"{l_one:.6f}; sharded {ms['sp']:.1f} vs single-device {ms['one']:.1f} ms/step "
+          f"(host clock, f32) on {smi}")
+    check(max(rel) <= TOL_T_UNET and abs(l_sp - l_one) <= 1e-5 * abs(l_one),
+          f"[t] pix2pix sharded step: gradients {max(rel):.3e}, loss {l_sp} vs {l_one}")
     torch.cuda.empty_cache()
 
 
@@ -3347,6 +3488,7 @@ def phase_train_at_scale(device, train, stats, smi) -> None:
         mesh = make_mesh()
         _spatial_steps(device, train, mesh, smi)
         _unet_dp_step(device, mesh, smi)
+        _pix2pix_spatial_step(device, mesh, smi)
     finally:
         torch.distributed.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -3363,15 +3505,19 @@ def phase_train_at_scale(device, train, stats, smi) -> None:
         dtype="bfloat16"), timeout=600)
     print(f"[t] two ranks on two cards: {out[0]}")
     check(all(v["grad_rel"] <= TOL_GRAD["bfloat16"] and v["loss_rel"] <= 1e-3
+              and v.get("state_rel", 0.0) <= TOL_T_UNET
               for v in out[0].values()), f"[t] two-rank spatial steps {out[0]}")
 
 
 def two_rank_spatial_phase(rank: int, size: dict) -> dict:
     """(t) on two ranks, one device each: the spatially sharded step on
-    (1, 1, 2) and (1, 2, 1) meshes, both routes, against the single-device
-    step on rank 0's device (loss and per-leaf gradients, relative to the
-    leaf's largest).  ``size`` gives the widths (the card's full width;
-    small on the CPU)."""
+    (1, 1, 2) and (1, 2, 1) meshes, on the ConvLSTM's remat, per-cell and
+    hoisted routes (T_ROUTES) and for a UNet in f64 (its small width:
+    features 4/8/16/32 on 32 x 64, which gathers before the fourth pool on
+    (1, 2, 1)), against the single-device step on rank 0's device (loss
+    and per-leaf gradients, relative to the leaf's largest; the UNet's
+    running statistics beside them).  ``size`` gives the ConvLSTM's widths
+    (the card's full width; small on the CPU)."""
     from nasa_niswan_tpu_torch.parallel.mesh import make_mesh
     from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
 
@@ -3381,29 +3527,53 @@ def two_rank_spatial_phase(rank: int, size: dict) -> dict:
     idx = np.arange(size["bs"]) % len(ds)
     x, y = (np.stack(a) for a in zip(*(ds[int(i)] for i in idx)))
     geo = dict(padded_shape=padded, grid_shape=grid)
+    u_data = synthetic_e33oma_90d(T=24, H=24, W=40, seed=SEED)
+    u_ds = SingleStepDataset(u_data, period="train")
+    u_x, u_y = (np.stack(a).astype(np.float64) for a in zip(*(u_ds[i] for i in range(4))))
+    u_geo = dict(padded_shape=(32, 64), grid_shape=(24, 40))
+    unet = build_model("UNet-sp2", in_channels=5, unet_features=(4, 8, 16, 32))
 
-    def single(b, p):
-        return make_train_step(b, ds.normalizer, make_optimizer(p, 1e-3, (0.5, 0.999)), **geo)
+    def single(b, p, norm=ds.normalizer, geo=geo):
+        return make_train_step(b, norm, make_optimizer(p, 1e-3, (0.5, 0.999)), **geo)
+
+    def step_grads(make, b, p, state, xb, yb):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        new_state, m = make(b, p)(p, state, xb, yb)
+        return ([t.grad for t in param_leaves(p)], m["loss"].item(),
+                [] if new_state is None else tree_leaves(new_state))
 
     out = {}
     for dims in ((1, 1, 2), (1, 2, 1)):
         mesh = make_mesh(*dims)
 
-        def sharded(b, p, mesh=mesh):
-            return make_spatial_train_step(b, ds.normalizer,
-                                           make_optimizer(p, 1e-3, (0.5, 0.999)), mesh, **geo)
+        def sharded(b, p, mesh=mesh, norm=ds.normalizer, geo=geo):
+            return make_spatial_train_step(b, norm, make_optimizer(p, 1e-3, (0.5, 0.999)),
+                                           mesh, **geo)
 
-        for route, remat in (("remat", True), ("per-cell", False)):
-            bundle = build_model("LSTM-sp2", remat=remat, in_channels=5,
+        for route, opts in T_ROUTES:
+            bundle = build_model("LSTM-sp2", in_channels=5,
                                  hidden_channels=tuple(size["hidden"]),
                                  kernel_sizes=tuple(size["kernels"]),
-                                 compute_dtype=size["dtype"])
+                                 compute_dtype=size["dtype"], **opts)
             init, _ = bundle.init(torch.Generator().manual_seed(SEED), mesh.device)
-            g, loss = _one_step_grads(sharded, bundle, init, x, y)
+            g, loss, _ = step_grads(sharded, bundle, init, None, x, y)
             if rank == 0:
-                g1, loss1 = _one_step_grads(single, bundle, init, x, y)
+                g1, loss1, _ = step_grads(single, bundle, init, None, x, y)
                 out[f"{dims}/{route}"] = dict(loss_rel=abs(loss - loss1) / abs(loss1),
                                               grad_rel=max(_leaf_rel(g, g1)))
+        p0, s0 = unet.init(torch.Generator().manual_seed(SEED), mesh.device)
+        p0, s0 = (tree_map(lambda t: t.double(), t) for t in (p0, s0))
+        sp = lambda b, p: sharded(b, p, norm=u_ds.normalizer, geo=u_geo)  # noqa: E731
+        g, loss, st = step_grads(sp, unet, p0, s0, u_x, u_y)
+        if rank == 0:
+            one = lambda b, p: single(b, p, norm=u_ds.normalizer, geo=u_geo)  # noqa: E731
+            g1, loss1, st1 = step_grads(one, unet, p0, s0, u_x, u_y)
+            paths = tree_paths(p0)
+            keep = [i for i, path in enumerate(paths) if not path.endswith(UNET_NOISE)]
+            out[f"{dims}/unet-f64"] = dict(
+                loss_rel=abs(loss - loss1) / abs(loss1),
+                grad_rel=max(_leaf_rel([g[i] for i in keep], [g1[i] for i in keep])),
+                state_rel=max(_leaf_rel(st, st1)))
     return out
 
 

@@ -228,6 +228,7 @@ def convlstm_apply(
     cell_fn: CellFn = fused_cell_forward,
     grads_fn: Optional[GradsFn] = cell_grads,
     weights: Optional[Params] = None,
+    hoist_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ):
     """Run the ConvLSTM over a sequence.
 
@@ -255,6 +256,9 @@ def convlstm_apply(
         whole-scan BPTT: with the plain ``cell_fn``, the eager oracle.
       weights: ``cell_weights(params, config, precompute_input_conv)`` made
         by the caller; None makes them here.
+      hoist_fn: the hoisted conv ``(weights["w_x0"], x) -> xg`` (T, B, H,
+        W, 4*hidden0) in the compute dtype; None runs ``hoist_input_conv``
+        (a spatially sharded step passes its conv on the tile).
 
     Returns:
       pred (B, H, W, out) f32, then the taps and the final state if asked.
@@ -300,8 +304,11 @@ def convlstm_apply(
             # unbound once: the backward stacks the T step gradients in one
             # pass, where indexing xg[t] would add each into a zero-filled
             # gradient of the whole (T, B, H, W, 4*hidden0) tensor
-            eager = cell_fn is fused_cell_forward_plain
-            xg = hoist_input_conv(weights["w_x0"], x, config, eager=eager).unbind(0)
+            if hoist_fn is None:
+                eager = cell_fn is fused_cell_forward_plain
+                xg = hoist_input_conv(weights["w_x0"], x, config, eager=eager).unbind(0)
+            else:
+                xg = hoist_fn(weights["w_x0"], x).unbind(0)
             w_h0 = weights["w_h0"]
         if len(parts) > 1:
             x_steps = [torch.cat(ps, dim=-1)

@@ -33,6 +33,12 @@ from nasa_niswan_tpu_torch.ops.conv import (
     instance_norm,
     leaky_relu,
 )
+from nasa_niswan_tpu_torch.parallel.halo import (
+    cut_map,
+    descend,
+    halo_exchange_reflect,
+    halo_exchange_zero,
+)
 
 Params = Dict[str, Any]
 
@@ -67,12 +73,27 @@ def _biased_conv_init(gen, in_ch, out_ch, device, transpose=False):
     return {"w": normal_002_init(gen, 4, 4, *shape, device=device), "b": b}
 
 
-def _gblock_apply(p, x, *, encoder, act, generator=None, shard=(0, 1)):
-    if encoder:
-        x = conv2d(x, p["w"], stride=2, padding=1, pad_mode="reflect")
-    else:
-        x = conv2d_transpose(x, p["w"], stride=2, padding=1)
-    x = instance_norm(x, p["norm"]["scale"], p["norm"]["bias"])
+def _down(x, p, mesh):
+    """The reflect-padded 4x4 stride-2 conv: on the whole map (``mesh``
+    None) or on this rank's tile, with a 1-pixel reflect halo (the tile's
+    origin is even, so its outputs are the map's)."""
+    if mesh is None:
+        return conv2d(x, p["w"], p.get("b"), stride=2, padding=1, pad_mode="reflect")
+    return conv2d(halo_exchange_reflect(x, 1, mesh), p["w"], p.get("b"), stride=2)
+
+
+def _up(x, p, mesh):
+    """The 4x4 stride-2 transposed conv (padding 1): on the whole map, or on
+    the tile with a 1-pixel zero halo, whose outputs two pixels deep are
+    cropped (padding 3)."""
+    if mesh is None:
+        return conv2d_transpose(x, p["w"], p.get("b"), stride=2, padding=1)
+    return conv2d_transpose(halo_exchange_zero(x, 1, mesh), p["w"], p.get("b"), stride=2,
+                            padding=3)
+
+
+def _norm_act(x, p, act, group, generator=None, shard=(0, 1)):
+    x = instance_norm(x, p["norm"]["scale"], p["norm"]["bias"], group=group)
     x = torch.relu(x) if act == "relu" else leaky_relu(x, 0.2)
     if generator is not None:
         x = dropout2d(x, 0.5, generator, training=True, shard=shard)
@@ -102,32 +123,62 @@ def generator_apply(
     training: bool = False,
     generator: Optional[torch.Generator] = None,
     shard: Tuple[int, int] = (0, 1),
+    mesh=None,
 ) -> torch.Tensor:
     """x: (B, H, W, C) with H, W divisible by 256 (8 stride-2 stages; smaller
     maps follow XLA's shapes, ops/conv.py).  Dropout2d(0.5) runs on decoder
     blocks 1-3 only when ``training`` and a ``generator`` (on x's device)
     is given; ``shard=(r, n)`` marks x as part r of n of a global batch (a
     data-parallel rank's), whose masks are drawn for the whole batch
-    (``ops.conv.dropout2d``)."""
+    (``ops.conv.dropout2d``).
+
+    With a ``mesh`` (parallel/mesh.py) x is this rank's tile of its dp
+    share (``shard`` is then the mesh's dp), and so is the output: the
+    reflect-padded convs take a 1-pixel reflect halo, the transposed convs
+    a 1-pixel zero halo, the InstanceNorms sum over the (lat, lon) plane.
+    Levels follow the gather rule (``parallel/halo.descend``): from the first
+    level whose tiles would not halve, the map is gathered and the deeper
+    levels (at 256 x 256 the innermost, 1-4 pixels) run whole on every
+    rank; the decoder cuts the map back to tiles at that level."""
     drop = generator if training else None
-    e0 = leaky_relu(conv2d(x, params["initial"]["w"], params["initial"]["b"], stride=2,
-                           padding=1, pad_mode="reflect"), 0.2)
+    if mesh is not None:
+        shard = (mesh.index("dp"), mesh.dp)
+    tiled = [mesh is not None]  # per level (map size 256 / 2^level): on tiles
+
+    def on(level):
+        return mesh if tiled[level] else None
+
+    def group(level):
+        return mesh.groups["latlon"] if tiled[level] else None
+
+    def down(h, p):
+        """The next level's conv from the deepest so far, gathering first
+        where the rule says."""
+        h, below = descend(h, tiled[-1], mesh)
+        tiled.append(below)
+        return _down(h, p, on(len(tiled) - 1))
+
+    def up(h, p, level):
+        """The transposed conv from ``level + 1`` to ``level``, cutting back
+        to tiles where the rule gathered."""
+        h = _up(h, p, on(level + 1))
+        return cut_map(h, mesh) if tiled[level] and not tiled[level + 1] else h
+
+    e0 = leaky_relu(down(x, params["initial"]), 0.2)  # level 1
     encs = [e0]
     h = e0
-    for i in range(1, 7):
-        h = _gblock_apply(params[f"enc{i}"], h, encoder=True, act="leaky")
+    for i in range(1, 7):  # enc i: level i + 1
+        h = _norm_act(down(h, params[f"enc{i}"]), params[f"enc{i}"], "leaky",
+                      group(i + 1))
         encs.append(h)
-    bn = leaky_relu(conv2d(h, params["bottleneck"]["w"], params["bottleneck"]["b"],
-                           stride=2, padding=1, pad_mode="reflect"), 0.2)
-    h = _gblock_apply(params["dec1"], bn, encoder=False, act="relu", generator=drop,
-                      shard=shard)
-    for i in range(2, 8):
+    bn = leaky_relu(down(h, params["bottleneck"]), 0.2)  # level 8
+    h = _norm_act(up(bn, params["dec1"], 7), params["dec1"], "relu", group(7), drop, shard)
+    for i in range(2, 8):  # dec i: level 8 - i
         h = torch.cat([h, encs[8 - i]], dim=-1)  # dec2 <- enc6 ... dec7 <- enc1
-        h = _gblock_apply(params[f"dec{i}"], h, encoder=False, act="relu",
-                          generator=drop if i <= 3 else None, shard=shard)
+        h = _norm_act(up(h, params[f"dec{i}"], 8 - i), params[f"dec{i}"], "relu",
+                      group(8 - i), drop if i <= 3 else None, shard)
     h = torch.cat([h, e0], dim=-1)
-    return conv2d_transpose(h, params["final"]["w"], params["final"]["b"], stride=2,
-                            padding=1)
+    return up(h, params["final"], 0)
 
 
 def discriminator_init(generator: torch.Generator, config: DiscriminatorConfig, *,

@@ -58,12 +58,16 @@ class ModelBundle:
     state, x, *, training, rng, mesh=None)`` returns ``(out, new_state)``
     (state is None for the stateless families; the UNet's holds its
     BatchNorm statistics; ``rng`` is a ``torch.Generator`` on x's device,
-    PIX2PIX's dropout).  With a ``mesh`` (parallel/mesh.py) x is this dp
-    rank's share of a global batch: the UNet's BatchNorms take the global
-    batch's statistics over the dp group and PIX2PIX draws the global
-    batch's dropout masks, so the data-parallel step equals the
-    single-device step on the global batch; the ConvLSTM's forward has
-    nothing to share.  ``x`` is (B, T, H, W, C) for sequence models and
+    PIX2PIX's dropout).  With a ``mesh`` (parallel/mesh.py) x is this
+    rank's share of a global batch, cut over dp and, with ``tiles`` (the
+    spatially sharded step, parallel/spatial.py), its (lat, lon) tile, and
+    so is the output: the UNet's BatchNorms take the global batch's
+    statistics over the mesh and PIX2PIX draws the global batch's dropout
+    masks, so the data-parallel and the spatially sharded steps equal the
+    single-device step on the global batch (the UNet's new state holds the
+    global running statistics, the same on every rank).  The ConvLSTM's
+    ``apply`` ignores both: the spatially sharded step runs its cells on
+    tiles itself.  ``x`` is (B, T, H, W, C) for sequence models and
     (B, H, W, C) otherwise.  Parameters are the port's tree of f32
     tensors, leaves requiring grad.  ``precompute_input_conv`` records
     whether the ConvLSTM hoists its input conv.
@@ -106,8 +110,10 @@ def build_model(
             params, state = unet_init(generator, ucfg, device=device)
             return _trainable(params), state
 
-        def apply(params, state, x, *, training=False, rng=None, mesh=None):
+        def apply(params, state, x, *, training=False, rng=None, mesh=None, tiles=False):
             del rng
+            if tiles:
+                return unet_apply(params, state, x, training=training, mesh=mesh)
             group = None if mesh is None else mesh.groups["dp"]
             return unet_apply(params, state, x, training=training, group=group)
 
@@ -118,7 +124,10 @@ def build_model(
         def init(generator: torch.Generator, device=None):
             return _trainable(generator_init(generator, gcfg, device=device)), None
 
-        def apply(params, state, x, *, training=False, rng=None, mesh=None):
+        def apply(params, state, x, *, training=False, rng=None, mesh=None, tiles=False):
+            if tiles:
+                return generator_apply(params, x, training=training, generator=rng,
+                                       mesh=mesh), None
             shard = (0, 1) if mesh is None else (mesh.index("dp"), mesh.dp)
             return generator_apply(params, x, training=training, generator=rng,
                                    shard=shard), None
@@ -136,8 +145,8 @@ def build_model(
     def init(generator: torch.Generator, device=None):
         return _trainable(convlstm_init(generator, cfg, device=device)), None
 
-    def apply(params, state, x, *, training=False, rng=None, mesh=None):
-        del state, training, rng, mesh
+    def apply(params, state, x, *, training=False, rng=None, mesh=None, tiles=False):
+        del state, training, rng, mesh, tiles
         return convlstm_apply(
             params, x, cfg, precompute_input_conv=precompute_input_conv,
             cell_fn=cell_fn, grads_fn=grads_fn,

@@ -25,6 +25,7 @@ from nasa_niswan_tpu_torch.models.init import (
     torch_conv_transpose_init,
 )
 from nasa_niswan_tpu_torch.ops.conv import batch_norm, conv2d, conv2d_transpose, max_pool2d
+from nasa_niswan_tpu_torch.parallel.halo import cut_map, descend, sharded_conv2d
 
 Params = Dict[str, Any]
 
@@ -59,11 +60,16 @@ def _block_init(gen, in_ch, out_ch, device):
     return params, {"bn1": bn1_s, "bn2": bn2_s}
 
 
-def _block_apply(p, s, x, training, group):
+def _block_apply(p, s, x, training, mesh, group):
+    """A block on the whole map (``mesh`` None) or on this rank's tile of
+    it (3x3 convs with a 1-pixel zero halo); ``group``: BatchNorm's."""
     new = {}
     for i in (1, 2):
         conv, bn = p[f"conv{i}"], f"bn{i}"
-        x = conv2d(x, conv["w"], conv["b"], padding=1)
+        if mesh is None:
+            x = conv2d(x, conv["w"], conv["b"], padding=1)
+        else:
+            x = sharded_conv2d(x, conv["w"], conv["b"], pad=1, mesh=mesh)
         x, (mean, var) = batch_norm(x, p[bn]["scale"], p[bn]["bias"], s[bn]["mean"],
                                     s[bn]["var"], training=training, group=group)
         x = torch.relu(x)
@@ -96,26 +102,48 @@ def unet_init(generator: torch.Generator, config: UNetConfig, *, device=None
 
 
 def unet_apply(params: Params, state: Params, x: torch.Tensor, *, training: bool = False,
-               group=None) -> Tuple[torch.Tensor, Params]:
+               group=None, mesh=None) -> Tuple[torch.Tensor, Params]:
     """x: (B, H, W, C) NHWC, H and W divisible by 16.  Returns (out (B, H, W,
     out_channels), new_state).  ``group``: the dp ranks of a data-parallel
     step, whose BatchNorms then normalize by the global batch's statistics
-    (``ops.conv.batch_norm``)."""
+    (``ops.conv.batch_norm``).
+
+    With a ``mesh`` (parallel/mesh.py) x is this rank's tile of its dp
+    share of a global batch, and so is the output: the 3x3 convs exchange
+    a 1-pixel halo, the pools, the k 2 s 2 transposed convs, the skip
+    concatenations and the head are local, and the BatchNorms normalize by
+    the global batch's statistics over every rank of the mesh
+    (``ops.conv.batch_norm``).  Levels follow the gather rule
+    (``parallel/halo.descend``): from the first level whose tiles would not
+    halve, the map is gathered and the deeper levels run whole on every
+    rank, their BatchNorms over the dp ranks alone; the decoder cuts the
+    map back to tiles at that level."""
     new_state: Params = {}
     skips = []
     h = x
+    tiled = [mesh is not None]  # per level: on tiles (else whole)
+
+    def level(on):
+        if mesh is None:
+            return None, group
+        return (mesh, mesh.groups["all"]) if on else (None, mesh.groups["dp"])
+
     for i in range(1, 5):
         h, new_state[f"enc{i}"] = _block_apply(params[f"enc{i}"], state[f"enc{i}"], h,
-                                               training, group)
+                                               training, *level(tiled[-1]))
         skips.append(h)
+        h, on = descend(h, tiled[-1], mesh)
+        tiled.append(on)
         h = max_pool2d(h)
     h, new_state["bottleneck"] = _block_apply(params["bottleneck"], state["bottleneck"],
-                                              h, training, group)
+                                              h, training, *level(tiled[4]))
     for i, skip in zip(range(4, 0, -1), reversed(skips)):
         name = f"dec{i}"
         up = params[name]["up"]
         h = conv2d_transpose(h, up["w"], up["b"], stride=2, padding=0)
+        if tiled[i - 1] and not tiled[i]:
+            h = cut_map(h, mesh)
         h = torch.cat([h, skip], dim=-1)  # (up, skip) order
         h, new_state[name] = _block_apply(params[name]["block"], state[name], h, training,
-                                          group)
+                                          *level(tiled[i - 1]))
     return conv2d(h, params["head"]["w"], params["head"]["b"]), new_state

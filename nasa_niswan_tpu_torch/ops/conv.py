@@ -132,10 +132,22 @@ def instance_norm(
     bias: Optional[torch.Tensor] = None,
     *,
     eps: float = 1e-5,
+    group=None,
 ) -> torch.Tensor:
     """InstanceNorm2d: per sample and channel over (H, W), biased variance,
-    no running statistics."""
-    var, mean = torch.var_mean(x, dim=(1, 2), keepdim=True, correction=0)
+    no running statistics.
+
+    With a process ``group`` (the (lat, lon) plane of a spatially sharded
+    step, each rank holding an equal tile of the map) the statistics are
+    the whole map's: the per-sample, per-channel sums behind the mean and
+    the variance are all-reduced over the group, and so are their
+    cotangents in the backward."""
+    if group is None:
+        var, mean = torch.var_mean(x, dim=(1, 2), keepdim=True, correction=0)
+    else:
+        n = x.shape[1] * x.shape[2] * dist.get_world_size(group)
+        mean = _AllReduceSum.apply(x.sum(dim=(1, 2), keepdim=True), group) / n
+        var = _AllReduceSum.apply((x - mean).pow(2).sum(dim=(1, 2), keepdim=True), group) / n
     out = (x - mean) * torch.rsqrt(var + eps)
     if scale is not None:
         out = out * scale
@@ -185,11 +197,13 @@ def batch_norm(
     left unchanged, as in the JAX package.
 
     With a process ``group`` (the dp ranks of a data-parallel step, each
-    holding an equal share of the batch) training normalizes by the global
-    batch's statistics, as the JAX package's GSPMD step does: the sums
-    behind the mean and the variance are all-reduced over the group, and so
-    are their cotangents in the backward.  The running statistics then use
-    the global pixel count and are the same on every rank."""
+    holding an equal share of the batch; every rank of a spatially sharded
+    step's mesh, each holding an equal tile of its dp share) training
+    normalizes by the global batch's statistics, as the JAX package's GSPMD
+    step does: the sums behind the mean and the variance are all-reduced
+    over the group, and so are their cotangents in the backward.  The
+    running statistics then use the global pixel count and are the same on
+    every rank."""
     if training:
         if group is None:
             var, mean = torch.var_mean(x, dim=(0, 1, 2), correction=0)
@@ -221,7 +235,9 @@ def dropout2d(
     ``shard=(r, n)``: ``x`` is part r of n equal parts of a global batch
     (a data-parallel rank's): the mask of the whole (n B, 1, 1, C) batch is
     drawn and part r kept, so ranks with equal generators drop what one
-    device would drop on the global batch."""
+    device would drop on the global batch.  ``x`` may be a spatial tile of
+    that part: the mask is per sample and channel, so every tile of a
+    sample drops the same channels, as the JAX package's GSPMD step does."""
     if not training or rate == 0.0 or generator is None:
         return x
     r, n = shard

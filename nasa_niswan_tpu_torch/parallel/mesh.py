@@ -11,9 +11,9 @@ Where JAX holds every device in one process, the port runs one process
 (rank) per device: rank r uses ``cuda:r`` (``LOCAL_RANK`` under torchrun)
 or the CPU.  ``init_distributed`` joins the rank to the process group, and
 ``make_mesh`` lays the ranks out as rank = (d * lat + i) * lon + j and makes
-one process group per row of each axis, every rank creating every group in
-one fixed order (``torch.distributed.new_group`` must be called by all
-ranks).  The point-to-point halo messages (parallel/halo.py) address global
+one process group per row of each axis and one per (lat, lon) plane, every
+rank creating every group in one fixed order (``torch.distributed.new_group``
+must be called by all ranks).  The point-to-point halo messages (parallel/halo.py) address global
 ranks; the gathers and the all-reduce use the axis groups.
 
 ``local_tile`` and ``gather_tiles`` take the place of JAX's shardings
@@ -81,7 +81,8 @@ class Mesh:
     lon: int
     rank: int
     device: torch.device
-    groups: Dict[str, object]  # axis -> this rank's process group on it
+    groups: Dict[str, object]  # axis -> this rank's process group on it; "latlon":
+    # the ranks of this rank's dp index, "all": every rank
 
     @property
     def shape(self) -> Tuple[int, int, int]:
@@ -133,6 +134,13 @@ def make_mesh(dp: int = 1, lat: int = 1, lon: int = 1) -> Mesh:
                 g = dist.new_group(ranks)
                 if rank in ranks:
                     groups[axis] = g
+    # one (lat, lon) plane per dp index
+    for d in range(dp):
+        ranks = list(range(d * lat * lon, (d + 1) * lat * lon))
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            groups["latlon"] = g
+    groups["all"] = dist.group.WORLD  # the mesh spans the default group
     nccl = dist.get_backend() == "nccl"
     device = rank_device("cuda" if nccl else "cpu")
     dist.barrier(device_ids=[device.index] if nccl else None)

@@ -43,8 +43,12 @@ gathers' shapes but no NCCL message.  On the CPU (gloo) the chunks run
 eagerly.
 
 Training (``make_spatial_train_step``, the counterpart of the JAX
-package's GSPMD step) runs the same cells on the tile with gradients, by
-the single-device step's two routes (``config.remat``):
+package's GSPMD step) takes every family.  The UNet and the pix2pix
+generator run on the tile through ``ModelBundle.apply(tiles=True)``
+(models/unet.py, models/pix2pix.py: halos of parallel/halo.py, norms
+over the mesh, the gather rule).  The ConvLSTM runs the same cells on the
+tile with gradients, by the single-device step's routes (``config.remat``
+and the hoist):
 
 * per-cell: ``_TileCell``, the halo exchange, ``FusedCell``'s VJP on the
   extended tile (B1 emit_gates forward; the elementwise backward, B3 and
@@ -56,11 +60,25 @@ the single-device step's two routes (``config.remat``):
   each tile's weight gradient is summed over the steps and the tiles in
   f32 (the single-device per-cell route sums the steps' bf16 dW in bf16,
   as JAX's ``_v2_bwd`` does);
+* the hoist (``precompute_input_conv``, per cell whatever ``remat`` says):
+  ``_TileHoistedConv`` exchanges k//2 rows and columns of halo of all
+  T * B normalized frames at once, runs B3 on the extended stack and crops
+  the ring while rounding to the compute dtype; its backward is the dW
+  kernel over the extended frames with the zero-ringed cotangent (the
+  tile's part, f32 until the all-reduce; the input takes no gradient).
+  Layer 0 is a ``_TileCell`` with the tile's xg slice: h's halo (the
+  k 5 ``w_h`` conv), the zero ring on xg, B1's xg and emit_gates modes on
+  the extended tile, dxg the cropped gate cotangent; layers 1-2 as
+  per-cell;
 * whole-scan BPTT: ``ops/convlstm_bptt.scan_cells`` with the tile cell and
   ``_tile_grads``, its per-cell backward on the tile: xh exchanged, c, dh
   and dc padded with the zero ring, ``ops/convgrad.cell_grads`` (B2, then
   B3) on the extended tile, the transposed exchange applied to dxh and the
   ring cropped off dc_prev.
+
+Evaluation (``make_spatial_eval_step``) runs the same forwards without
+grad, the hoist through the same tile conv, so xg is rounded as the
+single-device forward rounds it.
 
 The loss (MSE + L1 over the cropped grid) is the global mean: each rank
 sums over its tile's part of the crop window and divides by its dp share's
@@ -95,7 +113,7 @@ from nasa_niswan_tpu_torch.models.convlstm import (
     head_apply,
 )
 from nasa_niswan_tpu_torch.models.registry import ModelBundle
-from nasa_niswan_tpu_torch.ops.convgrad import cell_grads
+from nasa_niswan_tpu_torch.ops.convgrad import cell_grads, conv_dw, conv_same
 from nasa_niswan_tpu_torch.ops.convlstm_bptt import cells_step, combined_cells
 from nasa_niswan_tpu_torch.ops.convlstm_cell import (
     _cell_vjp,
@@ -123,19 +141,24 @@ from nasa_niswan_tpu_torch.train.loop import per_sample_r2_score
 
 
 def cell_on_tile(xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 mesh: Mesh, cell_fn: CellFn = fused_cell_forward):
+                 mesh: Mesh, cell_fn: CellFn = fused_cell_forward,
+                 xg: Optional[torch.Tensor] = None):
     """One fused cell step on a rank's tile: xh (B, h, w, Cin) = [x; h] in
-    the compute dtype, c (B, h, w, hid) f32; returns the tile's (h', c').
-    ``cell_fn`` is the cell run on the extended tile without grad (a test
-    passes the plain version).  Under grad (the per-cell training route)
-    the step is ``_TileCell``, B1's emit_gates mode on the extended tile."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (xh, c, w, b)):
-        return _TileCell.apply(xh, c, w, b, mesh, w.detach().to(xh.dtype))
+    the compute dtype (h alone with the hoisted gates ``xg`` (B, h, w,
+    4 hid) of the tile), c (B, h, w, hid) f32; returns the tile's (h',
+    c').  ``cell_fn`` is the cell run on the extended tile without grad (a
+    test passes the plain version); ``xg`` gets the zero ring.  Under grad
+    (the per-cell training route) the step is ``_TileCell``, B1's
+    emit_gates mode on the extended tile."""
+    ins = (xh, c, w, b) if xg is None else (xh, c, w, b, xg)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return _TileCell.apply(xh, c, w, b, mesh, w.detach().to(xh.dtype), xg)
     p = w.shape[0] // 2
     if p == 0:
-        return cell_fn(xh, c, w, b)
+        return cell_fn(*ins)
     hl, wl = xh.shape[1:3]
-    h2, c2 = cell_fn(halo_exchange_zero(xh, p, mesh), _ring(c, p), w, b)
+    ext = (halo_exchange_zero(xh, p, mesh), _ring(c, p), w, b)
+    h2, c2 = cell_fn(*ext) if xg is None else cell_fn(*ext, _ring(xg, p))
     return _crop(h2, p, hl, wl), _crop(c2, p, hl, wl)
 
 
@@ -149,28 +172,30 @@ def _crop(t: torch.Tensor, p: int, hl: int, wl: int) -> torch.Tensor:
 
 
 class _TileCell(torch.autograd.Function):
-    """``cell_on_tile`` around the per-cell VJP of ``FusedCell``, as one
-    Function.  The forward exchanges xh's halo, pads c with the zero ring,
-    runs B1's emit_gates mode on the extended tile with ``w_low``, the
-    kernel ``w`` in xh's dtype, and crops: the launches of ``FusedCell`` on
-    the extended tile.  The backward puts the zero ring on (dh, dc), so the
-    ring's gate cotangents are zero, runs ``FusedCell``'s backward there
-    (the elementwise backward, B3 for dxh, B2's dW kernels), applies the
-    transposed exchange to B3's f32 dxh and casts the sum to xh's dtype
-    once, so a halo pixel's cotangents from the neighbours are added in
-    f32, as the whole-scan route's ``_tile_grads`` adds them.  dw is
-    returned in ``w``'s dtype: given the f32 kernel, the tile's weight
-    gradient is summed over the steps, and then over the tiles, in f32."""
+    """``cell_on_tile`` around the per-cell VJP of ``FusedCell`` (with
+    ``xg``, the hoisted layer 0's ``FusedCellXg``), as one Function.  The
+    forward exchanges xh's halo, pads c (and xg) with the zero ring, runs
+    B1's emit_gates mode (with xg, its xg mode too) on the extended tile
+    with ``w_low``, the kernel ``w`` in xh's dtype, and crops: the launches
+    of ``FusedCell`` on the extended tile.  The backward puts the zero ring
+    on (dh, dc), so the ring's gate cotangents are zero, runs ``FusedCell``'s
+    backward there (the elementwise backward, B3 for dxh, B2's dW kernels),
+    applies the transposed exchange to B3's f32 dxh and casts the sum to
+    xh's dtype once, so a halo pixel's cotangents from the neighbours are
+    added in f32, as the whole-scan route's ``_tile_grads`` adds them.  dxg
+    is the tile's gate cotangent.  dw is returned in ``w``'s dtype: given
+    the f32 kernel, the tile's weight gradient is summed over the steps,
+    and then over the tiles, in f32."""
 
     @staticmethod
-    def forward(ctx, xh, c, w, b, mesh, w_low):
+    def forward(ctx, xh, c, w, b, mesh, w_low, xg=None):
         p = w.shape[0] // 2
         hl, wl = xh.shape[1:3]
         xe = halo_exchange_zero(xh, p, mesh) if p else xh
         ce = _ring(c, p)
-        h2, c2, gates = fused_cell_gates(xe, ce, w_low, b)
+        h2, c2, gates = fused_cell_gates(xe, ce, w_low, b, None if xg is None else _ring(xg, p))
         ctx.save_for_backward(xe, ce, gates, w_low)
-        ctx.mesh, ctx.w_dtype = mesh, w.dtype
+        ctx.mesh, ctx.w_dtype, ctx.xg = mesh, w.dtype, xg is not None
         return _crop(h2, p, hl, wl), _crop(c2, p, hl, wl)
 
     @staticmethod
@@ -179,17 +204,65 @@ class _TileCell(torch.autograd.Function):
         xe, ce, gates, w_low = ctx.saved_tensors
         p = w_low.shape[0] // 2
         hl, wl = xe.shape[1] - 2 * p, xe.shape[2] - 2 * p
-        _, dxe, dc_prev, dw, db = _cell_vjp(xe, ce, gates, w_low, _ring(dh, p), _ring(dc, p),
-                                            ctx.needs_input_grad[0])
+        dgates, dxe, dc_prev, dw, db = _cell_vjp(xe, ce, gates, w_low, _ring(dh, p),
+                                                 _ring(dc, p), ctx.needs_input_grad[0])
         dxh = None
         if dxe is not None:
             dxh = (halo_exchange_zero_transpose(dxe, p, ctx.mesh) if p else dxe).to(xe.dtype)
-        return dxh, _crop(dc_prev, p, hl, wl), dw.to(ctx.w_dtype), db, None, None
+        dxg = _crop(dgates, p, hl, wl) if ctx.xg else None
+        return dxh, _crop(dc_prev, p, hl, wl), dw.to(ctx.w_dtype), db, None, None, dxg
+
+
+class _TileHoistedConv(torch.autograd.Function):
+    """The hoisted input conv on a rank's tile: x (N, h, w, C) = every
+    frame of the tile (N = T * B) in the compute dtype, ``w`` layer 0's
+    ``w_x``, ``w_low`` it in x's dtype.  The forward exchanges k//2 rows
+    and columns of halo of the whole stack at once (one message per
+    direction and axis), runs B3 (``conv_same``) on the extended (N, h +
+    2p, w + 2p, C) stack and crops the ring off its f32 output while
+    rounding it to x's dtype, so the extended output lives only as long as
+    the conv.  The backward puts the zero ring on the cotangent and runs
+    B2's dW kernel (``conv_dw``) with the extended stack: the tile's part of
+    dw, returned in ``w``'s dtype (f32 for the f32 parameter, summed over
+    the tiles by the step's all-reduce before any rounding).  The input
+    takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, mesh, w_low):
+        if ctx.needs_input_grad[0]:
+            raise ValueError("the hoisted conv on a tile takes no input gradient")
+        p = w.shape[0] // 2
+        hl, wl = x.shape[1:3]
+        xe = halo_exchange_zero(x, p, mesh) if p else x
+        ctx.save_for_backward(xe)
+        ctx.k, ctx.w_dtype = w.shape[0], w.dtype
+        return conv_same(xe, w_low)[:, p:p + hl, p:p + wl].to(x.dtype).contiguous()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (xe,) = ctx.saved_tensors
+        dw = conv_dw(xe, _ring(g.contiguous(), ctx.k // 2), ctx.k)
+        return None, dw.to(ctx.w_dtype), None, None
+
+
+def _hoist_on_tile(mesh: Mesh, config: ConvLSTMConfig):
+    """``convlstm_apply``'s ``hoist_fn`` on a rank's tile: (w_x0, x (B, T,
+    h, w, C)) -> xg (T, B, h, w, 4 hid0) of the tile in the compute dtype,
+    through ``_TileHoistedConv``."""
+    dt = config.torch_dtype
+
+    def hoist(w, x):
+        B, T, hl, wl, C = x.shape
+        flat = x.transpose(0, 1).reshape(T * B, hl, wl, C).to(dt).contiguous()
+        xg = _TileHoistedConv.apply(flat, w, mesh, w.detach().to(dt).contiguous())
+        return xg.reshape(T, B, hl, wl, -1)
+    return hoist
 
 
 def _tile_cell(mesh: Mesh, cell_fn: CellFn = fused_cell_forward) -> CellFn:
-    def cell(xh, c, w, b):
-        return cell_on_tile(xh, c, w, b, mesh, cell_fn)
+    def cell(xh, c, w, b, xg=None):
+        return cell_on_tile(xh, c, w, b, mesh, cell_fn, xg)
     return cell
 
 
@@ -276,18 +349,20 @@ def _check_tiles(padded_shape, mesh: Mesh) -> None:
 
 
 def convlstm_apply_sharded(params, x: torch.Tensor, config: ConvLSTMConfig,
-                           mesh: Mesh) -> torch.Tensor:
+                           mesh: Mesh, *, precompute_input_conv: bool = False
+                           ) -> torch.Tensor:
     """Sharded ConvLSTM forward: x (B, T, H, W, C) on the padded domain,
     the whole tensor on every rank; returns this rank's tile of the
     (B, H, W, 1) prediction (batch over dp, grid over lat and lon), equal
-    to ``convlstm_apply``'s there.  Without grad."""
+    to ``convlstm_apply``'s there (with the hoisted input conv, its conv
+    on the tile: the same bf16 rounding of xg).  Without grad."""
     _check_tiles(x.shape[2:4], mesh)
     with torch.inference_mode():
         x_t = _tile(torch.as_tensor(x, device=mesh.device), mesh, 2, 0)
-        state = zero_tile_state(config, x_t.shape[0], x.shape[2:4], mesh)
-        _, state = _scan_tile(params, cell_weights(params, config), x_t, state, config,
-                              _tile_cell(mesh))
-        return head_apply(params, state[-1][0], config.torch_dtype)
+        return convlstm_apply(
+            params, x_t, config, precompute_input_conv=precompute_input_conv,
+            cell_fn=_tile_cell(mesh), weights=cell_weights(params, config, precompute_input_conv),
+            hoist_fn=_hoist_on_tile(mesh, config))
 
 
 def _crop_window(padded_shape, grid_shape, mesh: Mesh):
@@ -305,6 +380,55 @@ def _crop_window(padded_shape, grid_shape, mesh: Mesh):
     return (tr, tc), (gr, gc)
 
 
+def _per_cell_tiles(params, x: torch.Tensor, config: ConvLSTMConfig, mesh: Mesh,
+                    hoist: bool) -> torch.Tensor:
+    """The per-cell route on a rank's tile (x (B, T, h, w, C)), with or
+    without the hoisted input conv: every cell a ``_TileCell`` given its
+    f32 kernel (the combined [w_x; w_h], or the hoisted layer 0's w_h), so
+    each tile's weight gradient stays f32 until the all-reduce sums it; each
+    kernel cast to the compute dtype once.  The hoist is
+    ``_TileHoistedConv`` on the tile's frames."""
+    cells = params["cells"]
+    f32, dt = torch.float32, config.torch_dtype
+    if hoist:
+        kernels = ([(cells[0]["w_h"], cells[0]["b"].float())]
+                   + combined_cells({"cells": cells[1:]}, f32))
+        weights = {"cells": kernels, "w_x0": cells[0]["w_x"], "w_h0": cells[0]["w_h"]}
+    else:
+        weights = {"cells": combined_cells(params, f32)}
+    low = {}
+
+    def cell(xh, c, w, b, xg=None):
+        if id(w) not in low:
+            low[id(w)] = w.detach().to(dt)
+        return _TileCell.apply(xh, c, w, b, mesh, low[id(w)], xg)
+
+    return convlstm_apply(params, x, config, precompute_input_conv=hoist, weights=weights,
+                          cell_fn=cell, hoist_fn=_hoist_on_tile(mesh, config))
+
+
+def _tile_forward(bundle: ModelBundle, mesh: Mesh) -> Callable:
+    """``forward(params, state, x, rng) -> (tile prediction (B, h, w, 1),
+    new state)`` of a training step on this rank's tile x (its dp share
+    cut over lat and lon): the ConvLSTM's cells on the tile by its route,
+    the UNet and the pix2pix generator through ``bundle.apply`` with the
+    mesh."""
+    if bundle.family != "LSTM":
+        def forward(params, state, x, rng):
+            return bundle.apply(params, state, x, training=True, rng=rng, mesh=mesh,
+                                tiles=True)
+        return forward
+    cfg = bundle.config
+    hoist = bundle.precompute_input_conv
+    cell, grads = _tile_cell(mesh), _tile_grads(mesh)
+
+    def forward(params, state, x, rng):
+        if cfg.remat and not hoist:
+            return convlstm_apply(params, x, cfg, cell_fn=cell, grads_fn=grads), state
+        return _per_cell_tiles(params, x, cfg, mesh, hoist), state
+    return forward
+
+
 def make_spatial_train_step(
     bundle: ModelBundle,
     normalizer: Normalizer,
@@ -316,48 +440,39 @@ def make_spatial_train_step(
     static: Optional[np.ndarray] = None,
 ) -> Callable:
     """The training step with the grid sharded over ``mesh`` (dp, lat,
-    lon): ``step(params, state, x_raw, y_raw, rng=None) -> (state,
-    metrics)``, x_raw (B, T, C, h, w) and y_raw (B, h, w) the whole raw
+    lon): ``step(params, state, x_raw, y_raw, rng=None) -> (new_state,
+    metrics)``, x_raw (B, [T,] C, h, w) and y_raw (B, h, w) the whole raw
     global batch on every rank (tensors or numpy).  Every rank prepares the
-    whole batch, takes its dp share and its tile, runs the cells on the
-    tile by ``bundle.config``'s route and the 1x1 head, and sums its part
-    of the loss; one all-reduce of gradients, loss and R^2's statistics
-    (``reduce_gradients``), then the same Adam update of ``params`` in
-    place on every rank.  ``metrics`` are the global batch's ``loss`` and
-    ``r2``, as device scalars.  Every rank of the mesh calls it.
+    whole batch, takes its dp share and its tile, runs the model on the
+    tile (``_tile_forward``) and sums its part of the loss; one all-reduce
+    of gradients, loss and R^2's statistics (``reduce_gradients``), then the
+    same Adam update of ``params`` in place on every rank.  ``metrics`` are
+    the global batch's ``loss`` and ``r2``, as device scalars; the new
+    state (the UNet's running statistics) is the same on every rank.
+    ``rng`` draws pix2pix's dropout masks, the same on every rank.  Every
+    rank of the mesh calls it.
 
-    The ConvLSTM family only, without the hoisted input conv (its conv over
-    all frames would need halos of its own); the 1x1 head is local."""
-    if bundle.family != "LSTM":
-        raise ValueError(f"the spatially sharded step trains the ConvLSTM family, not "
-                         f"{bundle.family}")
-    if bundle.precompute_input_conv:
-        raise ValueError("the spatially sharded step runs without precompute_input_conv")
+    Every family of the registry: the ConvLSTM on its route (whole-scan
+    BPTT with ``remat``, else the per-cell route, with or without the
+    hoisted input conv), the UNet and the pix2pix generator on tiles with
+    the gather rule (parallel/halo.py).  The padded grid must split evenly
+    over lat and lon."""
     padded_shape = tuple(padded_shape or grid_shape)
     _check_tiles(padded_shape, mesh)
-    cfg = bundle.config
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
-    cell, grads = _tile_cell(mesh), _tile_grads(mesh)
+    forward = _tile_forward(bundle, mesh)
+    lat = 2 if bundle.is_sequence else 1
     (tr, tc), (gr, gc) = _crop_window(padded_shape, grid_shape, mesh)
 
     def train_step(params, state, x_raw, y_raw, rng=None):
         dev = mesh.device
         x, y = preprocess(torch.as_tensor(x_raw, device=dev), torch.as_tensor(y_raw, device=dev))
-        x = _tile(x, mesh, 2, 0).contiguous()
+        x = _tile(x, mesh, lat, 0).contiguous()
         y = _tile(y, mesh, batch_axis=0)
         count = y.numel()  # the dp share's pixels of the cropped grid
         y = y[:, gr, gc]
         optimizer.zero_grad(set_to_none=True)
-        if cfg.remat:
-            pred = convlstm_apply(params, x, cfg, cell_fn=cell, grads_fn=grads)
-        else:
-            # the f32 kernels, so each tile's weight gradient stays f32 until
-            # the all-reduce sums it; each cast to the compute dtype once
-            kernels = combined_cells(params, torch.float32)
-            low = {id(w): w.detach().to(cfg.torch_dtype) for w, _ in kernels}
-            pred = convlstm_apply(
-                params, x, cfg, weights={"cells": kernels},
-                cell_fn=lambda xh, c, w, b: _TileCell.apply(xh, c, w, b, mesh, low[id(w)]))
+        pred, new_state = forward(params, state, x, rng)
         pred = pred[:, tr, tc, 0]
         d = y - pred
         loss = (torch.sum(d * d) + torch.sum(torch.abs(d))) / count
@@ -365,7 +480,7 @@ def make_spatial_train_step(
         with torch.no_grad():
             loss, stats = reduce_gradients(params, loss, r2_stats(y, pred), mesh)
         optimizer.step()
-        return state, {"loss": loss, "r2": r2_from_stats(stats)}
+        return new_state, {"loss": loss, "r2": r2_from_stats(stats)}
 
     return train_step
 
@@ -382,12 +497,12 @@ def make_spatial_eval_step(
 ) -> Callable:
     """The eval step with the grid sharded: ``step(params, state, x_raw,
     y_raw) -> (per-sample R^2 of the global batch, pred)``, the whole raw
-    batch on every rank; the forward is ``convlstm_apply_sharded``, its
-    tiles gathered over lat and lon and cropped, pred this rank's dp share
+    batch on every rank; the forward runs on the tile (the ConvLSTM's
+    ``convlstm_apply_sharded``, with the hoist if the bundle has it; the
+    UNet, normalizing by the running statistics of ``state``, and the
+    pix2pix generator through ``bundle.apply`` with the mesh), its tiles
+    gathered over lat and lon and cropped, pred this rank's dp share
     (normalized, or in physical units when ``unnormalize``)."""
-    if bundle.family != "LSTM":
-        raise ValueError(f"the spatially sharded step evaluates the ConvLSTM family, not "
-                         f"{bundle.family}")
     padded_shape = tuple(padded_shape or grid_shape)
     _check_tiles(padded_shape, mesh)
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
@@ -395,9 +510,15 @@ def make_spatial_eval_step(
     def eval_step(params, state, x_raw, y_raw):
         dev = mesh.device
         x, y = preprocess(torch.as_tensor(x_raw, device=dev), torch.as_tensor(y_raw, device=dev))
-        tile = convlstm_apply_sharded(params, x, bundle.config, mesh)[..., 0]
-        pred = crop_to_grid(gather_tiles(tile, mesh, lat_axis=1, lon_axis=2, batch_axis=None),
-                            grid_shape)
+        if bundle.family == "LSTM":
+            tile = convlstm_apply_sharded(params, x, bundle.config, mesh,
+                                          precompute_input_conv=bundle.precompute_input_conv)
+        else:
+            with torch.no_grad():
+                tile, _ = bundle.apply(params, state, _tile(x, mesh, 1, 0).contiguous(),
+                                       training=False, mesh=mesh, tiles=True)
+        pred = crop_to_grid(gather_tiles(tile[..., 0], mesh, lat_axis=1, lon_axis=2,
+                                         batch_axis=None), grid_shape)
         scores = gather_axis(per_sample_r2_score(_tile(y, mesh, batch_axis=0), pred), mesh,
                              "dp", 0)
         return scores, normalizer.unnormalize_y(pred) if unnormalize else pred

@@ -365,9 +365,12 @@ def fit(
     mesh: one all-reduce of the gradients per step), and validation splits
     each batch over the ranks and gathers the scores.  On a (dp, lat, lon)
     mesh cut over lat or lon every rank takes the whole global batch and
-    the step cuts its dp share and its tile (the spatially sharded step);
-    validation runs ``convlstm_apply_sharded``.  Rank 0 alone prints and
-    writes the checkpoints and the logger.
+    the step cuts its dp share and its tile (the spatially sharded step,
+    every family: the ConvLSTM on its route, the hoist included, the UNet
+    with its running statistics carried from step to step, the pix2pix
+    generator); validation runs on the tiles too
+    (``make_spatial_eval_step``).  Rank 0 alone prints and writes the
+    checkpoints and the logger.
 
     ``config.checkpoint_backend`` "orbax" saves through
     ``checkpoint_async.AsyncCheckpointer`` under ``<snapshot_dir>/orbax``

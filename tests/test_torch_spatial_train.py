@@ -25,6 +25,8 @@ the same loss (a leaf summed over the tiles twice, or a wrong dp divisor,
 is off by O(1)); the epoch of ``fit`` against the single-device ``fit``, loss and R^2 rtol 1e-5,
 parameters atol 1e-6."""
 
+import types
+
 import numpy as np
 import pytest
 
@@ -265,25 +267,31 @@ def test_fit_over_a_spatial_mesh_matches_one_device(step_world, tmp_path):
         np.testing.assert_allclose(a, b.detach().numpy(), rtol=0, atol=1e-6)
 
 
-def test_spatial_step_refuses_other_families_and_the_hoist():
-    mesh = object()  # refused before the mesh is read
+@pytest.mark.parametrize("dims", [(1, 3, 1), (1, 1, 3), (1, 2, 3)], ids=_ids)
+def test_spatial_step_refuses_a_grid_it_cannot_tile(dims):
+    """Every family is taken, but the padded 20 x 28 grid must split evenly
+    over lat and lon: 3 rows or columns of tiles are refused before the
+    mesh's groups are read."""
+    mesh = types.SimpleNamespace(dp=dims[0], lat=dims[1], lon=dims[2])
     norm = Normalizer(np.zeros(5, np.float32), np.ones(5, np.float32), 0.0, 1.0)
     for bundle in (build_model("UNet-t", in_channels=5, unet_features=(4, 8, 16, 32)),
+                   build_model("PIX2PIX-t", in_channels=5, pix2pix_features=4),
                    build_model("LSTM-t", precompute_input_conv=True, **MODEL)):
-        with pytest.raises(ValueError, match="ConvLSTM family|precompute_input_conv"):
+        with pytest.raises(ValueError, match="does not tile evenly"):
             make_spatial_train_step(bundle, norm, None, mesh, **GEO)
 
 
 def test_chip_smoke_two_rank_spatial_phase_on_gloo():
     """chip_smoke.py's two-rank spatial phase (which the card's machine runs
     only with two cards) on two CPU ranks at a small size, f32: the (1, 1,
-    2) and (1, 2, 1) sharded steps on both routes against the one-device
-    step."""
+    2) and (1, 2, 1) sharded steps on the remat, per-cell and hoisted
+    routes and the UNet's (f64) against the one-device step."""
     import chip_smoke
 
     out = launch.spawn(chip_smoke.two_rank_spatial_phase, 2, "cpu", dict(
         grid=GRID, padded=PADDED, hidden=(8, 4), kernels=(5, 3), bs=4, T=4,
         dtype="float32"), timeout=300)
-    assert len(out[0]) == 4 and out[1] == {}
+    assert len(out[0]) == 8 and out[1] == {}
     for key, v in out[0].items():
         assert v["loss_rel"] <= 1e-5 and v["grad_rel"] <= 1e-4, (key, v)
+        assert v.get("state_rel", 0.0) <= 1e-6, (key, v)

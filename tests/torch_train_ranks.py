@@ -153,3 +153,58 @@ def stateful_dp_world(rank, case):
     except ValueError as e:
         out["gan_refused"] = str(e)
     return out
+
+
+def spatial_families_world(rank, case):
+    """Every check of tests/test_torch_spatial_families.py on one world of
+    four ranks: for each (name, dims) of ``case["runs"]`` the spatially
+    sharded eval step (from the initial weights) and one training step of
+    the model ``case[name]`` on a ``dims`` mesh (``family_step``); then
+    one epoch of ``fit`` of a UNet over a (1, 2, 2) mesh."""
+    out = {}
+    for name, dims in case["runs"]:
+        out[(name, dims)] = family_step(make_mesh(*dims), case[name], case["opt"])
+    from nasa_niswan_tpu_torch.data.dataset import SingleStepDataset
+    from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d
+    from nasa_niswan_tpu_torch.train.config import TrainConfig
+    from nasa_niswan_tpu_torch.train.loop import fit
+
+    f = case["fit"]
+    data = synthetic_e33oma_90d(**f["data"])
+    ds, val = (SingleStepDataset(data, period=p) for p in ("train", "val"))
+    bundle = build_model(f["config"]["model"], **f["kw"])
+    res = fit(bundle, ds, val, TrainConfig(**f["config"]), device="cpu",
+              mesh=make_mesh(*f["dims"]), init_params=_trainable(f["params"]),
+              init_state=bridge.params_from_jax(f["state"]), verbose=False)
+    out["fit"] = dict(logger=res["logger"], params=[_np(t) for t in param_leaves(res["params"])],
+                      state=[_np(t) for t in bridge.tree_leaves(res["state"])])
+    return out
+
+
+def family_step(mesh, c, opt):
+    """The sharded eval step's per-sample scores at the initial weights,
+    then one sharded training step of ``c["model"]`` from them on the
+    global batch (weights, state and batch in ``c["dtype"]``; dropout drawn
+    from a generator seeded ``c["seed"]``, or off for None): its loss, R^2,
+    the parameters after it, their all-reduced gradients and the new
+    state."""
+    from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_eval_step
+
+    f64 = c["dtype"] == "float64"
+    cast = (lambda t: t.double()) if f64 else (lambda t: t)
+    bundle = build_model(c["model"], **c["kw"])
+    params = bridge.tree_map(cast, bridge.params_from_jax(c["params"]))
+    for t in param_leaves(params):
+        t.requires_grad_(True)
+    state = None if c["state"] is None else bridge.tree_map(
+        cast, bridge.params_from_jax(c["state"]))
+    norm = Normalizer(*c["norm"])
+    x, y = (a.astype(np.float64) if f64 else a for a in c["batch"])
+    scores, _ = make_spatial_eval_step(bundle, norm, mesh, **c["geo"])(params, state, x, y)
+    step = make_spatial_train_step(bundle, norm, make_optimizer(params, *opt), mesh, **c["geo"])
+    rng = None if c["seed"] is None else torch.Generator().manual_seed(c["seed"])
+    new_state, m = step(params, state, x, y, rng)
+    return dict(loss=m["loss"].item(), r2=m["r2"].item(), scores=_np(scores),
+                params=[_np(t) for t in param_leaves(params)],
+                grads=[_np(t.grad) for t in param_leaves(params)],
+                state=[_np(t) for t in bridge.tree_leaves(new_state)])
