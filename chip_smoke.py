@@ -245,7 +245,28 @@ Phases, each printing its own lines:
       torch_bench_ncread.py (8 steps a day: native == scipy) and
       profile_torch_train_step.py (the remat route on a 240-step fixture:
       its traced step exactly 3 x 48 B1 and B2 (a) launches); every time
-      finite and positive.
+      finite and positive;
+  (w) run right after (h): training as CUDA graphs.  Every training step
+      above, (g)-(u), is a graph replay (train/graph.py), each phase
+      printing its eager body's (``step.eager``) ms/step beside the
+      replay's; here each step function from one set of weights, 4 calls
+      graphed (an eager step and the capture, then replays) against 4
+      calls of its eager body, the lr changed before call 3: the remat,
+      per-cell and hoisted canonical steps, config #2 (C = 62) and config
+      #3 (both routes, draws from a seeded CPU generator) bit-equal in
+      parameters, Adam's step and moments, state and metrics; the UNet,
+      the pix2pix generator and the GAN step (cuDNN's deterministic
+      algorithms selected) within TOL_T_UNET per leaf; one capture each;
+      on the remat step an async save before call 3 and a restore before
+      call 5 (one recapture), a serving graph captured after call 1 that
+      sees the weights of replays 2-4 (the version bump), and one replay
+      under the profiler: B1, B2 (a), dW and B3 launches by kernel name
+      equal to the runner's counters, each kernel's ms per launch; the
+      eval steps bit-equal; the DP step and the sharded remat, per-cell,
+      hoisted, UNet and pix2pix steps on a one-rank NCCL group (the
+      all-reduce and the halo path captured); per step function replay
+      host ms/step, its device span (CUDA events), eager ms/step and peak
+      memory; the dp = 2 and (1, 1, 2) replays only with two cards.
 
 Then one JSON line describing each kernel (launches summed over the counted
 main-path runs, a launch with two modes on counted once; the largest error
@@ -264,6 +285,7 @@ also exits non-zero when no CUDA device is visible.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -361,7 +383,9 @@ from nasa_niswan_tpu_torch.train.loop import (
     make_loss_fn,
     make_optimizer,
     make_train_step,
+    set_learning_rate,
 )
+from nasa_niswan_tpu_torch.train.graph import optimizer_leaves
 
 SEED = 0
 C = 3 * 20 + 2  # 20-level fusion: u/v/omega per level + prec + emission
@@ -1028,6 +1052,27 @@ def _copies() -> tuple:
     return tuple(getattr(pipeline, name) for name in COPY_COUNTERS)
 
 
+def _event_ms(fn) -> float:
+    """The device span of ``fn()`` in ms, between CUDA events around it."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def _host_ms(fn, n: int = 2) -> float:
+    """Host-clock ms of ``fn()`` (synchronised), the mean of ``n`` calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1000 * (time.perf_counter() - t0) / n
+
+
 def _train_run(step, params, n_steps, order):
     """n_steps optimizer steps on the windows of ``order``; returns the
     seconds (host clock, synchronised) and the last metrics."""
@@ -1071,15 +1116,19 @@ def phase_train(device) -> dict:
         build_model("LSTM-smoke", **dict(kw, compute_dtype=dtype),
                     **(EAGER if eager else {})), GRID)(params, None, x, y)[0])
 
-    # warm-up step (allocator growth, kernel library load), then the counted run
+    # the first call (an eager step on the capture stream, then the capture:
+    # allocator growth, kernel library load), then the counted run of replays;
+    # the peak covers both, the capture's private pool included
+    torch.cuda.reset_peak_memory_stats()
     _train_run(step, params, 1, order)
+    peak_first = torch.cuda.max_memory_allocated()
     _train_run(step_p, params_p, 1, order)
     torch.cuda.reset_peak_memory_stats()
     _set_counts(0)
     t_kernel, metrics = _train_run(step, params, TRAIN_STEPS, order[TRAIN_BS:])
     want = len(HIDDEN) * TRAIN_T * TRAIN_STEPS
     _expect_counts("[g] remat route", convlstm_cell=want, cell_bwd=want, conv_same=want)
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak_first, torch.cuda.max_memory_allocated())
     print(f"[g] {TRAIN_STEPS} training steps (bs {TRAIN_BS}, T {TRAIN_T}, bf16): "
           f"loss {metrics['loss'].item():.5f}, R2 {metrics['r2'].item():.4f}, "
           f"peak memory {peak / 2**30:.2f} GiB")
@@ -1089,8 +1138,11 @@ def phase_train(device) -> dict:
     t_plain, metrics_p = _train_run(step_p, params_p, TRAIN_STEPS, order[TRAIN_BS:])
     check(bool(torch.isfinite(metrics_p["loss"])), "non-finite plain-path loss")
     print(f"[g] plain path, same steps: loss {metrics_p['loss'].item():.5f}")
+    # the eager body of the graphed step, same windows (three more steps)
+    t_eager = _train_run(step.eager, params, TRAIN_STEPS, order[TRAIN_BS:])[0]
     phase_cli(device)
-    return {"t_kernel": t_kernel, "t_plain": t_plain, "peak": peak, "init": init,
+    return {"t_kernel": t_kernel, "t_plain": t_plain, "t_eager": t_eager, "peak": peak,
+            "init": init,
             "kw": kw, "src": src, "ds": ds, "geo": geo, "order": order,
             "xy": (x, y), "make_step": make_step}
 
@@ -1223,8 +1275,8 @@ def phase_per_cell(device, train) -> dict:
     bundle = build_model("LSTM-smoke", remat=False, **kw)
     params = _copy_params(train["init"])
     step = train["make_step"](bundle, params)
-    _train_run(step, params, 1, order)  # warm-up
     torch.cuda.reset_peak_memory_stats()
+    _train_run(step, params, 1, order)  # warm-up: an eager step, then the capture
     _set_counts(0)
     t, metrics = _train_run(step, params, TRAIN_STEPS, order[TRAIN_BS:])
     n = len(HIDDEN) * TRAIN_T * TRAIN_STEPS
@@ -1235,8 +1287,10 @@ def phase_per_cell(device, train) -> dict:
     check(bool(torch.isfinite(metrics["loss"])), "non-finite per-cell loss")
     check(all(bool(torch.isfinite(p).all()) for p in param_leaves(params)),
           "non-finite per-cell parameters")
+    t_eager = _train_run(step.eager, params, TRAIN_STEPS, order[TRAIN_BS:])[0]
     print(f"[j] {TRAIN_STEPS} steps (bs {TRAIN_BS}, T {TRAIN_T}, bf16): loss "
-          f"{metrics['loss'].item():.5f}; {1000 * t / TRAIN_STEPS:.1f} ms/step "
+          f"{metrics['loss'].item():.5f}; {1000 * t / TRAIN_STEPS:.1f} ms/step graph "
+          f"replays, eager body {1000 * t_eager / TRAIN_STEPS:.1f} "
           f"(remat route, (h): {1000 * train['t_kernel'] / TRAIN_STEPS:.1f}), "
           f"peak memory {peak / 2**30:.2f} GiB (remat route: "
           f"{train['peak'] / 2**30:.2f} GiB)")
@@ -1291,7 +1345,9 @@ def phase_hoist(device, serve, train, smi) -> dict:
     _expect_counts("[k] hoisted training step", convlstm_cell_gates=m,
                    conv_same=m, conv_dw=m + 1)
     check(bool(torch.isfinite(metrics["loss"])), "non-finite hoisted loss")
-    print(f"[k] hoisted training step: {1000 * t_step:.1f} ms/step (remat route, "
+    t_eager = _train_run(step.eager, p_train, 1, order[TRAIN_BS:])[0]
+    print(f"[k] hoisted training step: {1000 * t_step:.1f} ms/step graph replay, eager "
+          f"body {1000 * t_eager:.1f} (remat route, "
           f"(h): {1000 * train['t_kernel'] / TRAIN_STEPS:.1f}), loss "
           f"{metrics['loss'].item():.5f}")
     x, y = train["xy"]
@@ -1369,9 +1425,12 @@ def phase_seq2seq(device, smi) -> dict:
         _expect_counts(f"[l] {route} route", **want[remat])
         losses[remat] = ls
         check(all(np.isfinite(ls)), f"[l] {route}: non-finite loss {ls}")
+        replay = _host_ms(lambda: step(params, *batches[1]))
+        eager = _host_ms(lambda: step.eager(params, *batches[1]))
         print(f"[l] {route} route: losses {ls}, "
-              f"{1000 * times[remat] / S2S_STEPS:.1f} ms/step (bs {TRAIN_BS}, T {TRAIN_T}, "
-              f"C={S2S_C}, bf16) on {smi}")
+              f"{1000 * times[remat] / S2S_STEPS:.1f} ms/step (the first an eager step and "
+              f"the capture); a replay {replay:.1f} ms, the eager body {eager:.1f} ms "
+              f"(bs {TRAIN_BS}, T {TRAIN_T}, C={S2S_C}, bf16) on {smi}")
     d = [abs(a - b) / abs(b) for a, b in zip(losses[False], losses[True])]
     print(f"[l] per-cell vs whole-chunk BPTT losses: relative |d| {d} (step 1 <= "
           f"1e-5: the same forward; step 2 <= {TOL_S2S_STEP2:g}: bf16 rounds the "
@@ -1642,8 +1701,8 @@ def phase_config2(device, smi, stats) -> dict:
                 build_model("LSTM-c2", remat=remat, **kw), ds.normalizer,
                 make_optimizer(params, 1e-3, (0.5, 0.999)), src,
                 padded_shape=PADDED, grid_shape=GRID)
-            _train_run(step, params, 1, order)  # warm-up
             torch.cuda.reset_peak_memory_stats()
+            _train_run(step, params, 1, order)  # warm-up: an eager step, then the capture
             _set_counts(0)
             t, metrics = _train_run(step, params, TRAIN_STEPS, order[TRAIN_BS:])
             _expect_counts(f"[m] config #2, {route} route", **want[remat])
@@ -1652,10 +1711,11 @@ def phase_config2(device, smi, stats) -> dict:
             check(all(bool(torch.isfinite(p).all()) for p in param_leaves(params)),
                   f"[m] {route}: non-finite parameters")
             times[route] = t
+            eager = _host_ms(lambda: step.eager(params, None, order[:TRAIN_BS]))
             print(f"[m] config #2 {route} route, {TRAIN_STEPS} steps (bs {TRAIN_BS}, T "
                   f"{TRAIN_T}, C={C}, bf16): loss {metrics['loss'].item():.5f}, "
-                  f"{1000 * t / TRAIN_STEPS:.1f} ms/step, peak memory {peak / 2**30:.2f} GiB "
-                  f"on {smi}")
+                  f"{1000 * t / TRAIN_STEPS:.1f} ms/step graph replays, eager body "
+                  f"{eager:.1f}, peak memory {peak / 2**30:.2f} GiB on {smi}")
             grad_check(f"[m] config #2, {route} route", params,
                        lambda dtype, eager, remat=remat: make_loss_fn(build_model(
                            "LSTM-c2", remat=remat, **dict(kw, compute_dtype=dtype),
@@ -1837,11 +1897,13 @@ def phase_streamed(device, smi) -> dict:
             step(params_s, None, *b)
         torch.cuda.synchronize()
         t_staged = time.perf_counter() - tic
+        eager = _host_ms(lambda: step.eager(params_s, None, *staged[0]))
         frac = wait / t_stream
         print(f"[n] streamed from the lazy netCDF tree: {1000 * t_stream / n:.1f} ms/step, "
               f"host_input_wait_frac {frac:.4f}; the same batches staged on the card: "
-              f"{1000 * t_staged / len(staged):.1f} ms/step ({n} steps, bs {TRAIN_BS}, "
-              f"T {TRAIN_T}, C={TRAIN_C}, bf16) on {smi}")
+              f"{1000 * t_staged / len(staged):.1f} ms/step (graph replays; the eager body "
+              f"{eager:.1f}) ({n} steps, bs {TRAIN_BS}, T {TRAIN_T}, C={TRAIN_C}, bf16) "
+              f"on {smi}")
         return {"stream_ms": 1000 * t_stream / n, "staged_ms": 1000 * t_staged / len(staged),
                 "host_input_wait_frac": frac}
     finally:
@@ -2325,20 +2387,25 @@ def phase_single_step(device, smi) -> None:
         opt = make_optimizer(out["params"], 1e-3, (0.5, 0.999))
         step = make_train_step(unet, train5.normalizer, opt, padded_shape=R_PADDED,
                                grid_shape=GRID)
-        state = _timed_epochs(step, out["params"], out["state"], train5, device, 1)[3]
+        # the peak covers the first epoch's capture (the graph's private pool)
         torch.cuda.reset_peak_memory_stats(device)
+        state = _timed_epochs(step, out["params"], out["state"], train5, device, 1)[3]
         ms, frac, n, state = _timed_epochs(step, out["params"], state, train5, device,
                                            R_TIMED_EPOCHS)
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         it = async_batches(train5, R_BS, shuffle=False, device=device)
         batch = next(it)
         it.close()
-        dev_ms, names = _profile(lambda: [step(out["params"], state, *batch)
+        # the eager body under the profiler (the same kernels as a replay; a
+        # profiler late in a long process can miss a replay's kernels, (v))
+        dev_ms, names = _profile(lambda: [step.eager(out["params"], state, *batch)
                                           for _ in range(2)])
+        eager = _host_ms(lambda: step.eager(out["params"], state, *batch))
         conv, total, top = _conv_share(names)
         bound = least_time(3 * R_BS * gflop * 1e9, 0, torch.float32)[0]
         print(f"[r] UNet training (fit's step, Adam lr 1e-3 betas (0.5, 0.999), MSE + L1 "
-              f"on the cropped map): {ms:.1f} ms/step over {n} steps, "
+              f"on the cropped map): {ms:.1f} ms/step over {n} steps (graph replays; the "
+              f"eager body {eager:.1f}), "
               f"host_input_wait_frac {frac:.4f}, peak memory {peak:.2f} GiB; device "
               f"{dev_ms / 2:.1f} ms/step (profiler kernel sum), conv kernels "
               f"{conv / 2:.1f} ms/step ({100 * conv / total:.1f}%); FP32 bound of "
@@ -2420,17 +2487,20 @@ def phase_single_step(device, smi) -> None:
         popt = make_optimizer(pout["params"], 1e-3, (0.5, 0.999))
         pstep = make_train_step(pix, train5.normalizer, popt, padded_shape=R_PADDED,
                                 grid_shape=GRID)
-        _timed_epochs(pstep, pout["params"], None, train5, device, 1, rng=gen)
         torch.cuda.reset_peak_memory_stats(device)
+        _timed_epochs(pstep, pout["params"], None, train5, device, 1, rng=gen)
         ms, frac, n, _ = _timed_epochs(pstep, pout["params"], None, train5, device,
                                        R_TIMED_EPOCHS, rng=gen)
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         check(all(torch.isfinite(t).all() for t in tree_leaves(pout["params"])) and not all(
             torch.equal(a, b) for a, b in zip(g_leaves, tree_leaves(pout["params"]))),
             "[r] pix2pix training did not move the generator")
+        pb = tuple(torch.as_tensor(np.stack(a), device=device) for a in (xs, ys))
+        eager = _host_ms(lambda: pstep.eager(pout["params"], None, *pb, rng=gen))
         print(f"[r] pix2pix generator training (features {R_PIX_FEATS}, bs {R_BS}, dropout "
               f"on): fit "
-              f"logger {pout['logger']}; {ms:.1f} ms/step over {n} steps, "
+              f"logger {pout['logger']}; {ms:.1f} ms/step over {n} steps (graph replays; "
+              f"the eager body {eager:.1f}), "
               f"host_input_wait_frac {frac:.4f}, peak memory {peak:.2f} GiB on {smi}")
         del popt, pstep
 
@@ -2447,15 +2517,16 @@ def phase_single_step(device, smi) -> None:
         x, y = prep(np.stack(xs), np.stack(ys))
         x = x.to(device)
         y = torch.movedim(pad_geo(y[:, None], R_PADDED), 1, -1).to(device)
-        gan(g_params, d_params, x, y, gen)  # warm-up
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
+        gan(g_params, d_params, x, y, gen)  # warm-up: an eager step, then the capture
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(R_GAN_STEPS):
             metrics = gan(g_params, d_params, x, y, gen)
         torch.cuda.synchronize()
         ms = 1000 * (time.perf_counter() - t0) / R_GAN_STEPS
         peak = torch.cuda.max_memory_allocated(device) / 2**30
+        eager = _host_ms(lambda: gan.eager(g_params, d_params, x, y, gen))
         vals = {k: v.item() for k, v in metrics.items()}
         after = tree_leaves((g_params, d_params))
         n_g = len(tree_leaves(g_params))
@@ -2465,8 +2536,8 @@ def phase_single_step(device, smi) -> None:
               f"[r] GAN step {vals}: a network did not move")
         print(f"[r] GAN step (generator features {R_PIX_FEATS}, PatchGAN {R_FEATS}, bs {R_BS}, "
               f"{R_PADDED[0]}x{R_PADDED[1]}): losses {vals}, both networks moved; "
-              f"{ms:.1f} ms/step over {R_GAN_STEPS} steps, peak memory {peak:.2f} GiB "
-              f"on {smi}")
+              f"{ms:.1f} ms/step over {R_GAN_STEPS} steps (graph replays; the eager body "
+              f"{eager:.1f}), peak memory {peak:.2f} GiB on {smi}")
         del gan, g_params, d_params, pout, x, y
         torch.cuda.empty_cache()
 
@@ -3069,26 +3140,29 @@ def _spatial_steps(device, train, mesh, smi) -> None:
         for name, make in (("sharded", sharded), ("single-device", one)):
             p = _copy_params(init)
             step = make(bundle, p)
-            step(p, None, *batches[0])  # warm-up: Adam's state, allocator growth
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            # warm-up: Adam's state, allocator growth, the capture
+            step(p, None, *batches[0])
             _set_counts(0)
             ms, m = _timed_host(step, p, batches[1:])
             counts[name] = _expect_counts(f"[t] {name} step, {route} route", **want)
             peak = torch.cuda.max_memory_allocated() / 2**30
-            dev_ms, _ = _profile(lambda: step(p, None, *batches[1]))
+            dev_ms = _event_ms(lambda: step(p, None, *batches[1]))
+            eager, _ = _timed_host(step.eager, p, batches[1:])
             check(bool(torch.isfinite(m["loss"])), f"[t] {name} {route} loss")
-            times[name] = (ms, dev_ms, peak)
+            times[name] = (ms, dev_ms, peak, eager)
             del p, step
             torch.cuda.empty_cache()
         check(counts["sharded"] == counts["single-device"],
               f"[t] {route} launches: sharded {counts['sharded']} vs single-device "
               f"{counts['single-device']}")
-        (a, da, pa), (b, db, pb) = times["sharded"], times["single-device"]
+        (a, da, pa, ea), (b, db, pb, eb) = times["sharded"], times["single-device"]
         print(f"[t] {route} route (bs {TRAIN_BS}, T {TRAIN_T}, C={TRAIN_C}, bf16), "
-              f"{T_STEPS} steps: sharded (1 rank) {a:.1f} ms/step host clock, {da:.1f} ms "
-              f"device (profiler kernel sum), peak {pa:.2f} GiB; single-device {b:.1f} "
-              f"ms/step, {db:.1f} ms device, peak {pb:.2f} GiB on {smi}")
+              f"{T_STEPS} steps: sharded (1 rank) {a:.1f} ms/step host clock (graph "
+              f"replays; eager body {ea:.1f}), {da:.1f} ms device (a replay's CUDA-event "
+              f"span), peak {pa:.2f} GiB; single-device {b:.1f} ms/step (eager body "
+              f"{eb:.1f}), {db:.1f} ms device, peak {pb:.2f} GiB on {smi}")
 
 
 def _b2_alone(device, gen, shape, tag0, **extra) -> dict:
@@ -3321,6 +3395,8 @@ def _unet_dp_step(device, mesh, smi) -> None:
                                      else None, **geo))
         step(p, s0, *batches[0])  # warm-up
         ms[name], _ = _timed_host(lambda q, _s, x, y: step(q, s0, x, y), p, batches[1:])
+        ms[name, "eager"], _ = _timed_host(lambda q, _s, x, y: step.eager(q, s0, x, y), p,
+                                           batches[1:])
         del p, step
     f64 = {k: max(e[k].values()) for k in ("f64_dp", "f64_one", "f64_d", "f64_sp", "f64_sp_d")}
     dp, one = e["err_dp"], e["err_one"]
@@ -3340,7 +3416,8 @@ def _unet_dp_step(device, mesh, smi) -> None:
           + f"; running statistics per leaf {e['state']:.3e} (tol {TOL_T_UNET:g}); conv "
           f"biases ahead of BatchNorm |g| / max |g| {e['noise']:.3e} (<= 1e-6); "
           f"dp {ms['dp']:.1f}, sharded {ms['sp']:.1f} vs single-device {ms['one']:.1f} "
-          f"ms/step (host clock, f32) on {smi}")
+          f"ms/step (host clock, f32, graph replays; eager bodies {ms['dp', 'eager']:.1f}, "
+          f"{ms['sp', 'eager']:.1f}, {ms['one', 'eager']:.1f}) on {smi}")
     check(max(f64.values()) <= TOL_T_UNET and max(e["state"], e["state_sp"]) <= TOL_T_UNET
           and e["noise"] <= 1e-6
           and max(abs(e["loss_dp"] - e["loss_one"]), abs(e["loss_sp"] - e["loss_one"]))
@@ -3391,6 +3468,8 @@ def _pix2pix_spatial_step(device, mesh, smi) -> None:
         rng = torch.Generator(device=device).manual_seed(SEED)
         step(p, None, *batches[0], rng)  # warm-up
         ms[name], m = _timed_host(lambda q, _s, x, y: step(q, None, x, y, rng), p, batches[1:])
+        ms[name, "eager"], _ = _timed_host(lambda q, _s, x, y: step.eager(q, None, x, y, rng),
+                                           p, batches[1:])
         check(bool(torch.isfinite(m["loss"])), f"[t] pix2pix {name} loss")
         del p, step
     print(f"[t] pix2pix generator, spatially sharded step (1 rank; features {R_PIX_FEATS}, "
@@ -3398,7 +3477,8 @@ def _pix2pix_spatial_step(device, mesh, smi) -> None:
           f"single-device step: f64 gradients per leaf max |d g| / max |g| {max(rel):.3e} "
           f"(tol {TOL_T_UNET:g}); f32 {max(rel32):.3e} (printed); f32 loss {l_sp:.6f} vs "
           f"{l_one:.6f}; sharded {ms['sp']:.1f} vs single-device {ms['one']:.1f} ms/step "
-          f"(host clock, f32) on {smi}")
+          f"(host clock, f32, graph replays; eager bodies {ms['sp', 'eager']:.1f}, "
+          f"{ms['one', 'eager']:.1f}) on {smi}")
     check(max(rel) <= TOL_T_UNET and abs(l_sp - l_one) <= 1e-5 * abs(l_one),
           f"[t] pix2pix sharded step: gradients {max(rel):.3e}, loss {l_sp} vs {l_one}")
     torch.cuda.empty_cache()
@@ -3577,6 +3657,47 @@ def two_rank_spatial_phase(rank: int, size: dict) -> dict:
     return out
 
 
+def two_rank_replay_phase(rank: int, size: dict) -> dict:
+    """(w) on two ranks, one device each: the data-parallel (dp = 2, each
+    rank its half of the batch) and the spatially sharded (1, 1, 2) remat
+    steps, three calls of each (on a card an eager step and the capture,
+    then replays: NCCL's all-reduce and the halo messages inside the
+    graph) against three calls of its eager body from the same weights.
+    Whether losses and parameters are bit-equal, on every rank."""
+    from nasa_niswan_tpu_torch.parallel.mesh import make_mesh
+    from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
+
+    grid, padded, T = tuple(size["grid"]), tuple(size["padded"]), size["T"]
+    data = synthetic_e33oma_90d(T=2 * T + 8, H=grid[0], W=grid[1], seed=SEED)
+    ds = SequenceDataset(data, period="train", sequence_length=T, in_channels=5)
+    idx = np.arange(size["bs"]) % len(ds)
+    x, y = (np.stack(a) for a in zip(*(ds[int(i)] for i in idx)))
+    geo = dict(padded_shape=padded, grid_shape=grid)
+    out = {}
+    for name, dims in (("dp = 2", (2,)), ("(1, 1, 2)", (1, 1, 2))):
+        mesh = make_mesh(*dims)
+        bundle = build_model("LSTM-rp2", in_channels=5, hidden_channels=tuple(size["hidden"]),
+                             kernel_sizes=tuple(size["kernels"]), compute_dtype=size["dtype"])
+        init, _ = bundle.init(torch.Generator().manual_seed(SEED), mesh.device)
+        h = x.shape[0] // 2
+        xb, yb = (x[rank * h:(rank + 1) * h], y[rank * h:(rank + 1) * h]) if len(dims) == 1 \
+            else (x, y)
+        runs = []
+        for eager in (False, True):
+            p = tree_map(lambda t: t.detach().clone().requires_grad_(True), init)
+            opt = make_optimizer(p, 1e-3, (0.5, 0.999))
+            step = (make_train_step(bundle, ds.normalizer, opt, mesh=mesh, **geo)
+                    if len(dims) == 1 else
+                    make_spatial_train_step(bundle, ds.normalizer, opt, mesh, **geo))
+            fn = step.eager if eager else step
+            losses = [fn(p, None, xb, yb)[1]["loss"].item() for _ in range(3)]
+            runs.append((losses, [t.detach().clone() for t in param_leaves(p)]))
+            del step, opt
+        (lg, pg), (le, pe) = runs
+        out[name] = lg == le and all(torch.equal(a, b) for a, b in zip(pg, pe))
+    return out
+
+
 # (u) configs #1-#4's campaigns at full width: only steps and epochs cut
 U_RUNS = (
     ("torch_run_northstar_year", ["--steps", "2880", "--block", "1440", "--chunk", "480"]),
@@ -3749,6 +3870,9 @@ def phase_campaigns(device, smi) -> None:
         print(f"[u] served chunks vs one rollout: max|d|/max {d:.3e}")
         check(np.isfinite(sv["preds"]).all() and d <= 1e-6, "[u] served chunks != rollout")
         _multihost(device)
+        print("[u] every training step of these runs is a graph replay (train/graph.py), "
+              "timed by the runs themselves; their eager bodies' ms/step are (h)'s, (j)'s, "
+              "(l)'s and (m)'s and (w)'s, on the same card")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3888,6 +4012,384 @@ def phase_profiles_fresh(smi) -> None:
 _T0 = time.perf_counter()
 
 
+# (w) training as CUDA graphs: each step function of the port from one set
+# of weights, W_CALLS calls graphed (the first an eager step and the
+# capture, the rest replays) against W_CALLS calls of its eager body; the
+# lr is set to W_LR before the third call (a StepLR change inside one
+# capture)
+W_CALLS = 4
+W_LR = 5e-4
+W_SERVE_T = 8  # steps of the serving request made before and after the replays
+
+
+def _free_graphs() -> None:
+    """Free the graphs (and their private pools) that went out of scope."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _w_copy(tree):
+    return tree_map(lambda t: t.detach().clone().requires_grad_(t.requires_grad), tree)
+
+
+def _w_err(got, want) -> float:
+    """max over leaves of max |g - w| / max |w|; 0.0 when every leaf is
+    bit-equal."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            d = (g.double() - w.double()).abs().max().item()
+            s = w.double().abs().max().item()
+            worst = max(worst, d / s if s else float("inf"))
+    return worst
+
+
+def _w_route(tag, make, call, init, smi, *, state=None, gen=None, tol=None, calls=W_CALLS,
+             captures=1, hook=None) -> dict:
+    """(w) one step function, graphed and eager, each from a copy of
+    ``init`` (and of the model ``state``): ``make(params) -> (step,
+    optimizers)``, ``call(fn, params, i, state, gen) -> (state, metrics)``
+    with ``fn`` the step or its ``.eager``; ``gen()`` makes the generator
+    the calls draw from.  ``hook(mode, params, optimizers, step, i)`` runs
+    before call i and, with i == calls, after the runs are compared.
+    Holds parameters, optimizer state (Adam's step and moments), model
+    state and metrics bit-equal (``tol`` None) or per leaf within ``tol``,
+    and the step's captures.  Returns host ms/step (graph, eager), the
+    replay's device span, peak GiB and the first call's host ms."""
+    runs, info, n_cap, captured = {}, {}, None, set()
+    for mode in ("graph", "eager"):
+        p = _w_copy(init)
+        step, opts = make(p)
+        g = None if gen is None else gen()
+        fn = step if mode == "graph" else step.eager
+        st = None if state is None else _w_copy(state)
+        _free_graphs()
+        torch.cuda.reset_peak_memory_stats()
+        host, span, metrics = [], [], []
+        for i in range(calls):
+            if i == 2:
+                for o in opts:
+                    set_learning_rate(o, W_LR)
+            if hook is not None:
+                hook(mode, p, opts, step, i)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            n0 = step.runner.captures
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            st, m = call(fn, p, i, st, g)
+            e1.record()
+            torch.cuda.synchronize()
+            host.append(1000 * (time.perf_counter() - t0))
+            span.append(e0.elapsed_time(e1))
+            metrics.append(m)
+            if step.runner.captures > n0:
+                captured.add(i)
+        # the calls that replayed (in both modes, the same calls)
+        kept = [i for i in range(calls) if i not in captured]
+        info[mode] = dict(host=float(np.mean([host[i] for i in kept])),
+                          span=float(np.mean([span[i] for i in kept])),
+                          peak=torch.cuda.max_memory_allocated() / 2**30, first=host[0])
+        runs[mode] = (
+            [t.detach().clone() for t in tree_leaves(p)]
+            + [t.clone() for o in opts for t in optimizer_leaves(o)],
+            [t.detach().clone() for t in tree_leaves(st)],
+            [torch.stack([m[k].float() for m in metrics]) for k in sorted(metrics[0])])
+        if hook is not None:
+            hook(mode, p, opts, step, calls)
+        if mode == "graph":
+            n_cap = step.runner.captures
+        del step, opts, p, st, fn, g, metrics
+    _free_graphs()
+    errs = [_w_err(a, b) for a, b in zip(runs["graph"], runs["eager"])]
+    held = max(errs) == 0.0 if tol is None else max(errs) <= tol
+    gi, ei = info["graph"], info["eager"]
+    print(f"[w] {tag}: {calls} calls graphed vs eager, lr {W_LR:g} from call 3: "
+          + ("bit-equal (parameters, Adam's step and moments, state, metrics)"
+             if max(errs) == 0.0 else
+             f"max |d| / max |eager| per leaf: parameters and Adam {errs[0]:.3e}, state "
+             f"{errs[1]:.3e}, metrics {errs[2]:.3e} (tol {tol})")
+          + f"; captures {n_cap} (want {captures}); ms/step replay {gi['host']:.2f} host, "
+          f"{gi['span']:.2f} device span (CUDA events), eager {ei['host']:.2f} host; first "
+          f"call (eager step + capture) {gi['first']:.1f} ms; peak {gi['peak']:.2f} GiB "
+          f"graphed, {ei['peak']:.2f} eager on {smi}")
+    check(held and n_cap == captures, f"[w] {tag}: errors {errs}, captures {n_cap}")
+    return info
+
+
+def _w_profile(step, p, batch, smi) -> None:
+    """(w) one replayed remat step under the profiler: B1, B2 (a), B2's dW
+    and B3 launches by kernel name equal to the runner's counters, and
+    each kernel's device time per launch under replay."""
+    step(p, None, batch)
+    torch.cuda.synchronize()
+    _set_counts(0)
+    _, names = _profile(lambda: step(p, None, batch))
+    runner = _counts()
+    by = {}
+    for key, (n, ms) in names.items():
+        if "cell_wgmma_kernel" in key or "cell_fp32_kernel" in key:
+            cls = "B2 (a)" if "BackwardEpi" in key else "B1"
+        elif "dw_mma_kernel" in key:
+            cls = "dW"
+        elif "conv_same_mma_kernel" in key or "conv_same_fp32_kernel" in key:
+            cls = "B3"
+        else:
+            continue
+        layer = re.search(r"_kernel<(\d+), ?(\d+)", key)
+        sub = f"k {layer.group(1)}, {layer.group(2)}" if layer else ""
+        c, t = by.get((cls, sub), (0, 0.0))
+        by[cls, sub] = (c + n, t + ms)
+    total = {cls: sum(n for (c, _), (n, _) in by.items() if c == cls)
+             for cls in ("B1", "B2 (a)", "dW", "B3")}
+    for (cls, sub), (n, ms) in sorted(by.items()):
+        print(f"[w] replayed remat step, {cls} {sub}: {n} launches, {ms:.3f} ms, "
+              f"{ms / n:.4f} ms per launch (profiler) on {smi}")
+    want = dict(B1=runner["convlstm_cell"], **{"B2 (a)": runner["cell_bwd"]},
+                dW=runner["cell_bwd"], B3=runner["conv_same"])
+    print(f"[w] one replayed remat step: launches by kernel name {total}, by the runner's "
+          f"counters {want}")
+    check(total == want and total["B1"] == len(HIDDEN) * TRAIN_T,
+          f"[w] profiler {total} vs runner {want}")
+
+
+def phase_train_graphs(device, train, smi) -> None:
+    """(w) every training and evaluation step function replayed as a CUDA
+    graph against its eager body (``step.eager``), at full width: the
+    canonical step on the remat, per-cell and hoisted routes, config #2
+    (C = 62) and config #3 (both routes), the UNet, the pix2pix generator
+    and the GAN step (cuDNN's deterministic algorithms: within
+    TOL_T_UNET), the eval steps; on the remat step an async save
+    before the lr change, a restore then replays, a serving graph made
+    between replays that sees the trained weights, and one replay under
+    the profiler; DP and the spatially sharded steps on a one-rank NCCL
+    group."""
+    from nasa_niswan_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
+    from nasa_niswan_tpu_torch.rollout.seq2seq import make_seq2seq_eval_step
+    from nasa_niswan_tpu_torch.train.checkpoint import load_optimizer_state, optimizer_state
+    from nasa_niswan_tpu_torch.train.checkpoint_async import AsyncCheckpointer
+    from nasa_niswan_tpu_torch.train.loop import make_device_eval_step
+
+    src, ds, geo, init, kw = (train[k] for k in ("src", "ds", "geo", "init", "kw"))
+    order = train["order"]
+    starts = [order[s * TRAIN_BS:(s + 1) * TRAIN_BS] for s in range(8)]
+    adam = (1e-3, (0.5, 0.999))
+    root = tempfile.mkdtemp(prefix="niswan_graphs_")
+
+    def device_step(bundle, mesh=None):
+        def make(p):
+            opt = make_optimizer(p, *adam)
+            return make_device_train_step(bundle, ds.normalizer, opt, src, mesh=mesh,
+                                          **geo), (opt,)
+        return make
+
+    def windows(fn, p, i, st, g):
+        return fn(p, None, starts[i])
+
+    # --- the remat step, with the save, the restore, serving and the profile
+    bundle = build_model("LSTM-smoke", **kw)
+    serve = {}
+    forcings = src.gather(starts[7][:1])[0][:, :W_SERVE_T]
+
+    def remat_hook(mode, p, opts, step, i):
+        if mode == "graph" and i == 1:  # a serving graph made after the step's capture
+            serve["fn"] = make_rollout_fn(bundle.config, ds.normalizer, padded_shape=PADDED,
+                                          grid_shape=GRID, static=geo["static"])
+            serve["before"] = serve["fn"](p, forcings)[0]
+        if mode == "graph" and i == 4:  # after three replays, before the restore
+            after = serve["fn"](p, forcings)[0]
+            want = serve["fn"].eager(p, forcings)[0]
+            print(f"[w] a serving graph captured after call 1, served again after replays "
+                  f"2-4: recaptured ({serve['fn'].runner.captures} captures), equal to the "
+                  f"eager rollout on the trained weights "
+                  f"{'bit for bit' if torch.equal(after, want) else 'NOT'}, moved "
+                  f"{(after - serve['before']).abs().max().item():.3e}")
+            check(serve["fn"].runner.captures == 2 and torch.equal(after, want)
+                  and not torch.equal(after, serve["before"]),
+                  "[w] the serving graph did not see the trained weights")
+            serve.clear()
+        if i == 2:  # an async save between replays, then the lr change
+            ckpt = AsyncCheckpointer(os.path.join(root, mode), max_to_keep=1)
+            ckpt.save(2, p, opts[0], learning_rate=W_LR)
+            ckpt.close()
+        if i == 4:  # a restore: new optimizer tensors, so the next call recaptures
+            load_optimizer_state(opts[0], p, optimizer_state(opts[0], p))
+        if mode == "graph" and i == W_CALLS + 2:
+            _w_profile(step, p, starts[0], smi)
+
+    info = {"remat": _w_route("remat step (make_device_train_step; an async save before "
+                              "call 3, a restore before call 5)", device_step(bundle),
+                              windows, init, smi, calls=W_CALLS + 2, captures=2,
+                              hook=remat_hook)}
+    shutil.rmtree(root, ignore_errors=True)
+    for route, opts in T_ROUTES[1:]:
+        info[route] = _w_route(f"{route} step", device_step(build_model(
+            "LSTM-smoke", **opts, **kw)), windows, init, smi)
+
+    # --- the eval steps -------------------------------------------------------
+    ev = make_device_eval_step(bundle, ds.normalizer, src, **geo)
+    got = [ev(init, None, starts[i]) for i in range(3)]
+    want = [ev.eager(init, None, starts[i]) for i in range(3)]
+    same = all(torch.equal(a, b) for g_, w_ in zip(got, want) for a, b in zip(g_, w_))
+    print(f"[w] eval step (make_device_eval_step), 3 calls: "
+          f"{'bit-equal to' if same else 'DIFFER from'} its eager body, "
+          f"{ev.runner.captures} capture")
+    check(same and ev.runner.captures == 1, "[w] eval step")
+    del ev, got, want
+
+    # --- config #2: C = 62 host batches through make_train_step ---------------
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x2 = torch.randn((TRAIN_BS, TRAIN_T, C, *GRID), generator=gen, device=device)
+    y2 = torch.rand((TRAIN_BS, *GRID), generator=gen, device=device)
+    norm2 = Normalizer(np.zeros(C, np.float32), np.ones(C, np.float32), 0.0, 1.0)
+    b2 = build_model("LSTM-c2", **dict(kw, in_channels=C))
+    init2 = _copy_params(b2.init(torch.Generator().manual_seed(SEED), device)[0])
+
+    def make2(p):
+        opt = make_optimizer(p, *adam)
+        return make_train_step(b2, norm2, opt, padded_shape=PADDED, grid_shape=GRID), (opt,)
+
+    info["config #2"] = _w_route("config #2 remat step (C = 62, make_train_step)", make2,
+                                 lambda fn, p, i, st, g: fn(p, None, x2, y2), init2, smi)
+    del x2, y2, init2
+
+    # --- config #3: both routes, draws from a CPU generator ---------------------
+    x3 = torch.randn((TRAIN_BS, TRAIN_T, S2S_C - 1, *GRID), generator=gen, device=device)
+    p03 = torch.rand((TRAIN_BS, *GRID), generator=gen, device=device)
+    y3 = torch.rand((TRAIN_BS, TRAIN_T, *GRID), generator=gen, device=device)
+    norm3 = Normalizer(np.zeros(S2S_C - 1, np.float32), np.ones(S2S_C - 1, np.float32),
+                       0.0, 1.0)
+    cfg3 = ConvLSTMConfig(in_channels=S2S_C, hidden_channels=HIDDEN, kernel_sizes=KERNELS,
+                          compute_dtype="bfloat16")
+    init3 = _copy_params(convlstm_init(torch.Generator().manual_seed(SEED), cfg3,
+                                       device=device))
+    for remat in (False, True):
+        rcfg = dataclasses.replace(cfg3, remat=remat)
+
+        def make3(p, rcfg=rcfg):
+            opt = make_optimizer(p, *adam)
+            return make_seq2seq_train_step(rcfg, norm3, opt, padded_shape=PADDED,
+                                           grid_shape=GRID), (opt,)
+
+        route = "whole-chunk BPTT" if remat else "per-cell"
+        info[f"config #3 {route}"] = _w_route(
+            f"config #3 {route} step (make_seq2seq_train_step, draws from a seeded CPU "
+            f"generator before each call)", make3,
+            lambda fn, p, i, st, g: (None, fn(p, x3, p03, y3, g, 0.5)), init3, smi,
+            gen=lambda: torch.Generator().manual_seed(SEED))
+    ev3 = make_seq2seq_eval_step(cfg3, norm3, padded_shape=PADDED, grid_shape=GRID)
+    got, want = ev3(init3, x3, p03, y3), ev3.eager(init3, x3, p03, y3)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"[w] config #3 eval step: {'bit-equal to' if same else 'DIFFERS from'} its "
+          f"eager body")
+    check(same, "[w] config #3 eval step")
+    del x3, p03, y3, init3, ev3, got, want
+
+    # --- the single-step families (f32, TF32 off; cuDNN) -------------------------
+    x5 = torch.rand((R_BS, 5, *GRID), generator=gen, device=device)
+    y5 = torch.rand((R_BS, *GRID), generator=gen, device=device)
+    norm5 = Normalizer(np.zeros(5, np.float32), np.ones(5, np.float32), 0.0, 1.0)
+    unet = build_model("UNet-w", in_channels=5, unet_features=R_FEATS)
+    pix = build_model("PIX2PIX-w", in_channels=5, pix2pix_features=R_PIX_FEATS)
+    u0, us0 = unet.init(torch.Generator().manual_seed(SEED), device)
+    g0, _ = pix.init(torch.Generator().manual_seed(SEED), device)
+    rgeo = dict(padded_shape=R_PADDED, grid_shape=GRID)
+
+    def family(b, mesh=None):
+        def make(p):
+            opt = make_optimizer(p, *adam)
+            if mesh is None:
+                return make_train_step(b, norm5, opt, **rgeo), (opt,)
+            return make_spatial_train_step(b, norm5, opt, mesh, **rgeo), (opt,)
+        return make
+
+    def single(fn, p, i, st, g):
+        return fn(p, st, x5, y5, rng=g)
+
+    cuda_gen = lambda: torch.Generator(device=device).manual_seed(SEED)  # noqa: E731
+    # cuDNN's deterministic algorithms for the families: with the others a
+    # weight gradient sums in another order on every call, and Adam turns
+    # the noise of the conv biases ahead of a norm (zero gradient) into
+    # steps of the lr's size, so two runs of either kind part at once
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    info["UNet"] = _w_route("UNet step (BatchNorm state threaded)", family(unet), single,
+                            u0, smi, state=us0, tol=TOL_T_UNET)
+    info["pix2pix"] = _w_route("pix2pix generator step (dropout from a registered "
+                               "generator)", family(pix), single, g0, smi, gen=cuda_gen,
+                               tol=TOL_T_UNET)
+    dcfg = DiscriminatorConfig(in_channels=1, features=R_FEATS)
+    d0 = discriminator_init(torch.Generator().manual_seed(SEED), dcfg, device=device)
+    for t in tree_leaves(d0):
+        t.requires_grad_(True)
+    xg = torch.rand((R_BS, *R_PADDED, 5), generator=gen, device=device)
+    yg = torch.rand((R_BS, *R_PADDED, 1), generator=gen, device=device)
+
+    def make_gan(p):
+        opts = (make_optimizer(p[0], 2e-4, (0.5, 0.999)),
+                make_optimizer(p[1], 2e-4, (0.5, 0.999)))
+        return make_gan_train_step(pix.config, dcfg, *opts), opts
+
+    info["GAN"] = _w_route("GAN step (two Adams, both networks)", make_gan,
+                           lambda fn, p, i, st, g: (None, fn(p[0], p[1], xg, yg, g)),
+                           (g0, d0), smi, gen=cuda_gen, tol=TOL_T_UNET)
+    del xg, yg, d0
+    torch.backends.cudnn.deterministic = deterministic
+
+    # --- DP and the spatially sharded steps on a one-rank NCCL group -----------
+    store = tempfile.mkdtemp(prefix="smoke-nccl-")
+    init_distributed("file://" + os.path.join(store, "store"), 1, 0, device_type="cuda")
+    try:
+        mesh = make_mesh()
+        info["DP"] = _w_route("data-parallel remat step (1 rank, NCCL all-reduce captured)",
+                              device_step(bundle, make_mesh()), windows, init, smi)
+        smesh = make_mesh(1, 1, 1)
+        batches = [src.gather(s) for s in starts[:W_CALLS]]
+
+        def spatial(b):
+            def make(p):
+                opt = make_optimizer(p, *adam)
+                return make_spatial_train_step(b, ds.normalizer, opt, smesh, **geo), (opt,)
+            return make
+
+        for route, opts in T_ROUTES:
+            info[f"sharded {route}"] = _w_route(
+                f"sharded {route} step (1, 1, 1)", spatial(build_model(
+                    "LSTM-smoke", **opts, **kw)), lambda fn, p, i, st, g: fn(
+                    p, None, *batches[i]), init, smi)
+        torch.backends.cudnn.deterministic = True
+        info["sharded UNet"] = _w_route("sharded UNet step (1, 1, 1)", family(unet, smesh),
+                                        single, u0, smi, state=us0, tol=TOL_T_UNET)
+        info["sharded pix2pix"] = _w_route("sharded pix2pix step (1, 1, 1)",
+                                           family(pix, smesh), single, g0, smi,
+                                           gen=cuda_gen, tol=TOL_T_UNET)
+        del mesh, smesh, batches
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del u0, us0, g0, x5, y5
+    _free_graphs()
+    if torch.cuda.device_count() < 2:
+        print(f"[w] the dp = 2 and (1, 1, 2) replays against their eager bodies need >= 2 "
+              f"cards; {torch.cuda.device_count()} visible: not run")
+    else:
+        from nasa_niswan_tpu_torch.parallel import launch
+
+        out = launch.spawn(two_rank_replay_phase, 2, "cuda", dict(
+            grid=GRID, padded=PADDED, hidden=HIDDEN, kernels=KERNELS, bs=TRAIN_BS,
+            T=TRAIN_T, dtype="bfloat16"), timeout=600)
+        print(f"[w] two ranks on two cards, replays bit-equal to their eager bodies: "
+              f"{out[0]}")
+        check(all(out[0].values()), f"[w] two-rank replays {out[0]}")
+    print("[w] summary, ms/step (replay host / replay device span / eager host), peak GiB: "
+          + json.dumps({k: [round(v["graph"]["host"], 2), round(v["graph"]["span"], 2),
+                            round(v["eager"]["host"], 2), round(v["graph"]["peak"], 2)]
+                        for k, v in info.items()}))
+
+
 def _elapsed(what: str) -> None:
     """Where the command's time goes: seconds since the start, per phase."""
     print(f"[time] {what} starts at {time.perf_counter() - _T0:.1f} s", flush=True)
@@ -3916,15 +4418,18 @@ def main() -> None:
     bwd = phase_backward(device)
     _elapsed("phase_train")
     train = phase_train(device)
-    for name in ("kernel", "plain"):
+    for name in ("kernel", "eager", "plain"):
         t = train[f"t_{name}"]
         days = TRAIN_STEPS * TRAIN_BS * TRAIN_T / 48.0
         print(
-            f"[h] training, {name} path: {1000 * t / TRAIN_STEPS:.1f} ms/step, "
+            f"[h] training, {name} path{' (graph replays)' if name != 'eager' else ''}: "
+            f"{1000 * t / TRAIN_STEPS:.1f} ms/step, "
             f"{days / (t / 60.0):.2f} model-days/min over {TRAIN_STEPS} steps "
             f"(bs {TRAIN_BS}, T {TRAIN_T}, C={TRAIN_C}, bf16) on {smi}"
         )
     print(f"[h] training, kernel path: peak memory {train['peak'] / 2**30:.2f} GiB")
+    _elapsed("phase_train_graphs")
+    phase_train_graphs(device, train, smi)
     stats = dict(phase_modes(device, cell), convlstm_cell=cell, **bwd)
     _elapsed("phase_per_cell")
     phase_per_cell(device, train)

@@ -60,8 +60,10 @@ def r2_stats(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     sum y^2, n) in f32: summed over batches or ranks, ``r2_from_stats`` of
     the sums is the R^2 of all the values together."""
     yf, pf = y_true.reshape(-1).float(), y_pred.reshape(-1).float()
+    # n filled on the device: a host scalar would be a host-to-device copy,
+    # which a captured step may not hold
     return torch.stack([torch.sum((yf - pf) ** 2), torch.sum(yf), torch.sum(yf * yf),
-                        torch.tensor(float(yf.numel()), device=yf.device)])
+                        yf.new_full((), float(yf.numel()))])
 
 
 def r2_from_stats(stats: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,7 @@ package): ``elementwise_bwd`` and ``dw_per_tap``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import weakref
 from typing import Optional, Tuple
@@ -223,6 +224,22 @@ def _pack_floats(bf16: bool, cin: int, hid: int, k: int) -> int:
 
 # id(w) -> (w's version, its data pointer, its packed image)
 _PACKED = {}
+# the packs of the CUDA graph capture under way (``capture_scope``), or None
+_SCOPE = None
+
+
+@contextlib.contextmanager
+def capture_scope():
+    """While a training step is captured: every weight is packed inside the
+    capture, and a pack made there is reused only there.  A pack made
+    before (a cache hit on a weight the captured step then updates in
+    place) would leave every replay reading step 1's image."""
+    global _SCOPE
+    outer, _SCOPE = _SCOPE, {}
+    try:
+        yield
+    finally:
+        _SCOPE = outer
 
 
 def packed_weights(w: torch.Tensor) -> Optional[torch.Tensor]:
@@ -233,14 +250,16 @@ def packed_weights(w: torch.Tensor) -> Optional[torch.Tensor]:
     serving model packs each layer once, the whole-scan BPTT its combined
     kernel once per chunk, for every launch of the forward and the backward.
     An inference tensor has no version counter and counts as unchanged
-    while it lives.  The pack runs on the current stream, which later
-    launches share."""
+    while it lives.  Under ``capture_scope`` the cache is the capture's
+    own.  The pack runs on the current stream, which later launches
+    share."""
     k, _, cin, n4 = w.shape
     n = _pack_floats(w.dtype == torch.bfloat16, cin, n4 // 4, k)
     if not n:
         return None
+    cache = _PACKED if _SCOPE is None else _SCOPE
     key, version = id(w), 0 if w.is_inference() else w._version
-    hit = _PACKED.get(key)
+    hit = cache.get(key)
     if hit is not None and hit[0] == version and hit[1] == w.data_ptr():
         return hit[2]
     out = torch.empty((n,), dtype=torch.float32, device=w.device)
@@ -251,8 +270,8 @@ def packed_weights(w: torch.Tensor) -> Optional[torch.Tensor]:
                                            stream)
     _raise_on(err, "pack_cell_weights", lib)
     if hit is None:
-        weakref.finalize(w, _PACKED.pop, key, None)
-    _PACKED[key] = (version, w.data_ptr(), out)
+        weakref.finalize(w, cache.pop, key, None)
+    cache[key] = (version, w.data_ptr(), out)
     return out
 
 

@@ -137,7 +137,8 @@ from nasa_niswan_tpu_torch.rollout.multitracer import (
     _species_weights,
     _stack_states,
 )
-from nasa_niswan_tpu_torch.train.loop import per_sample_r2_score
+from nasa_niswan_tpu_torch.train.graph import graph_step
+from nasa_niswan_tpu_torch.train.loop import host_batch, per_sample_r2_score
 
 
 def cell_on_tile(xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -456,7 +457,12 @@ def make_spatial_train_step(
     BPTT with ``remat``, else the per-cell route, with or without the
     hoisted input conv), the UNet and the pix2pix generator on tiles with
     the gather rule (parallel/halo.py).  The padded grid must split evenly
-    over lat and lon."""
+    over lat and lon.
+
+    On a CUDA mesh each call is one CUDA graph replay (train/graph.py:
+    the halo exchanges, their transposes and the all-reduces captured,
+    "thread_local"); ``step.eager`` runs it without one, ``step.body`` is
+    the step on device tensors.  On gloo it runs eagerly."""
     padded_shape = tuple(padded_shape or grid_shape)
     _check_tiles(padded_shape, mesh)
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
@@ -464,9 +470,8 @@ def make_spatial_train_step(
     lat = 2 if bundle.is_sequence else 1
     (tr, tc), (gr, gc) = _crop_window(padded_shape, grid_shape, mesh)
 
-    def train_step(params, state, x_raw, y_raw, rng=None):
-        dev = mesh.device
-        x, y = preprocess(torch.as_tensor(x_raw, device=dev), torch.as_tensor(y_raw, device=dev))
+    def train_step(params, state, x, y, rng=None):
+        x, y = preprocess(x, y)
         x = _tile(x, mesh, lat, 0).contiguous()
         y = _tile(y, mesh, batch_axis=0)
         count = y.numel()  # the dp share's pixels of the cropped grid
@@ -482,7 +487,7 @@ def make_spatial_train_step(
         optimizer.step()
         return new_state, {"loss": loss, "r2": r2_from_stats(stats)}
 
-    return train_step
+    return graph_step(train_step, (optimizer,), prepare=host_batch)
 
 
 def make_spatial_eval_step(
@@ -502,14 +507,14 @@ def make_spatial_eval_step(
     UNet, normalizing by the running statistics of ``state``, and the
     pix2pix generator through ``bundle.apply`` with the mesh), its tiles
     gathered over lat and lon and cropped, pred this rank's dp share
-    (normalized, or in physical units when ``unnormalize``)."""
+    (normalized, or in physical units when ``unnormalize``).  On a CUDA
+    mesh one CUDA graph replay, as the train step."""
     padded_shape = tuple(padded_shape or grid_shape)
     _check_tiles(padded_shape, mesh)
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
 
-    def eval_step(params, state, x_raw, y_raw):
-        dev = mesh.device
-        x, y = preprocess(torch.as_tensor(x_raw, device=dev), torch.as_tensor(y_raw, device=dev))
+    def eval_step(params, state, x, y):
+        x, y = preprocess(x, y)
         if bundle.family == "LSTM":
             tile = convlstm_apply_sharded(params, x, bundle.config, mesh,
                                           precompute_input_conv=bundle.precompute_input_conv)
@@ -523,7 +528,7 @@ def make_spatial_eval_step(
                              "dp", 0)
         return scores, normalizer.unnormalize_y(pred) if unnormalize else pred
 
-    return eval_step
+    return graph_step(eval_step, writes=False, prepare=host_batch)
 
 
 def _sharded_entry(body, prepare, warm, inputs, outputs, mesh: Mesh) -> Callable:

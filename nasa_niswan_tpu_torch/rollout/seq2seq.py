@@ -23,7 +23,9 @@ Two routes, as in the JAX package (``_make_forward_chunk``):
 The Bernoulli draws come from an explicit ``torch.Generator`` (uniform <
 teacher_prob, as ``jax.random.bernoulli`` draws); ``external_draws=True``
 takes a precomputed (T, B) matrix instead, the seam that lets two
-implementations consume the same scheduled-sampling choices.
+implementations consume the same scheduled-sampling choices.  The train
+step draws before its body, outside the CUDA graph it replays on a card
+(train/graph.py), and hands the body the draws.
 
 ``make_seq2seq_train_step`` with a mesh (``fit_seq2seq(dp_devices=N)``) is
 the counterpart of ``make_seq2seq_train_step_shardmap``: each rank of a
@@ -52,6 +54,7 @@ from nasa_niswan_tpu_torch.ops.convlstm_bptt import combined_cells
 from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward
 from nasa_niswan_tpu_torch.ops.seq2seq_bptt import feedback_step, scan_seq2seq
 from nasa_niswan_tpu_torch.train.checkpoint import param_leaves, save_checkpoint
+from nasa_niswan_tpu_torch.train.graph import graph_step, to_device
 from nasa_niswan_tpu_torch.train.loop import make_optimizer
 
 
@@ -167,7 +170,13 @@ def make_seq2seq_train_step(
     or given) and this rank takes its columns; between the backward and
     the Adam step ``parallel/dp.reduce_gradients`` averages the gradients
     and the loss and sums R^2's statistics, so every rank takes the same
-    step and the metrics are the global batch's."""
+    step and the metrics are the global batch's.
+
+    The draws are made before the step, outside its graph (from the
+    generator in the order the step would draw them, so the sequence is
+    the same); ``teacher_prob`` goes in as a device scalar.  On a card
+    each call is one CUDA graph replay (train/graph.py); ``step.eager``
+    runs it without one."""
     forward_chunk = _make_forward_chunk(
         config, normalizer, padded_shape=padded_shape, grid_shape=grid_shape,
         external_draws=True,
@@ -176,12 +185,15 @@ def make_seq2seq_train_step(
     if mesh is not None:
         from nasa_niswan_tpu_torch.parallel.dp import reduce_gradients
 
-    def train_step(params, x, prev0, y, gen_or_draws, teacher_prob):
+    def prepare(params, x, prev0, y, gen_or_draws, teacher_prob):
         dev = _device_of(params)
-        x, prev0, y = (torch.as_tensor(a, device=dev) for a in (x, prev0, y))
+        x, prev0, y = to_device(dev, x, prev0, y)
         bl, T = x.shape[:2]
         draws = _draws(gen_or_draws, teacher_prob, T, bl * n, dev,
-                       external_draws)[:, r * bl:(r + 1) * bl]
+                       external_draws)[:, r * bl:(r + 1) * bl].contiguous()
+        return x, prev0, y, draws, torch.tensor(float(teacher_prob), device=dev)
+
+    def train_step(params, x, prev0, y, draws, teacher_prob):
         optimizer.zero_grad(set_to_none=True)
         loss, stats = forward_chunk(params, x, prev0, y, draws, teacher_prob)
         loss.backward()
@@ -192,7 +204,7 @@ def make_seq2seq_train_step(
         optimizer.step()
         return metrics
 
-    return train_step
+    return graph_step(train_step, (optimizer,), prepare=prepare)
 
 
 def make_seq2seq_eval_step(
@@ -204,21 +216,23 @@ def make_seq2seq_eval_step(
 ):
     """Closed-loop evaluation without grad: the whole chunk runs on the
     model's own feedback (teacher_prob = 0), the deployment condition.
-    Returns ``eval_step(params, x, prev0, y) -> (loss, r2)``."""
+    Returns ``eval_step(params, x, prev0, y) -> (loss, r2)``; on a card
+    one CUDA graph replay."""
     forward_chunk = _make_forward_chunk(
         config, normalizer, padded_shape=padded_shape, grid_shape=grid_shape,
         external_draws=True,
     )
 
-    def eval_step(params, x, prev0, y):
-        dev = _device_of(params)
-        x, prev0, y = (torch.as_tensor(a, device=dev) for a in (x, prev0, y))
+    def prepare(params, x, prev0, y):
+        x, prev0, y = to_device(_device_of(params), x, prev0, y)
+        return x, prev0, y, torch.zeros((x.shape[1], x.shape[0]), device=x.device)
+
+    def eval_step(params, x, prev0, y, no_teacher):
         with torch.no_grad():
-            no_teacher = torch.zeros(x.shape[1], x.shape[0])
             loss, stats = forward_chunk(params, x, prev0, y, no_teacher, 0.0)
             return loss, r2_from_stats(stats)
 
-    return eval_step
+    return graph_step(eval_step, writes=False, prepare=prepare)
 
 
 def fit_seq2seq(

@@ -75,11 +75,15 @@ def optimizer_state(optimizer: torch.optim.Optimizer, params) -> Dict[str, Any]:
 def load_optimizer_state(optimizer: torch.optim.Optimizer, params,
                          opt_state: Dict[str, Any]) -> None:
     """Set Adam's step count and moments from ``opt_state`` (as
-    ``load_checkpoint`` or ``optimizer_state`` return it)."""
+    ``load_checkpoint`` or ``optimizer_state`` return it), each on its
+    parameter's device (the capturable Adam of a card keeps its step
+    there).  The state's tensors are new: a step graph holding the old
+    ones is captured again at its next call (train/graph.py)."""
     for p, m, v in zip(param_leaves(params), opt_state["exp_avg"],
                        opt_state["exp_avg_sq"]):
         optimizer.state[p] = {
-            "step": torch.tensor(float(opt_state["step"]), dtype=torch.float32),
+            "step": torch.tensor(float(opt_state["step"]), dtype=torch.float32,
+                                 device=p.device),
             "exp_avg": torch.as_tensor(m, dtype=p.dtype).to(p.device).clone(),
             "exp_avg_sq": torch.as_tensor(v, dtype=p.dtype).to(p.device).clone(),
         }
@@ -103,7 +107,7 @@ def checkpoint_leaves(params, optimizer: Optional[torch.optim.Optimizer] = None,
         st = optimizer_state(optimizer, params)
         count = np.asarray(st["step"], np.int32)
         hyper = (group["betas"][0], group["betas"][1], group["eps"], 0.0,
-                 group["lr"] if learning_rate is None else learning_rate)
+                 float(group["lr"]) if learning_rate is None else learning_rate)
         o_leaves = [count, *(np.asarray(h, np.float32) for h in hyper), count]
         o_leaves += st["exp_avg"] + st["exp_avg_sq"]
     leaves = {f"p{i}": a for i, a in enumerate(p_leaves)}

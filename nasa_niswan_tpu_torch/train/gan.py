@@ -24,6 +24,7 @@ from nasa_niswan_tpu_torch.models.pix2pix import (
     discriminator_apply,
     generator_apply,
 )
+from nasa_niswan_tpu_torch.train.graph import graph_step
 
 
 def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
@@ -49,7 +50,9 @@ def make_gan_train_step(
     builds them).  x and y are NHWC on one device, y with the
     discriminator's in_channels; ``generator`` (on that device) draws both
     generator forwards' dropout.  The losses come back as device
-    scalars.
+    scalars.  On a card each call is one CUDA graph replay of both
+    updates (train/graph.py, the generator registered with it);
+    ``step.eager`` runs it without one.
 
     The step has no data-parallel form: the JAX package's takes no mesh,
     so it is refused on the ranks of a process group of more than one
@@ -64,8 +67,9 @@ def make_gan_train_step(
     def y_cond(x):
         return x[..., : d_cfg.in_channels]
 
-    def step(g_params, d_params, x, y, generator: Optional[torch.Generator] = None
+    def body(params, x, y, rng: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
+        g_params, d_params, generator = params[0], params[1], rng
         with torch.no_grad():  # D's loss sees a detached fake
             fake = generator_apply(g_params, x, training=True, generator=generator)
         real_logits = discriminator_apply(d_params, y, y_cond(x), d_cfg)
@@ -85,4 +89,13 @@ def make_gan_train_step(
         g_optimizer.step()
         return {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(), "l1": l1.detach()}
 
+    graphed = graph_step(body, (d_optimizer, g_optimizer))
+
+    def step(g_params, d_params, x, y, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        return graphed((g_params, d_params), x, y, rng=generator)
+
+    step.eager = lambda g_params, d_params, x, y, generator=None: graphed.eager(
+        (g_params, d_params), x, y, rng=generator)
+    step.runner = graphed.runner
     return step

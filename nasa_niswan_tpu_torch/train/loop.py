@@ -12,7 +12,11 @@ nasa_niswan_tpu/train/loop.py): on one device, or on every rank of a mesh
   normalizes by it.  Every step draws its dropout (PIX2PIX) from one
   ``torch.Generator`` seeded by ``config.seed``, as JAX splits a key per
   step.
-* StepLR is applied by setting the optimizer's lr once per epoch.
+* On a card every train and eval step is one CUDA graph replay
+  (train/graph.py, as ``jax.jit`` runs the JAX package's steps): captured
+  on a signature's first call, which runs that call's step eagerly;
+  ``step.eager`` runs the same body without a graph.
+* StepLR is applied by writing the optimizer's lr tensor once per epoch.
 * Epoch metrics accumulate as device scalars; one host sync per epoch.
 * Batches come from ``DeviceWindowSource`` when the split's frame slabs
   fit on the device: the contiguous slab is uploaded once and each batch's
@@ -47,21 +51,37 @@ from nasa_niswan_tpu_torch.train.checkpoint import (
     param_leaves,
     save_checkpoint,
 )
+from nasa_niswan_tpu_torch.train.graph import graph_step, to_device
 from nasa_niswan_tpu_torch.train.schedule import step_lr
 
 
 def make_optimizer(params, learning_rate: float,
                    betas: Tuple[float, float]) -> torch.optim.Adam:
     """Adam with the reference's betas and eps 1e-8 (optax ``adam``'s
-    defaults: the same update up to rounding) over ``param_leaves(params)``."""
-    return torch.optim.Adam(
-        param_leaves(params), lr=learning_rate, betas=tuple(betas), eps=1e-8
-    )
+    defaults: the same update up to rounding) over ``param_leaves(params)``.
+
+    The lr is a tensor on the parameters' device, which
+    ``set_learning_rate`` writes in place: a captured step
+    (train/graph.py) reads it on every replay, where a float would be
+    baked into the graph.  On a card the update is capturable (its step
+    count and bias corrections on the device); the CPU has no capturable
+    Adam and takes the same update with the lr read from the tensor
+    (float64, the float it stood for)."""
+    leaves = param_leaves(params)
+    device = leaves[0].device
+    card = device.type == "cuda"
+    lr = torch.tensor(float(learning_rate), device=device,
+                      dtype=torch.float32 if card else torch.float64)
+    return torch.optim.Adam(leaves, lr=lr, betas=tuple(betas), eps=1e-8, capturable=card)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
+    """Every group's lr, written in place where it is a tensor."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
     return optimizer
 
 
@@ -118,7 +138,7 @@ def build_train_step_fn(
 
         return make_spatial_train_step(bundle, normalizer, optimizer, mesh,
                                        padded_shape=padded_shape, grid_shape=grid_shape,
-                                       static=static)
+                                       static=static).body
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
     loss_fn = make_loss_fn(bundle, grid_shape, mesh)
     if mesh is not None:
@@ -145,6 +165,12 @@ def _device_of(params) -> torch.device:
     return param_leaves(params)[0].device
 
 
+def host_batch(params, state, x_raw, y_raw) -> tuple:
+    """A step's arguments with the raw batch (numpy or tensors) on the
+    parameters' device, moved outside the step's graph."""
+    return (state, *to_device(_device_of(params), x_raw, y_raw))
+
+
 def make_train_step(
     bundle: ModelBundle,
     normalizer: Normalizer,
@@ -156,18 +182,14 @@ def make_train_step(
     mesh=None,
 ) -> Callable:
     """The train step for host batches (numpy or tensors), moved to the
-    parameters' device."""
+    parameters' device; on a card one CUDA graph replay
+    (train/graph.py; ``step.eager`` runs it without one)."""
     inner = build_train_step_fn(
         bundle, normalizer, optimizer, padded_shape=padded_shape,
         grid_shape=grid_shape, static=static, mesh=mesh,
     )
 
-    def step(params, state, x_raw, y_raw, rng=None):
-        dev = _device_of(params)
-        return inner(params, state, torch.as_tensor(x_raw, device=dev),
-                     torch.as_tensor(y_raw, device=dev), rng)
-
-    return step
+    return graph_step(inner, (optimizer,), prepare=host_batch)
 
 
 def per_sample_r2_score(y: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
@@ -202,7 +224,7 @@ def build_eval_step_fn(
 
         return make_spatial_eval_step(bundle, normalizer, mesh, padded_shape=padded_shape,
                                       grid_shape=grid_shape, static=static,
-                                      unnormalize=unnormalize)
+                                      unnormalize=unnormalize).body
     preprocess = make_preprocess_fn(normalizer, padded_shape, static=static)
 
     def eval_step(params, state, x_raw, y_raw):
@@ -231,18 +253,14 @@ def make_eval_step(
     unnormalize: bool = False,
     mesh=None,
 ) -> Callable:
-    """The eval step for host batches, moved to the parameters' device."""
+    """The eval step for host batches, moved to the parameters' device;
+    on a card one CUDA graph replay (``step.eager`` without one)."""
     inner = build_eval_step_fn(
         bundle, normalizer, padded_shape=padded_shape, grid_shape=grid_shape,
         static=static, unnormalize=unnormalize, mesh=mesh,
     )
 
-    def step(params, state, x_raw, y_raw):
-        dev = _device_of(params)
-        return inner(params, state, torch.as_tensor(x_raw, device=dev),
-                     torch.as_tensor(y_raw, device=dev))
-
-    return step
+    return graph_step(inner, writes=False, prepare=host_batch)
 
 
 class DeviceWindowSource:
@@ -268,6 +286,12 @@ class DeviceWindowSource:
         starts = torch.as_tensor(starts, dtype=torch.int64, device=self.device)
         return self.frames[starts[:, None] + self._offsets], self.targets[starts]
 
+    def prepare(self, params, state, starts) -> tuple:
+        """A step's arguments with the window starts on the device (the one
+        host-to-device copy of a batch, made outside the step's graph)."""
+        del params
+        return state, torch.as_tensor(starts, dtype=torch.int64).to(self.device)
+
 
 def make_device_train_step(
     bundle: ModelBundle,
@@ -281,16 +305,18 @@ def make_device_train_step(
     mesh=None,
 ) -> Callable:
     """``step(params, state, starts, rng=None) -> (new_state, metrics)`` with
-    the batch gathered from the device-resident slab."""
+    the batch gathered from the device-resident slab by the (B,) window
+    starts (moved to the device first); on a card one CUDA graph replay
+    (``step.eager`` without one)."""
     inner = build_train_step_fn(
         bundle, normalizer, optimizer, padded_shape=padded_shape,
         grid_shape=grid_shape, static=static, mesh=mesh,
     )
 
-    def step(params, state, starts, rng=None):
+    def body(params, state, starts, rng=None):
         return inner(params, state, *source.gather(starts), rng)
 
-    return step
+    return graph_step(body, (optimizer,), prepare=source.prepare)
 
 
 def make_device_eval_step(
@@ -304,15 +330,17 @@ def make_device_eval_step(
     unnormalize: bool = False,
     mesh=None,
 ) -> Callable:
+    """``step(params, state, starts) -> (per-sample R^2, pred)`` on the
+    windows gathered from the slab; on a card one CUDA graph replay."""
     inner = build_eval_step_fn(
         bundle, normalizer, padded_shape=padded_shape, grid_shape=grid_shape,
         static=static, unnormalize=unnormalize, mesh=mesh,
     )
 
-    def step(params, state, starts):
+    def body(params, state, starts):
         return inner(params, state, *source.gather(starts))
 
-    return step
+    return graph_step(body, writes=False, prepare=source.prepare)
 
 
 def slabs_fit(datasets, device: torch.device) -> bool:

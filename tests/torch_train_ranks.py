@@ -1,5 +1,6 @@
 """Rank functions of the port's training-at-scale tests
-(tests/test_torch_spatial_train.py, tests/test_torch_dp_stateful.py), run
+(tests/test_torch_spatial_train.py, tests/test_torch_dp_stateful.py,
+tests/test_torch_train_graph.py), run
 by ``nasa_niswan_tpu_torch.parallel.launch.spawn`` on gloo ranks.  This
 module imports torch and the port only, so a spawned rank starts without
 JAX; the inputs come from the test as numpy arrays."""
@@ -20,7 +21,7 @@ from nasa_niswan_tpu_torch.parallel.halo import (
 from nasa_niswan_tpu_torch.parallel.mesh import gather_tiles, local_tile, make_mesh
 from nasa_niswan_tpu_torch.parallel.spatial import make_spatial_train_step
 from nasa_niswan_tpu_torch.train.checkpoint import param_leaves
-from nasa_niswan_tpu_torch.train.loop import make_optimizer, make_train_step
+from nasa_niswan_tpu_torch.train.loop import make_optimizer, make_train_step, set_learning_rate
 
 
 def _np(t):
@@ -208,3 +209,38 @@ def family_step(mesh, c, opt):
                 params=[_np(t) for t in param_leaves(params)],
                 grads=[_np(t.grad) for t in param_leaves(params)],
                 state=[_np(t) for t in bridge.tree_leaves(new_state)])
+
+
+def graph_bodies_world(rank, case):
+    """The data-parallel (2,) and spatially sharded (1, 1, 2) steps as
+    train/graph.py builds them, called as a user calls them and through
+    ``.eager`` (on gloo both run the body): two steps each from the same
+    weights, the lr halved between them.  Every rank's losses and
+    parameters."""
+    norm = Normalizer(*case["norm"])
+    x, y = case["batch"]
+    lr, betas = case["opt"]
+    out = {}
+    for name, dims in (("dp", (2,)), ("spatial", (1, 1, 2))):
+        mesh = make_mesh(*dims)
+        for call in ("step", "eager"):
+            bundle = build_model("LSTM-t", remat=case["remat"], **case["model"])
+            params = _trainable(case["params"])
+            opt = make_optimizer(params, lr, betas)
+            if name == "dp":
+                step = make_train_step(bundle, norm, opt, mesh=mesh, **case["geo"])
+                h = x.shape[0] // 2
+                batch = (x[rank * h:(rank + 1) * h], y[rank * h:(rank + 1) * h])
+            else:
+                step = make_spatial_train_step(bundle, norm, opt, mesh, **case["geo"])
+                batch = (x, y)
+            fn = step if call == "step" else step.eager
+            losses = []
+            for s in range(2):
+                if s == 1:
+                    set_learning_rate(opt, lr * 0.5)
+                _, m = fn(params, None, *batch)
+                losses.append(m["loss"].item())
+            out[(name, call)] = dict(loss=losses,
+                                     params=[_np(t) for t in param_leaves(params)])
+    return out
