@@ -119,7 +119,20 @@ Phases, each printing its own lines:
       against the same run split by --state-out / --skip --state-in
       (bit-equal, read back from the .nc files), and --artifact from
       export_rollout equal to the live route; config #3's closed loop split
-      the same way;
+      the same way; C1 on config #2's training split, in a process of its
+      own (its launches are not in the kernels line): the allocator capped
+      (``set_per_process_memory_fraction``, restored to 1.0 after) so that
+      what the process holds plus what streaming took fits and the forcing
+      slab does not, the CLI's resident upload refused with
+      torch.OutOfMemoryError, its stderr message, its predictions bit-equal
+      to --resident-gb 0 and B1 launched as often;
+  (x) run right after (p): docs/REALDATA.md's canonical training command
+      line (LSTM-5C, bs 8, T 48, 100 x 154, C 5, bf16, --cell-impl auto;
+      the synthetic fixture of 240 steps for --data-path, one epoch, a
+      checkpoint every epoch) through the port's parse_args and train main:
+      B1, B2 and B3 launched, and the same command without --cell-impl
+      launching as often, its logger.npy and epoch-001 parameters
+      bit-equal;
   (q) S = 3 species at C = 62 as one multi-tracer graph, with exact launch
       counts, bit-equal to three single rollouts; batched OAT against
       serial within (d)'s bf16 bound;
@@ -220,7 +233,7 @@ Phases, each printing its own lines:
       launches in the year, the chunk's input copy timed), the train year
       (2880 steps, 2 epochs), the seq2seq protocol (1 epoch of each
       schedule), the year rollout (2880 steps, 10 training days, 1 epoch,
-      chunks of 480) and r02 (1 epoch of A and of B), then both examples at
+      chunks of 480) and r02 (720 steps, 1 epoch of A and of B), then both examples at
       their defaults (the quickstart with --no-figures; the served chunks
       of the exported artifact against one rollout, 1e-6 of the largest)
       and scripts/torch_multihost_worker.py as one OS process joined
@@ -284,8 +297,10 @@ also exits non-zero when no CUDA device is visible.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -375,7 +390,7 @@ from nasa_niswan_tpu_torch.train.checkpoint import (
     param_leaves,
     save_checkpoint,
 )
-from nasa_niswan_tpu_torch.train.config import TrainConfig
+from nasa_niswan_tpu_torch.train.config import TrainConfig, parse_args
 from nasa_niswan_tpu_torch.train.loop import (
     DeviceWindowSource,
     fit,
@@ -2132,9 +2147,80 @@ def _serve_round_trip(run_dir, tag) -> np.ndarray:
     return whole
 
 
+def _refused_upload(run_dir, device) -> None:
+    """(p) C1 under a real refusal: the serving CLI over the training split
+    of ``run_dir`` with the allocator capped so that what the process holds
+    plus what streaming needs fits, but the forcing slab does not.  The CLI
+    tries the resident upload, the allocator raises torch.OutOfMemoryError,
+    the CLI says so and streams: predictions bit-equal to --resident-gb 0,
+    B1 launched as often.  Run in a process of its own
+    (``_refused_upload_fresh``)."""
+    t0 = time.perf_counter()
+    torch.zeros(1, device=device)  # a new process: start the allocator before its stats
+    out = lambda name: os.path.join(run_dir, name)  # noqa: E731
+    argv = ["--run-dir", run_dir, "--period", "train", "--chunk", str(CLI_CHUNK)]
+
+    def reserved() -> int:
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(device)
+
+    base = reserved()
+    torch.cuda.reset_peak_memory_stats(device)
+    _set_counts(0)
+    streamed = serve_cli.main([*argv, "--resident-gb", "0", "--out", out("streamed.nc")])
+    counts = _counts()
+    need = torch.cuda.max_memory_reserved(device) - base
+    slab = streamed["steps"] * C * GRID[0] * GRID[1] * 4  # the f32 forcing stream
+    check(counts["convlstm_cell"] > 0, f"[p] C1: the streamed run launched no B1: {counts}")
+    check(need < slab, f"[p] C1: streaming takes {need} bytes, no less than the "
+          f"{slab}-byte slab: no cap refuses one and admits the other")
+    base = reserved()
+    cap = base + need + (slab - need) // 2
+    total = torch.cuda.get_device_properties(device).total_memory
+    err = io.StringIO()
+    try:
+        torch.cuda.set_per_process_memory_fraction(cap / total, device)
+        _set_counts(0)
+        with contextlib.redirect_stderr(err):
+            refused = serve_cli.main([*argv, "--resident-gb", "4", "--out", out("refused.nc")])
+        _expect_counts("[p] C1 refused upload", **{k: n for k, n in counts.items() if n})
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, device)
+    said = err.getvalue()
+    sys.stderr.write(said)
+    want = (f"serve: device-resident upload of {slab / 1e9:.2f} GB failed "
+            "(OutOfMemoryError); streaming chunks from host instead "
+            "(--resident-gb 0 silences this)")
+    check(want in said, f"[p] C1: no refusal message on stderr: {said!r}")
+    check(refused["steps"] == streamed["steps"]
+          and np.array_equal(_nc(out("refused.nc")), _nc(out("streamed.nc"))),
+          "[p] C1: the refused upload's predictions != --resident-gb 0")
+    print(f"[p] C1: allocator capped at {cap / 2**30:.3f} GiB ({base / 2**30:.3f} held "
+          f"+ {need / 2**30:.3f} streaming takes + half the gap to the slab) refused "
+          f"the {slab / 1e9:.2f} GB upload with torch.OutOfMemoryError; the CLI said so "
+          f"and streamed {refused['steps']} steps from the host, bit-equal to "
+          f"--resident-gb 0, in {time.perf_counter() - t0:.1f} s")
+
+
+def _refused_upload_fresh(run_dir) -> None:
+    """``_refused_upload`` in a Python process of its own: the cap bounds
+    only what the allocator asks of the card, and in this process, after
+    the phases before (p), the allocator served the slab from a free block
+    of a segment it already held, so nothing was refused.  A new process
+    holds no such block.  Its launches stay out of LAUNCHED."""
+    sys.stdout.flush()
+    code = ("import torch, chip_smoke as cs; "
+            f"cs._refused_upload({run_dir!r}, torch.device('cuda', 0))")
+    proc = subprocess.run([sys.executable, "-c", code], timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"[p] C1's process exited {proc.returncode}")
+
+
 def phase_clis(device) -> None:
     """(p) the evaluation and serving CLIs on full-width snapshots: config
-    #2 (20-level fusion, C = 62) and config #3 (seq2seq, closed loop)."""
+    #2 (20-level fusion, C = 62) and config #3 (seq2seq, closed loop); C1,
+    the resident upload refused by the allocator, on config #2."""
     root = tempfile.mkdtemp(prefix="niswan_clis_")
     try:
         c2 = _snapshot(root, "c2", levels=20)
@@ -2155,8 +2241,75 @@ def phase_clis(device) -> None:
               "[p] --artifact != the live route")
         print(f"[p] --artifact ({size} bytes, chunk {CLI_CHUNK}, exported on the card): "
               f"{served['steps']} steps equal the live route bit for bit")
+        _refused_upload_fresh(c2)
         s2s = _snapshot(root, "s2s", mode="seq2seq")
         _serve_round_trip(s2s, "[p] config #3 (closed loop)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# (x) docs/REALDATA.md's canonical training command as written there, but for
+# --data-path (the synthetic fixture instead, at X_SYNTHETIC_STEPS),
+# --snapshot-dir (a temporary directory), --num-epochs 1 and
+# --checkpoint-every 1 (so that epoch-001 is written)
+X_SYNTHETIC_STEPS = 240
+REALDATA_ARGV = [
+    "--model", "LSTM-5C", "--species", "bcb", "--num-epochs", "1", "--batch-size", "8",
+    "--sequence-length", "48", "--learning-rate", "1e-3", "--input-size", "100", "154",
+    "--in-channels", "5", "--checkpoint-every", "1",
+    "--synthetic-steps", str(X_SYNTHETIC_STEPS),
+    "--compute-dtype", "bfloat16", "--cell-impl", "auto",
+]
+
+
+def phase_train_cli(device) -> None:
+    """(x) the JAX package's documented training command line through the
+    port's parse_args and train main, at full width on the card (B1, B2 and
+    B3 on the remat route), against the same command without --cell-impl:
+    the same launches, logger.npy and the epoch-001 parameters bit-equal."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="niswan_x_")
+    try:
+        runs = []
+        for name, argv in (("with", REALDATA_ARGV),
+                           ("without", REALDATA_ARGV[:-2])):  # less --cell-impl auto
+            cfg = parse_args([*argv, "--snapshot-dir", os.path.join(root, name)])
+            cfg.dump()
+            _set_counts(0)
+            out = train_cli.main(cfg)
+            if not runs:
+                counts = _counts()
+                check(all(counts[k] > 0 for k in ("convlstm_cell", "cell_bwd", "conv_same")),
+                      f"[x] a kernel of the training path ran no time: {counts}")
+                for k, n in counts.items():
+                    LAUNCHED[k] += n
+                print(f"[x] {' '.join(argv)}: launches {counts}")
+            else:
+                _expect_counts("[x] without --cell-impl", **{k: n for k, n in counts.items() if n})
+            with open(os.path.join(cfg.snapshot_dir, "logger.npy"), "rb") as f:
+                logs = f.read()
+            loaded, opt_state, meta = load_checkpoint(
+                os.path.join(cfg.snapshot_dir, "epoch-001"), out["params"])
+            check(meta["epoch"] == 1 and all(torch.equal(a, b) for a, b in zip(
+                param_leaves(loaded), param_leaves(out["params"]))),
+                f"[x] {name} --cell-impl: epoch-001 != the trained parameters")
+            runs.append((cfg, logs, loaded, opt_state))
+        (cfg_a, logs_a, p_a, o_a), (cfg_b, logs_b, p_b, o_b) = runs
+        check(cfg_a.cell_impl == cfg_b.cell_impl == "auto"
+              and dataclasses.replace(cfg_a, snapshot_dir=cfg_b.snapshot_dir) == cfg_b,
+              f"[x] the configurations differ: {cfg_a} / {cfg_b}")
+        check(cfg_a.hidden_channels == HIDDEN and cfg_a.kernel_size == KERNELS
+              and cfg_a.input_size == PADDED, f"[x] not the full width: {cfg_a}")
+        check(logs_a == logs_b, "[x] logger.npy differs with and without --cell-impl")
+        check(all(torch.equal(a, b) for a, b in zip(param_leaves(p_a), param_leaves(p_b)))
+              and o_a["step"] == o_b["step"] > 0,
+              "[x] epoch-001 differs with and without --cell-impl")
+        with open(os.path.join(cfg_a.snapshot_dir, "logger.npy"), "rb") as f:
+            loss = [float(np.load(f)[0]) for _ in range(3)]
+        print(f"[x] docs/REALDATA.md's command line (--cell-impl auto) on the card: 1 "
+              f"epoch, {o_a['step']} steps (bs 8, T 48, C 5, hidden {HIDDEN}, bf16), "
+              f"logger.npy {loss}; without --cell-impl: logger.npy and epoch-001 "
+              f"bit-equal; {time.perf_counter() - t0:.1f} s for both runs")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3705,7 +3858,8 @@ U_RUNS = (
     ("torch_run_seq2seq_protocol", ["--epochs", "1"]),
     ("torch_run_year_rollout", ["--steps", "2880", "--train-days", "10", "--epochs", "1",
                                 "--chunk", "480"]),
-    ("torch_run_results_r02", ["--epochs", "1", "--epochs-b", "1"]),
+    # 720 of the script's 1440 steps: the whole script's time paid for (p)'s C1 and (x)
+    ("torch_run_results_r02", ["--steps", "720", "--epochs", "1", "--epochs-b", "1"]),
 )
 U_TRAINS = ("convlstm_cell", "cell_bwd", "conv_same")  # launched by every training run
 
@@ -4445,6 +4599,8 @@ def main() -> None:
     phase_graph_serve(device, serve, stats, smi)
     _elapsed("phase_clis")
     phase_clis(device)
+    _elapsed("phase_train_cli")
+    phase_train_cli(device)
     _elapsed("phase_multitracer")
     phase_multitracer(device, serve, smi)
     _elapsed("phase_single_step")

@@ -1,7 +1,8 @@
 """Array-backed datasets and normalization constants (counterpart of
-nasa_niswan_tpu/data/dataset.py: ``Normalizer``, ``zscore_static``,
-``masked_log10``, ``reference_splits``, ``SequenceDataset``,
-``SingleStepDataset``, ``Seq2SeqDataset`` and ``make_preprocess_fn``).
+nasa_niswan_tpu/data/dataset.py: ``DYNAMIC_CHANNELS``, ``Normalizer``,
+``zscore_static``, ``masked_log10``, ``reference_splits``,
+``SequenceDataset``, ``SingleStepDataset``, ``Seq2SeqDataset`` and
+``make_preprocess_fn``).
 
 The datasets are numpy, as in the JAX package, so one set of samples and
 statistics serves both packages; the ``Normalizer`` methods take torch
@@ -20,6 +21,8 @@ import torch
 
 from nasa_niswan_tpu_torch.core.padding import pad_geo
 from nasa_niswan_tpu_torch.data.catalog import PACKED_VARS
+
+DYNAMIC_CHANNELS = ("u", "v", "omega", "prec", "src")
 
 
 class DeviceConst:
@@ -95,7 +98,7 @@ def _stack_inputs(data: Dict[str, np.ndarray], species: str) -> Tuple[np.ndarray
     if conc.ndim == 4:  # (T, L, H, W): surface level for the target
         conc = conc[:, 0]
     xs = np.stack(
-        [data["u"], data["v"], data["omega"], data["prec"], data[src_var]], axis=1
+        [data[src_var if name == "src" else name] for name in DYNAMIC_CHANNELS], axis=1
     )  # (T, 5, H, W)
     return xs.astype(np.float32), conc.astype(np.float32)
 

@@ -82,6 +82,8 @@ __all__ = [
     "convlstm_param_count",
     "gate_update",
     "head_apply",
+    "nchw_to_nhwc_seq",
+    "nhwc_to_nchw",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -145,6 +147,16 @@ def convlstm_init(
 def convlstm_param_count(params: Params) -> int:
     n = sum(t.numel() for cell in params["cells"] for t in cell.values())
     return n + sum(t.numel() for t in params["head"].values())
+
+
+def nchw_to_nhwc_seq(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, C, H, W) reference layout -> (B, T, H, W, C) TPU layout."""
+    return x.movedim(2, -1)
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, C) -> (..., C, H, W)."""
+    return x.movedim(-1, -3)
 
 
 def head_apply(params: Params, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

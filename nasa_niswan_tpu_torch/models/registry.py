@@ -6,9 +6,10 @@ Accepts the reference's encoded model-name strings (e.g.
 before the first '-'.  ``remat`` (default True, as in the JAX package: the
 whole-scan BPTT route) and ``precompute_input_conv`` (the hoisted input
 conv, which takes the per-cell route) pick the training route as there
-(models/convlstm.py).  The JAX package's other TPU knobs (``cell_impl``,
-``bptt_fwd``, ``bptt_bwd``, unroll) have no counterpart: a CUDA tensor
-always runs the kernels.  UNet and PIX2PIX are single-step models
+(models/convlstm.py).  The JAX package's other TPU knobs (``bptt_fwd``,
+``bptt_bwd``, unroll) have no counterpart, and ``cell_impl`` is recorded
+in the run's configuration, ignored by the port: a CUDA tensor always runs
+the kernels.  UNet and PIX2PIX are single-step models
 (``is_sequence=False``); as in the JAX package the PIX2PIX bundle is the
 Generator alone, trained with MSE + L1 (train/gan.py trains it against the
 PatchGAN).

@@ -28,9 +28,9 @@ statistics, all-reduced over the dp group in the forward and the backward,
 so the running statistics are the same on every rank; pix2pix draws the
 global batch's dropout masks on every rank and keeps its own rows
 (``ModelBundle.apply``'s ``mesh``).  ``gspmd_safe_bundle`` has no
-counterpart: ``cell_impl`` is a TPU setting, and the port picks its
-kernels by device.  The GAN step (train/gan.py) has no data-parallel form,
-in either package.
+counterpart: ``cell_impl`` is a TPU setting, recorded, ignored by the
+port, which picks its kernels by device.  The GAN step (train/gan.py) has
+no data-parallel form, in either package.
 """
 
 from __future__ import annotations

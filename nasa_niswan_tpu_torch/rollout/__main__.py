@@ -66,12 +66,32 @@ def _slice_stream(frames: np.ndarray, skip: int, steps):
     return out
 
 
+def _upload(frames: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+
+
 def _device_resident(frames: np.ndarray, limit_gb: float, device):
     """The sliced forcing stream uploaded to ``device`` once when it takes at
     most ``limit_gb`` GB (per-chunk slices then move no host data), else
-    the host array, whose chunks are copied as they are served."""
+    the host array, whose chunks are copied as they are served.
+
+    Falls back to host streaming if the device allocator refuses the slab —
+    params/activations may leave less free memory than the size check
+    assumes; serving must not fail where streaming would have worked.  Only
+    allocator exhaustion (``torch.OutOfMemoryError``) is downgraded; any
+    other failure is a real bug and re-raises.  Under ``--sharded`` each
+    rank decides for itself and holds the whole slab: it preprocesses the
+    whole frame before it takes its tile."""
     if limit_gb > 0 and frames.nbytes <= limit_gb * 1e9:
-        return torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+        try:
+            return _upload(frames, device)
+        except torch.OutOfMemoryError as e:
+            print(
+                f"serve: device-resident upload of {frames.nbytes/1e9:.2f} "
+                f"GB failed ({type(e).__name__}); streaming chunks from "
+                "host instead (--resident-gb 0 silences this)",
+                file=sys.stderr,
+            )
     return frames
 
 

@@ -12,9 +12,12 @@ families' widths), ``dp_devices`` (data-parallel ranks, one device each)
 and ``checkpoint_backend`` mean what they mean there; ``orbax`` selects
 the port's asynchronous backend (train/checkpoint_async.py, under
 ``<snapshot_dir>/orbax``), which writes the npz layout: the port cannot
-read or write orbax's own files.  ``cell_impl``, the JAX package's TPU
-setting, has no counterpart; ``device`` is the port's own (with
-``dp_devices`` > 1, its type: rank r trains on ``cuda:r``).
+read or write orbax's own files.  ``cell_impl`` (``--cell-impl``, the
+JAX package's choice of TPU cell implementation) is recorded, ignored by
+the port: a CUDA tensor always runs the kernels, and ``remat`` and
+``precompute_input_conv`` pick the training route (models/convlstm.py).
+``device`` is the port's own (with ``dp_devices`` > 1, its type: rank r
+trains on ``cuda:r``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ class TrainConfig:
     restore_from: str = "./snapshots"
     # --- settings shared with the JAX package ---
     compute_dtype: str = "float32"  # or "bfloat16"
+    cell_impl: str = "auto"  # the JAX package's TPU setting: recorded, ignored
     precompute_input_conv: bool = False  # hoist layer 0's input conv
     seed: int = 0
     data_path: Optional[str] = None  # packed npz; None -> synthetic fixture
@@ -151,6 +155,7 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--restore-from", type=str, default=d["restore_from"].default)
     p.add_argument("--compute-dtype", type=str, default=d["compute_dtype"].default,
                    choices=("float32", "bfloat16"))
+    p.add_argument("--cell-impl", type=str, default=d["cell_impl"].default)
     p.add_argument("--precompute-input-conv", action="store_true")
     p.add_argument("--seed", type=int, default=d["seed"].default)
     p.add_argument("--data-path", type=str, default=None)

@@ -178,6 +178,15 @@ def test_head_dtype_rule_matches_jax_bf16():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-2, rtol=8e-3)
 
 
+@pytest.mark.parametrize("name", ["nchw_to_nhwc_seq", "nhwc_to_nchw"])
+def test_layout_helpers_match_jax(name):
+    x = np.random.default_rng(11).standard_normal((2, 3, 4, 5, 6)).astype(np.float32)
+    got = getattr(tm, name)(torch.from_numpy(x))
+    want = np.asarray(getattr(jm, name)(jnp.asarray(x)))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_gate_update_matches_jax():
     rng = np.random.default_rng(7)
     gates = rng.standard_normal((2, 5, 6, 16)).astype(np.float32)

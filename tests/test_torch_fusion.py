@@ -93,6 +93,16 @@ def test_single_step_dataset_matches_jax(surface, period, in_channels, transform
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("species", ["bcb", "clay"])
+def test_dynamic_channels_match_jax(surface, species):
+    """The five dynamic channels, named and stacked in the JAX order."""
+    assert tdata.DYNAMIC_CHANNELS == jdata.DYNAMIC_CHANNELS
+    d = dict(surface)
+    d["clay_src"], d["clay_conc"] = d["bcb_src"] * 2, d["bcb_conc"] * 3
+    for a, b in zip(tdata._stack_inputs(d, species), jdata._stack_inputs(d, species)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_single_step_dataset_rejects_other_channel_counts(surface):
     with pytest.raises(ValueError, match="5 or 6"):
         tdata.SingleStepDataset(surface, period="train", in_channels=7)

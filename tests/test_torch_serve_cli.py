@@ -4,7 +4,8 @@ open- and closed-loop routes give the same ``.nc`` predictions, a carry
 persisted by either package resumes in the other, a split run equals one
 run, an exported artifact serves what the live rollout serves, the
 single-step snapshots serve on their own route, ``--sharded`` writes the
-unsharded run on gloo ranks, and what the port does not serve raises.  Both CLIs run in-process; the port on
+unsharded run on gloo ranks, an allocator refusal of the resident upload
+serves the streamed run, and what the port does not serve raises.  Both CLIs run in-process; the port on
 the CPU (``--device cpu``).
 
 Tolerances: the two packages' predictions at atol 2e-5, that of
@@ -221,6 +222,49 @@ def test_sharded_serving_refusals(tmp_path):
     ):
         with pytest.raises(SystemExit, match=msg):
             t_serve(argv if "--device" in argv else [*argv, "--device", "cpu"])
+
+
+def _refuse(exc):
+    def upload(frames, device):
+        raise exc
+    return upload
+
+
+def test_resident_upload_refused_streams_from_host(monkeypatch, capsys):
+    """The JAX CLI's ``test_serve_guard_messages``: an allocator refusal of
+    the resident upload falls back to the host array, with JAX's message."""
+    import nasa_niswan_tpu_torch.rollout.__main__ as cli
+
+    frames = np.zeros((4, 2, 3, 3), np.float32)
+    monkeypatch.setattr(cli, "_upload", _refuse(torch.OutOfMemoryError("simulated")))
+    got = cli._device_resident(frames, 4.0, torch.device("cpu"))
+    assert got is frames  # fell back to the host array
+    assert ("serve: device-resident upload of 0.00 GB failed (OutOfMemoryError); "
+            "streaming chunks from host instead (--resident-gb 0 silences this)"
+            in capsys.readouterr().err)
+    assert cli._device_resident(frames, 0.0, torch.device("cpu")) is frames
+    assert capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("which", ["canonical_snap", "seq2seq_snap"])
+def test_refused_upload_serves_the_streamed_run(request, tmp_path, monkeypatch, capsys,
+                                                which):
+    """A run whose resident upload the allocator refuses writes the
+    predictions of ``--resident-gb 0`` bit for bit; any other error of the
+    upload raises."""
+    import nasa_niswan_tpu_torch.rollout.__main__ as cli
+
+    snap = _snap(request.getfixturevalue(which), tmp_path, "s")
+    streamed, refused = str(tmp_path / "streamed.nc"), str(tmp_path / "refused.nc")
+    _port("--run-dir", snap, "--out", streamed, "--chunk", "4", "--resident-gb", "0")
+    capsys.readouterr()
+    monkeypatch.setattr(cli, "_upload", _refuse(torch.OutOfMemoryError("simulated")))
+    _port("--run-dir", snap, "--out", refused, "--chunk", "4", "--resident-gb", "4")
+    assert "streaming chunks from host instead" in capsys.readouterr().err
+    np.testing.assert_array_equal(_read(refused)[0], _read(streamed)[0])
+    monkeypatch.setattr(cli, "_upload", _refuse(RuntimeError("not an allocator refusal")))
+    with pytest.raises(RuntimeError, match="not an allocator refusal"):
+        _port("--run-dir", snap, "--out", refused, "--chunk", "4", "--resident-gb", "4")
 
 
 @pytest.mark.parametrize("model", ["UNet-clisnap", "PIX2PIX-clisnap"])
