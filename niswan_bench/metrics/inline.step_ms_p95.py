@@ -1,0 +1,9 @@
+"""The 95th percentile of one in-line call's latency over every call of the
+measured window: from the call with a host frame to the prediction in host
+memory."""
+
+from niswan_bench.lib import readers
+
+
+def read(ctx):
+    return readers.percentile_ms(ctx, 95)
