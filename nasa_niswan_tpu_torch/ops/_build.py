@@ -115,8 +115,18 @@ def build() -> Path:
 
 @functools.cache
 def load_kernels() -> ctypes.CDLL:
-    """Build if needed, load, and declare every C entry point's types."""
-    lib = ctypes.CDLL(str(build()))
+    """Build if needed, load, and declare every C entry point's types (the
+    span ``niswan.kernels.load``, its host seconds counted in
+    ``utils/profiling.counters()["kernels.load_s"]``)."""
+    # imported here: utils/profiling imports the models, which import this module
+    from nasa_niswan_tpu_torch.utils.profiling import span
+
+    with span("niswan.kernels.load", counter="kernels.load_s"):
+        return _load(build())
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     signatures = {
         # (xh, w, b, c, xg or null, h_out, c_out, gates or null,

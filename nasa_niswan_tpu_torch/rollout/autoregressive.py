@@ -15,7 +15,10 @@ Python loop whose cell step is the fused CUDA kernel on the card.  On a
 CUDA device the chunk (preparation, step loop, head, crop, unnormalize) is
 captured once per input signature and replayed as one CUDA graph
 (rollout/graph.py), as the JAX package jit-compiles the whole scan; the
-eager loop runs on the CPU and is what the graph captures.
+eager loop runs on the CPU and is what the graph captures.  Under a
+profiler a chunk is the span ``niswan.serve.chunk``, a streaming step
+``niswan.serve.step`` holding its frame's upload, ``niswan.serve.upload``
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from nasa_niswan_tpu_torch.models.convlstm import (
 )
 from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward, packed_weights
 from nasa_niswan_tpu_torch.rollout.graph import GraphRunner
+from nasa_niswan_tpu_torch.utils.profiling import span
 
 
 def _prep_frame(x, normalizer, static, padded_shape, cast_dtype=None):
@@ -172,7 +176,7 @@ def make_rollout_fn(
                          warm=first_step)
 
     def run(params, forcings, initial_state, graph: bool):
-        with torch.inference_mode():
+        with span("niswan.serve.chunk"), torch.inference_mode():
             inputs = _inputs(params, forcings, initial_state)
             if graph and inputs[0].is_cuda:
                 out = runner(params, inputs)
@@ -260,17 +264,19 @@ def make_streaming_rollout(
     runner = GraphRunner(step_body, lambda p: serving_weights(p, config))
 
     def step(frame) -> torch.Tensor:
-        frame = torch.as_tensor(frame, device=device)[:, None]
-        if device.type != "cuda":
-            preds, carry["state"] = rollout(params, frame, carry["state"])
+        with span("niswan.serve.step"):
+            with span("niswan.serve.upload"):
+                frame = torch.as_tensor(frame, device=device)[:, None]
+            if device.type != "cuda":
+                preds, carry["state"] = rollout(params, frame, carry["state"])
+                return preds[:, 0]
+            with torch.inference_mode():
+                state = carry["state"]
+                if state is None:
+                    state = zero_state(config, frame.shape[0], padded_shape, device)
+                (preds,) = runner(params, [frame, *flat_state(state)])
+                carry["state"] = nest_state(runner.last_inputs[1:])
             return preds[:, 0]
-        with torch.inference_mode():
-            state = carry["state"]
-            if state is None:
-                state = zero_state(config, frame.shape[0], padded_shape, device)
-            (preds,) = runner(params, [frame, *flat_state(state)])
-            carry["state"] = nest_state(runner.last_inputs[1:])
-        return preds[:, 0]
 
     step.runner = runner
     step.carry = lambda: carry["state"]

@@ -33,6 +33,12 @@ What it keeps true:
 * a capture that fails raises.  There is no eager fallback; the eager body
   is the function that is captured, the CPU path, and the oracle of the
   card tests.
+
+Under a profiler each call is a span ``niswan.graph.run``, holding
+``niswan.graph.stage`` (the copies into the static buffers) and
+``niswan.graph.replay`` (with its device time), or ``niswan.graph.capture``
+(also counted, always, in ``utils/profiling.counters()``).  These spans and
+``replay`` are shared with the training steps' ``train/graph.StepGraph``.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 
 from nasa_niswan_tpu_torch import ops
 from nasa_niswan_tpu_torch.bridge import tree_leaves
+from nasa_niswan_tpu_torch.utils.profiling import span
 
 
 def params_key(params) -> Tuple[Tuple[int, int, int], ...]:
@@ -52,6 +59,20 @@ def params_key(params) -> Tuple[Tuple[int, int, int], ...]:
         (id(t), t.data_ptr(), 0 if t.is_inference() else t._version)
         for t in tree_leaves(params)
     )
+
+
+def replay(graph, static_in: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor],
+           launches, device: torch.device) -> None:
+    """One replay of a captured graph: each input copied into its static
+    buffer (unless it is that buffer), the replay on the current stream,
+    and the launches counted while capturing added as run."""
+    with span("niswan.graph.stage"):
+        for s, x in zip(static_in, inputs):
+            if s is not x:
+                s.copy_(x)
+    with span("niswan.graph.replay", device=device):
+        graph.replay()
+    ops.add_launch_counts(launches)
 
 
 def signature(inputs: Sequence[torch.Tensor]) -> tuple:
@@ -124,16 +145,14 @@ class GraphRunner:
         return e
 
     def __call__(self, params, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        key = signature(inputs)
-        pkey = params_key(params)
-        e = self._entries.get(key)
-        if e is None or e.pkey != pkey:
-            self._entries.pop(key, None)  # free the stale graph's pool first
-            e = self._entries[key] = self._capture(params, inputs, pkey)
-        for s, x in zip(e.static_in, inputs):
-            if s is not x:
-                s.copy_(x)
-        e.graph.replay()
-        ops.add_launch_counts(e.launches)
-        self.last_inputs = e.static_in
-        return tuple(o.clone() for o in e.static_out)
+        with span("niswan.graph.run"):
+            key = signature(inputs)
+            pkey = params_key(params)
+            e = self._entries.get(key)
+            if e is None or e.pkey != pkey:
+                self._entries.pop(key, None)  # free the stale graph's pool first
+                with span("niswan.graph.capture", counter="graph.capture_s"):
+                    e = self._entries[key] = self._capture(params, inputs, pkey)
+            replay(e.graph, e.static_in, inputs, e.launches, inputs[0].device)
+            self.last_inputs = e.static_in
+            return tuple(o.clone() for o in e.static_out)

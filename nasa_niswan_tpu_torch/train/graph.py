@@ -49,6 +49,11 @@ once per input signature and replays it.  What it keeps true:
 * a capture that fails raises; there is no eager fallback.  ``.eager`` of
   every graphed step is the body without a graph, the oracle of the card
   checks.  On the CPU the body runs eagerly.
+
+Under a profiler a step of ``graph_step`` is a span ``niswan.train.step``
+holding ``niswan.train.upload`` (its ``prepare``) and, on a card, the
+runner's ``niswan.graph.*`` spans (rollout/graph.py, whose ``replay`` both
+runners share).
 """
 
 from __future__ import annotations
@@ -60,6 +65,8 @@ import torch
 
 from nasa_niswan_tpu_torch import ops
 from nasa_niswan_tpu_torch.bridge import tree_leaves, tree_paths, tree_unflatten
+from nasa_niswan_tpu_torch.rollout.graph import replay
+from nasa_niswan_tpu_torch.utils.profiling import span
 
 
 def optimizer_leaves(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
@@ -167,24 +174,22 @@ class StepGraph:
         device = flat[0].device
         if not on_card(device):
             return self.eager(params, *args, rng=rng)
-        sig = (tuple(tree_paths(args)),
-               tuple((tuple(t.shape), t.dtype, t.device) for t in flat))
-        leaves = self._leaves(params)
-        e = self._entries.get(sig)
-        if e is None or e.key != self._key(leaves, rng):
-            self._entries.pop(sig, None)  # free the stale graph's pool first
-            out, self._entries[sig] = self._first_call(params, args, flat, device, rng)
-            return out
-        for s, x in zip(e.static_in, flat):
-            if s is not x:
-                s.copy_(x)
-        e.graph.replay()
-        ops.add_launch_counts(e.launches)
-        if self.writes:
-            torch.autograd.graph.increment_version(e.leaves)
-            for p, g in zip(e.params, e.grads):
-                p.grad = g
-        return tree_unflatten(e.out_template, [o.clone() for o in e.static_out])
+        with span("niswan.graph.run"):
+            sig = (tuple(tree_paths(args)),
+                   tuple((tuple(t.shape), t.dtype, t.device) for t in flat))
+            leaves = self._leaves(params)
+            e = self._entries.get(sig)
+            if e is None or e.key != self._key(leaves, rng):
+                self._entries.pop(sig, None)  # free the stale graph's pool first
+                with span("niswan.graph.capture", counter="graph.capture_s"):
+                    out, self._entries[sig] = self._first_call(params, args, flat, device, rng)
+                return out
+            replay(e.graph, e.static_in, flat, e.launches, device)
+            if self.writes:
+                torch.autograd.graph.increment_version(e.leaves)
+                for p, g in zip(e.params, e.grads):
+                    p.grad = g
+            return tree_unflatten(e.out_template, [o.clone() for o in e.static_out])
 
     def _first_call(self, params, args, flat, device, rng):
         """The call's own step, eager on the capture stream, then the capture."""
@@ -242,8 +247,11 @@ def graph_step(body: Callable, optimizers: Sequence[torch.optim.Optimizer] = (),
         return args, rng
 
     def step(params, *args, rng=None):
-        args, rng = split(args, rng)
-        return runner(params, *prep(params, *args), rng=rng)
+        with span("niswan.train.step"):
+            args, rng = split(args, rng)
+            with span("niswan.train.upload"):
+                args = prep(params, *args)
+            return runner(params, *args, rng=rng)
 
     def eager(params, *args, rng=None):
         args, rng = split(args, rng)

@@ -11,7 +11,8 @@ NCCL group, and (with two cards) two NCCL ranks; training at scale: the
 spatially sharded step and the UNet's DP step on a one-rank NCCL group
 against the device step, B2, dW and B3 at tile shapes, an async
 checkpoint of card tensors, StepTimer's CUDA events, and (with two cards)
-the two-rank sharded steps.
+the two-rank sharded steps; the port's spans: a serving replay's device
+time under a profiler, and the kernels' load counted.
 
 Needs an NVIDIA GPU and nvcc; every test here skips without a CUDA device.
 On a machine with a card, from the repository root:
@@ -795,6 +796,40 @@ def test_graph_recaptures_after_an_in_place_weight_change(device):
     got, _ = rollout(new_tree, forcings[0])
     want, _ = rollout.eager(new_tree, forcings[0])
     assert torch.equal(got, want) and rollout.runner.captures == 3
+
+
+def test_graph_replay_span_holds_the_replays_device_time(device):
+    """Under a profiler a serving replay's span (utils/profiling.span) has
+    device seconds above 0 and no more than its host window plus the wait
+    for the card; outside one the runner records nothing."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from nasa_niswan_tpu_torch.utils.profiling import spans
+
+    cfg, params, norm, forcings = _g_setup(device)
+    rollout = make_rollout_fn(cfg, norm, device=device, **G_GEO)
+    rollout(params, forcings[0])  # the capture and a replay, untraced
+    torch.cuda.synchronize(device)
+    n = len(spans("niswan.graph.replay"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        rollout(params, forcings[1])
+        torch.cuda.synchronize(device)
+        done = time.perf_counter_ns()
+    assert len(spans("niswan.graph.replay")) == n + 1
+    rec = spans("niswan.graph.replay")[-1]
+    assert rec.parent is spans("niswan.graph.run")[-1]
+    assert rec.parent.parent is spans("niswan.serve.chunk")[-1]
+    assert 0 < rec.device_s <= (done - rec.start_ns) / 1e9
+
+
+def test_kernel_load_is_counted_after_the_first_launch(device):
+    from nasa_niswan_tpu_torch.utils.profiling import counters
+
+    fused_cell_forward(*_cell_inputs(device, torch.bfloat16, 1, 16, 24, 9, 8, 3))
+    torch.cuda.synchronize(device)
+    assert counters()["kernels.load_s"] > 0
 
 
 @pytest.mark.parametrize("hoist", [False, True])
