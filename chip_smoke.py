@@ -362,6 +362,7 @@ from nasa_niswan_tpu_torch.ops.convlstm_cell import (
     fused_cell_forward_plain,
     fused_cell_gates,
     fused_cell_gates_plain,
+    join_xh,
 )
 from nasa_niswan_tpu_torch.rollout import seq2seq as seq2seq_mod
 from nasa_niswan_tpu_torch.rollout.seq2seq import (
@@ -583,10 +584,26 @@ def phase_build() -> None:
     print(f"[b] ptxas serialized the wgmma pipeline in {len(serialized)} kernels")
 
 
+def _serving_pair(xh32: torch.Tensor, hid: int, layer: int) -> tuple:
+    """A serving cell's input as the main path hands it over: the pair (x,
+    h), layer 1's x a bf16 frame in the channels-first layout that
+    ``_prep_frame`` leaves (channel stride H*W), a later layer's x the
+    previous layer's f32 h', h the f32 carry."""
+    cx = xh32.shape[-1] - hid
+    x = xh32[..., :cx]
+    x = (x.permute(0, 3, 1, 2).contiguous().to(torch.bfloat16).permute(0, 2, 3, 1)
+         if layer == 0 else x.contiguous())
+    return x, xh32[..., cx:].contiguous()
+
+
 def phase_kernel_vs_plain(device) -> dict:
+    """B1's plain mode against the plain version: at the serving shapes in
+    bf16 the two-part launch on the pair (x, h) in the main path's layouts
+    (timed, bit-equal to the launch on the concatenated xh), else the
+    launch on xh."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     max_err, ms_step, plain_ms_step, by_shape, rows = 0.0, 0.0, 0.0, {}, []
-    for B, H, W, cin, hid, k in CELL_SHAPES:
+    for layer, (B, H, W, cin, hid, k) in enumerate(CELL_SHAPES):
         plan = check_wgmma((B, H, W, cin, hid, k), "[c]")
         xh32 = torch.randn((B, H, W, cin), generator=gen, device=device)
         c = torch.randn((B, H, W, hid), generator=gen, device=device)
@@ -594,8 +611,17 @@ def phase_kernel_vs_plain(device) -> dict:
         w32 /= (k * k * cin) ** 0.5
         b = 0.1 * torch.randn((4 * hid,), generator=gen, device=device)
         for dtype in (torch.bfloat16, torch.float32):
-            xh, w = xh32.to(dtype), w32.to(dtype)
+            main = dtype == torch.bfloat16 and (H, W) == PADDED
+            xh = _serving_pair(xh32, hid, layer) if main else xh32.to(dtype)
+            w = w32.to(dtype)
+            parts = convlstm_cell.parts_launches
             h1, c1 = fused_cell_forward(xh, c, w, b)
+            if main:
+                check(convlstm_cell.parts_launches == parts + 1,
+                      f"[c] {(B, H, W, cin, hid, k)}: the pair did not take the two-part launch")
+                h0, c0 = fused_cell_forward(join_xh(xh, dtype), c, w, b)
+                check(torch.equal(h1, h0) and torch.equal(c1, c0),
+                      f"[c] {(B, H, W, cin, hid, k)}: two-part launch != launch on xh")
             h1b, c1b = fused_cell_forward(xh, c, w, b)
             h2, c2 = fused_cell_forward_plain(xh, c, w, b)
             torch.cuda.synchronize()
@@ -608,7 +634,9 @@ def phase_kernel_vs_plain(device) -> dict:
             bound = least_time(*cell_work(B, H, W, cin, hid, k))
             print(
                 f"[c] B={B} H={H} W={W} Cin={cin} hid={hid} k={k} "
-                f"{str(dtype).split('.')[-1]}: max|dh|={dh:.3e} max|dc|={dc:.3e} "
+                f"{str(dtype).split('.')[-1]}"
+                f"{' (x, h) two-part, == launch on xh' if main else ''}: "
+                f"max|dh|={dh:.3e} max|dc|={dc:.3e} "
                 f"(tol {TOL_CELL:g}), bit-identical reruns; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
                 + (f", bound {bound[0]:.4f} ms, {plan} mainloop"
@@ -617,7 +645,7 @@ def phase_kernel_vs_plain(device) -> dict:
             check(dh <= TOL_CELL and dc <= TOL_CELL,
                   f"kernel vs plain {dh:.3e}/{dc:.3e} > {TOL_CELL:g}")
             max_err = max(max_err, dh, dc)
-            if dtype == torch.bfloat16 and H == PADDED[0] and W == PADDED[1]:
+            if main:
                 ms_step += ms
                 plain_ms_step += plain_ms
                 by_shape[(B, H, W, cin, hid, k)] = ms
@@ -676,7 +704,8 @@ def phase_serve(device) -> dict:
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
     launches = _expect_counts(
-        "[d] serving", convlstm_cell=len(HIDDEN) * N_REQUESTS * STEPS)
+        "[d] serving", parts=len(HIDDEN) * N_REQUESTS * STEPS,
+        convlstm_cell=len(HIDDEN) * N_REQUESTS * STEPS)
     for p in preds:
         check(tuple(p.shape) == (1, STEPS, *GRID), f"pred shape {tuple(p.shape)}")
         check(bool(torch.isfinite(p).all()), "non-finite prediction")
@@ -1037,16 +1066,23 @@ def _counts() -> dict:
 def _set_counts(n: int) -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, n)
+    convlstm_cell.parts_launches = n
 
 
-def _expect_counts(tag: str, **want) -> dict:
+def _expect_counts(tag: str, parts=None, **want) -> dict:
     """Read the counts of the main-path run that began at ``_set_counts(0)``:
     each kernel named in ``want`` exactly that often (> 0), every other
-    kernel never.  Adds them to LAUNCHED."""
+    kernel never; with ``parts``, that many of B1's plain launches staged
+    the pair (x, h) (``convlstm_cell.parts_launches``, a sub-count of
+    ``launches``).  Adds them to LAUNCHED."""
     got = _counts()
     want = {name: want.get(name, 0) for name in COUNTERS}
     print(f"{tag}: launches {got} (want {want})")
     check(got == want, f"{tag}: launches {got}, want {want}")
+    if parts is not None:
+        n_parts = convlstm_cell.parts_launches
+        print(f"{tag}: {n_parts} of them staged the pair (x, h) (want {parts})")
+        check(n_parts == parts, f"{tag}: {n_parts} two-part launches, want {parts}")
     check(all(v > 0 for v in want.values() if v), f"{tag}: a kernel of the path ran no time")
     for name, n in got.items():
         LAUNCHED[name] += n
@@ -1142,7 +1178,8 @@ def phase_train(device) -> dict:
     _set_counts(0)
     t_kernel, metrics = _train_run(step, params, TRAIN_STEPS, order[TRAIN_BS:])
     want = len(HIDDEN) * TRAIN_T * TRAIN_STEPS
-    _expect_counts("[g] remat route", convlstm_cell=want, cell_bwd=want, conv_same=want)
+    _expect_counts("[g] remat route", parts=want, convlstm_cell=want, cell_bwd=want,
+                   conv_same=want)
     peak = max(peak_first, torch.cuda.max_memory_allocated())
     print(f"[g] {TRAIN_STEPS} training steps (bs {TRAIN_BS}, T {TRAIN_T}, bf16): "
           f"loss {metrics['loss'].item():.5f}, R2 {metrics['r2'].item():.4f}, "

@@ -76,6 +76,27 @@
 //     128 (15-17%), and the extra code slowed every layer (PERF.md).  Pixels
 //     are cp + 8 bf16 apart (cp = channels rounded up to 16), an odd number
 //     of 16-byte units, so ldmatrix reads are conflict-free.
+//     B1's plain mode may instead read its input as the two tensors x and
+//     h where they lie (HaloParts: each bf16 or f32, with its own batch,
+//     row, column and channel strides), so no concatenated, cast xh is
+//     written before the launch.  stage_parts puts every channel where
+//     stage_halo would have put xh's (x at [0, Cx), h at [Cx, Cin), zeros
+//     past Cin): a bf16 part with unit channel stride by cp.async as above;
+//     an f32 part (the carry h, layers 2-3's x) by cp.async into a scratch
+//     past the halo, then rounded with __float2bfloat16 (to nearest even,
+//     as .to(torch.bfloat16) rounds); a channels-first bf16 frame by
+//     cp.async of column pairs into a scratch of planes, then moved; a
+//     part of any other layout is refused and the caller concatenates.  The
+//     staged halo is xh's byte for byte, so h' and c' are bit-equal to the
+//     concatenated launch; nothing after the staging differs.  This is its
+//     own instantiation (kParts), it takes one channel group (Cin <= 128:
+//     every main path) and stages it before the accumulators are live, so
+//     its registers stay the mainloop's; its scratch is held to what keeps
+//     the blocks per SM of the launch on xh (parts_smem_budget: the hid-16
+//     layer's h then loads through registers).  Loading f32 through
+//     registers with 64 floats in flight took the kernel to 164-168
+//     registers, and staging inside the group loop (acc live) spilled at
+//     hid 64, each slower than the glue it replaced (PERF.md).
 //  4. K in steps of 16 channels: a ragged Cin wastes at most 15 (Cin 72 ->
 //     80, 126 -> 128, 70 -> 80).  The packed B rows past Cin are zero and
 //     so are the halo's channels past Cin.
@@ -541,13 +562,241 @@ __device__ __forceinline__ void stage_halo(
   }
 }
 
-// NT = hid / 8.
-template <int K, int NT, class Epi>
+// ---- the input as two parts ---------------------------------------------------
+
+// How one of the two tensors that B1's plain mode may read in place of xh
+// reaches the halo (plan_parts).  The two-part kernel takes one channel
+// group (Cin <= kGroupCh) and stages it before the accumulators are live.
+//   kDirect  bf16 with unit channel stride: cp.async of vec channels, as
+//            stage_halo copies xh;
+//   kF32     f32 with unit channel stride: cp.async of vec floats into the
+//            part's scratch [halo pixel][ch], rounded into the halo once
+//            landed;
+//   kPlanes  bf16 with unit column stride and another channel stride (a
+//            channels-first frame): cp.async of column pairs into the part's
+//            scratch [channel][halo row][kHaloW + 2 columns from an even
+//            one], moved into the halo once landed;
+//   kRegs    f32 with unit channel stride whose scratch would cost the
+//            launch a block per SM: loads of 4 floats through registers,
+//            16 floats in flight per thread, rounded as they are stored.
+// A part that takes none of them (a bf16 part with an odd channel count
+// or offset, an f32 or odd-strided channels-first one) is refused, and
+// the caller concatenates the pair.  Every f32 value is rounded with
+// __float2bfloat16 (to nearest even, as .to(torch.bfloat16) rounds).
+enum PartMode { kDirect = 0, kF32 = 1, kPlanes = 2, kRegs = 3 };
+
+struct HaloPart {
+  const void* p;             // element (b, y, x, c) at p + b*sb + y*sy + x*sx + c*sc
+  long long sb, sy, sx, sc;  // element strides
+  int ch;                    // channels
+  int f32;                   // 1: f32, 0: bf16
+  int mode, vec;             // PartMode; channels one copy or load moves
+  int soff;                  // its scratch's byte offset past the halo
+};
+
+// The two-part kernel's input: channels [0, part[0].ch) come from part[0]
+// (x), the next part[1].ch from part[1] (h)
+struct HaloParts {
+  HaloPart part[2];
+};
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16(v));
+}
+
+// two f32 rounded to a bf16 pair, lo in the low half (cvt.rn.bf16x2.f32:
+// each as __float2bfloat16 rounds it)
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 4-byte asynchronous copy of which the first `bytes` (0, 2 or 4) are read
+// and the rest zero-filled
+__device__ __forceinline__ void cp_async4_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+// A consumer thread's items e = tid, tid + kCellConsumers, ... of `units`
+// a halo pixel, walked as (pixel, unit) with e = pix * units + u: one
+// division at the start, none per item.
+struct Walk {
+  int pix, u, units, dp, du;
+  __device__ __forceinline__ Walk(int tid, int n) : units(n) {
+    pix = tid / n;
+    u = tid - pix * n;
+    dp = kCellConsumers / n;
+    du = kCellConsumers - dp * n;
+  }
+  __device__ __forceinline__ void next() {
+    pix += dp;
+    u += du;
+    if (u >= units) {
+      u -= units;
+      ++pix;
+    }
+  }
+};
+
+// A kRegs part into the halo from dst0 on, 4 floats an item: the loads of
+// 4 items are issued before the first is stored; pairs: dst0 is on an
+// even channel.
+template <int K>
+__device__ __forceinline__ void regs_part(const HaloPart& q, __nv_bfloat16* dst0, bool pairs,
+                                          int b, int H, int W, int ps, int row0, int col0,
+                                          int tid) {
+  constexpr int P = K / 2;
+  constexpr int kHaloW = kCellCols + K - 1;
+  constexpr int kHaloPix = (kCellRows + K - 1) * kHaloW;
+  constexpr int R = 4;
+  const float* base = static_cast<const float*>(q.p) + b * q.sb;
+  Walk w(tid, q.ch / 4);
+  while (w.pix < kHaloPix) {
+    float4 v[R];
+    Walk at = w;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int y = row0 - P + at.pix / kHaloW;
+      const int x = col0 - P + at.pix % kHaloW;
+      const bool ok = at.pix < kHaloPix && y >= 0 && y < H && x >= 0 && x < W;
+      const float* s = base + y * q.sy + x * q.sx + at.u * 4;
+      v[r] = ok ? __ldg(reinterpret_cast<const float4*>(s)) : make_float4(0, 0, 0, 0);
+      at.next();
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (w.pix < kHaloPix) {
+        __nv_bfloat16* d = dst0 + w.pix * ps + w.u * 4;
+        if (pairs) {
+          *reinterpret_cast<uint32_t*>(d) = bf16_pair(v[r].x, v[r].y);
+          *reinterpret_cast<uint32_t*>(d + 2) = bf16_pair(v[r].z, v[r].w);
+        } else {
+          const float f[4] = {v[r].x, v[r].y, v[r].z, v[r].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<unsigned short*>(d + j) = (unsigned short)bf16_bits(f[j]);
+        }
+      }
+      w.next();
+    }
+  }
+}
+
+// The halo of the input [x; h] (Cin <= kGroupCh) from its two parts, each
+// channel where stage_halo would have put xh's, zero outside the frame
+// and past Cin, landed and every consumer warp past it: the asynchronous
+// copies first (kDirect into the halo, kF32 and kPlanes into their
+// scratch), the loads through registers while they fly, then, once they
+// have landed, each scratch into the halo (kF32 a pixel's channels per
+// warp, kPlanes a row's pixels per warp, each reading its scratch along
+// its rows), as bf16 pairs where the part starts on an even channel and
+// has an even count.
+template <int K>
+__device__ __forceinline__ void stage_parts(const HaloParts& src, __nv_bfloat16* halo,
+                                            unsigned char* scratch, int b, int H, int W,
+                                            int Cin, int cp, int row0, int col0, int tid) {
+  constexpr int P = K / 2;
+  constexpr int kHaloW = kCellCols + K - 1;
+  constexpr int kHaloH = kCellRows + K - 1;
+  constexpr int kHaloPix = kHaloH * kHaloW;
+  constexpr int kPairs = kHaloW / 2 + 1;  // column pairs from an even column
+  constexpr int kPlaneW = 2 * kPairs;
+  const int ps = cp + 8;
+  const int x0 = (col0 - P) & ~1;  // the planes' first column
+  bool convert = false;
+#pragma unroll
+  for (int i = 0, off = 0; i < 2; off += src.part[i].ch, ++i) {
+    const HaloPart& q = src.part[i];
+    if (q.mode == kDirect || q.mode == kF32) {
+      const int v = q.vec, esz = q.f32 ? 4 : 2, bytes = v * esz;
+      const char* base = static_cast<const char*>(q.p) + b * q.sb * esz;
+      for (Walk w(tid, q.ch / v); w.pix < kHaloPix; w.next()) {
+        const int y = row0 - P + w.pix / kHaloW;
+        const int x = col0 - P + w.pix % kHaloW;
+        const bool ok = y >= 0 && y < H && x >= 0 && x < W;
+        const char* s = ok ? base + (y * q.sy + x * q.sx + w.u * v) * esz : base;
+        void* d = q.mode == kDirect
+                      ? static_cast<void*>(halo + off + w.pix * ps + w.u * v)
+                      : static_cast<void*>(reinterpret_cast<float*>(scratch + q.soff) +
+                                           w.pix * q.ch + w.u * v);
+        if (bytes == 16) cp_async16(d, s, ok);
+        else if (bytes == 8) cp_async8(d, s, ok);
+        else cp_async4(d, s, ok);
+      }
+      convert |= q.mode == kF32;
+    } else if (q.mode == kPlanes) {
+      const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(q.p) + b * q.sb;
+      __nv_bfloat16* plane = reinterpret_cast<__nv_bfloat16*>(scratch + q.soff);
+      for (int e = tid; e < q.ch * kHaloH * kPairs; e += kCellConsumers) {
+        const int pr = e % kPairs, t = e / kPairs;
+        const int r = t % kHaloH, c = t / kHaloH;
+        const int y = row0 - P + r, x = x0 + 2 * pr;
+        const int bytes = y >= 0 && y < H && x >= 0 ? 2 * min(2, max(0, W - x)) : 0;
+        const __nv_bfloat16* s = bytes ? base + y * q.sy + x + c * q.sc : base;
+        cp_async4_n(plane + (c * kHaloH + r) * kPlaneW + 2 * pr, s, bytes);
+      }
+      convert = true;
+    }
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0, off = 0; i < 2; off += src.part[i].ch, ++i)
+    if (src.part[i].mode == kRegs)
+      regs_part<K>(src.part[i], halo + off, off % 2 == 0, b, H, W, ps, row0, col0, tid);
+  const int nz = cp - Cin;  // the channels past Cin
+  for (int e = tid; e < kHaloPix * nz; e += kCellConsumers) {
+    const int pix = e / nz;
+    *reinterpret_cast<unsigned short*>(halo + pix * ps + Cin + (e - pix * nz)) = 0;
+  }
+  cp_async_wait<0>();
+  consumers_sync();
+  if (!convert) return;
+  const int xs = (col0 - P) - x0;  // the halo's first column in the planes
+#pragma unroll
+  for (int i = 0, off = 0; i < 2; off += src.part[i].ch, ++i) {
+    const HaloPart& q = src.part[i];
+    __nv_bfloat16* dst0 = halo + off;
+    const int w = (off | q.ch) % 2 == 0 ? 2 : 1;
+    if (q.mode == kF32) {
+      const float* f = reinterpret_cast<const float*>(scratch + q.soff);
+      for (Walk it(tid, q.ch / w); it.pix < kHaloPix; it.next()) {
+        const int c = it.u * w;
+        const float* s = f + it.pix * q.ch + c;
+        if (w == 2)
+          *reinterpret_cast<uint32_t*>(dst0 + it.pix * ps + c) = bf16_pair(s[0], s[1]);
+        else
+          *reinterpret_cast<unsigned short*>(dst0 + it.pix * ps + c) =
+              (unsigned short)bf16_bits(s[0]);
+      }
+    } else if (q.mode == kPlanes) {
+      const unsigned short* plane = reinterpret_cast<const unsigned short*>(scratch + q.soff);
+      for (int e = tid; e < kHaloPix * (q.ch / w); e += kCellConsumers) {
+        const int pix = e % kHaloPix, c = (e / kHaloPix) * w;
+        const unsigned short* s =
+            plane + (c * kHaloH + pix / kHaloW) * kPlaneW + xs + pix % kHaloW;
+        if (w == 2)
+          *reinterpret_cast<uint32_t*>(dst0 + pix * ps + c) =
+              (uint32_t)s[0] | (uint32_t)s[kHaloH * kPlaneW] << 16;
+        else
+          *reinterpret_cast<unsigned short*>(dst0 + pix * ps + c) = s[0];
+      }
+    }
+  }
+  consumers_sync();
+}
+
+// NT = hid / 8.  kParts: the input (one channel group) is read from
+// `parts` (B1's two-part launch), else from xh; an instantiation of its
+// own, so the staging of the one adds nothing to the registers of the
+// other.
+template <int K, int NT, class Epi, bool kParts>
 __global__ void __launch_bounds__(kCellThreads, 1)
 cell_wgmma_kernel(const __nv_bfloat16* __restrict__ xh,
                   const __nv_bfloat16* __restrict__ wpack,
                   const float* __restrict__ bias, const Epi epi, int H, int W,
-                  int Cin, int vec, int cp, int steps, int ks, int ring) {
+                  int Cin, int vec, int cp, int steps, int ks, int ring,
+                  const HaloParts parts) {
   constexpr int hid = NT * 8;
   constexpr int N = 4 * hid;
   constexpr int P = K / 2;
@@ -596,9 +845,14 @@ cell_wgmma_kernel(const __nv_bfloat16* __restrict__ xh,
     const int cw = tid >> 5;          // consumer warp 0..7
     const int rl = cw;                // its tile row: warpgroup cw / 4 owns rows 4(cw/4)..
     const int grp = lane >> 2, q = lane & 3;
-    const __nv_bfloat16* xh_b = xh + (size_t)b * H * W * Cin;
+    const __nv_bfloat16* xh_b = kParts ? nullptr : xh + (size_t)b * H * W * Cin;
     // ldmatrix.x4 rows: matrix lane / 8 = (pixels 0-7 | 8-15) x (channels 0-7 | 8-15)
     const int a_off = (rl * kHaloW + (lane & 7) + 8 * ((lane >> 3) & 1)) * ps + 8 * (lane >> 4);
+    // the two parts' one group, staged before the accumulators are live;
+    // the parts' scratch follows the halo (plan_parts)
+    if constexpr (kParts)
+      stage_parts<K>(parts, halo, reinterpret_cast<unsigned char*>(halo + kHaloPix * ps), b, H,
+                     W, Cin, cp, row0, col0, tid);
 
     float acc[N / 2];
 #pragma unroll
@@ -635,13 +889,16 @@ cell_wgmma_kernel(const __nv_bfloat16* __restrict__ xh,
 
     for (int g = 0; g * kGroupCh < Cin; ++g) {
       // stage the haloed tile of this channel group: zero outside the frame
-      // and past Cin, by the widest copy Cin and xh's alignment allow
-      if (g > 0) consumers_sync();  // every warp is done with the last group's halo
-      const int c0 = g * kGroupCh;
-      stage_halo<K>(xh_b, halo, H, W, Cin, cp, vec, c0, row0, col0, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-      consumers_sync();
+      // and past Cin, by the widest copy Cin and xh's alignment allow (the
+      // two parts' one group is staged above)
+      if constexpr (!kParts) {
+        if (g > 0) consumers_sync();  // every warp is done with the last group's halo
+        const int c0 = g * kGroupCh;
+        stage_halo<K>(xh_b, halo, H, W, Cin, cp, vec, c0, row0, col0, tid);
+        cp_async_commit();
+        cp_async_wait<0>();
+        consumers_sync();
+      }
 
       nch = cell_chunks(Cin, g);
       tap = 0;
@@ -755,11 +1012,101 @@ inline bool plan_cell(bool bf16, const void* xh, int B, int H, int W, int Cin,
   return true;
 }
 
+// A part's route and copy width when its first channel is channel `off`
+// of the input; false where it takes none.  A copy of vec channels needs
+// vec to divide the part's channels, address and strides; a kDirect copy
+// lands at channel off + c of the halo, so vec divides off too.
+inline bool plan_part(HaloPart& q, int off) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(q.p);
+  q.vec = 1;
+  q.soff = 0;
+  if (q.sc == 1) {
+    const int esz = q.f32 ? 4 : 2;
+    for (int v = q.f32 ? 4 : 8; v > 1; v /= 2) {
+      if (q.ch % v == 0 && a % (esz * v) == 0 && q.sb % v == 0 && q.sy % v == 0 &&
+          q.sx % v == 0 && (q.f32 || off % v == 0)) {
+        q.vec = v;
+        break;
+      }
+    }
+    q.mode = q.f32 ? kF32 : kDirect;
+    return q.f32 || q.vec > 1;  // no 2-byte cp.async
+  }
+  q.mode = kPlanes;
+  q.vec = 2;
+  return !q.f32 && q.sx == 1 && q.sb % 2 == 0 && q.sy % 2 == 0 && q.sc % 2 == 0 && a % 4 == 0;
+}
+
+inline size_t part_scratch_bytes(const HaloPart& q, int k) {
+  const size_t hr = kCellRows + k - 1, hc = kCellCols + k - 1;
+  const size_t bytes = q.mode == kF32      ? (size_t)q.ch * hr * hc * 4
+                       : q.mode == kPlanes ? (size_t)q.ch * hr * (hc + 2) * 2
+                                           : 0;
+  return (bytes + 15) / 16 * 16;
+}
+
+// Both parts' routes (Cin <= kGroupCh); their scratch follows the halo in
+// L's shared memory, which may grow to `budget` (parts_smem_budget).  Past
+// it the kF32 part of 4-float copies with the smaller scratch, then the
+// other, loads through registers (kRegs).  False where a part takes no
+// route, or the scratch that remains does not fit.
+inline bool plan_parts(HaloParts& s, CellLaunch& L, int k, size_t budget) {
+  if (!plan_part(s.part[0], 0) || !plan_part(s.part[1], s.part[0].ch)) return false;
+  size_t b0, b1;
+  for (;;) {
+    b0 = part_scratch_bytes(s.part[0], k);
+    b1 = part_scratch_bytes(s.part[1], k);
+    if (b0 + b1 == 0 || L.smem + b0 + b1 <= std::min(budget, (size_t)kMaxSmem)) break;
+    const bool r0 = s.part[0].mode == kF32 && s.part[0].vec == 4;
+    const bool r1 = s.part[1].mode == kF32 && s.part[1].vec == 4;
+    if (!r0 && !r1) return false;
+    s.part[r0 && (!r1 || b0 <= b1) ? 0 : 1].mode = kRegs;
+  }
+  s.part[1].soff = (int)b0;
+  L.smem += b0 + b1;
+  return true;
+}
+
+// The most shared memory the two-part launch of these shapes may take and
+// still run as many blocks per SM as the launch on xh, which takes
+// xh_smem: from the card's occupancy calculator and its shared memory per
+// SM.  kMaxSmem where the two-part kernel's registers allow fewer blocks
+// anyway, or the card cannot tell.  Worked out once per xh_smem.
 template <int K, int NT, class Epi>
+size_t parts_smem_budget(size_t xh_smem) {
+  static size_t key = 0, memo = 0;
+  if (key == xh_smem) return memo;
+  const auto xk = cell_wgmma_kernel<K, NT, Epi, false>;
+  const auto pk = cell_wgmma_kernel<K, NT, Epi, true>;
+  int dev = 0, per_sm = 0, reserved = 0, n_xh = 0, n_regs = 0;
+  size_t out = kMaxSmem;
+  if (cudaGetDevice(&dev) == cudaSuccess &&
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) ==
+          cudaSuccess &&
+      cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) ==
+          cudaSuccess &&
+      cudaFuncSetAttribute(xk, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem) ==
+          cudaSuccess &&
+      cudaFuncSetAttribute(pk, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem) ==
+          cudaSuccess &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_xh, xk, kCellThreads, xh_smem) ==
+          cudaSuccess &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_regs, pk, kCellThreads, 0) ==
+          cudaSuccess &&
+      n_xh > 0 && n_regs >= n_xh)
+    out = std::min((size_t)kMaxSmem, (size_t)(per_sm / n_xh - reserved));
+  cudaGetLastError();  // a failed query leaves no error for the next launch
+  key = xh_smem;
+  memo = out;
+  return out;
+}
+
+template <int K, int NT, class Epi, bool kParts>
 int launch_cell_wgmma_k(const CellLaunch& L, const __nv_bfloat16* x,
                         const __nv_bfloat16* wpack, const float* bb,
-                        const Epi& epi, int H, int W, int Cin, cudaStream_t s) {
-  auto kernel = cell_wgmma_kernel<K, NT, Epi>;
+                        const Epi& epi, int H, int W, int Cin, cudaStream_t s,
+                        const HaloParts& parts) {
+  auto kernel = cell_wgmma_kernel<K, NT, Epi, kParts>;
   // once per kernel, to the card's most, so a CUDA graph capture makes no
   // attribute call
   static int ready = 0;
@@ -771,19 +1118,20 @@ int launch_cell_wgmma_k(const CellLaunch& L, const __nv_bfloat16* x,
   }
   if (L.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   kernel<<<L.grid, kCellThreads, L.smem, s>>>(x, wpack, bb, epi, H, W, Cin, L.vec, L.cp,
-                                              L.steps, L.ks, L.ring);
+                                              L.steps, L.ks, L.ring, parts);
   return (int)cudaGetLastError();
 }
 
-template <int K, class Epi>
+template <int K, class Epi, bool kParts>
 int launch_cell_wgmma(const CellLaunch& L, const __nv_bfloat16* x,
                       const __nv_bfloat16* wpack, const float* bb, const Epi& epi,
-                      int H, int W, int Cin, int hid, cudaStream_t s) {
+                      int H, int W, int Cin, int hid, cudaStream_t s,
+                      const HaloParts& parts) {
   switch (hid) {
-    case 8: return launch_cell_wgmma_k<K, 1>(L, x, wpack, bb, epi, H, W, Cin, s);
-    case 16: return launch_cell_wgmma_k<K, 2>(L, x, wpack, bb, epi, H, W, Cin, s);
-    case 32: return launch_cell_wgmma_k<K, 4>(L, x, wpack, bb, epi, H, W, Cin, s);
-    case 64: return launch_cell_wgmma_k<K, 8>(L, x, wpack, bb, epi, H, W, Cin, s);
+    case 8: return launch_cell_wgmma_k<K, 1, Epi, kParts>(L, x, wpack, bb, epi, H, W, Cin, s, parts);
+    case 16: return launch_cell_wgmma_k<K, 2, Epi, kParts>(L, x, wpack, bb, epi, H, W, Cin, s, parts);
+    case 32: return launch_cell_wgmma_k<K, 4, Epi, kParts>(L, x, wpack, bb, epi, H, W, Cin, s, parts);
+    case 64: return launch_cell_wgmma_k<K, 8, Epi, kParts>(L, x, wpack, bb, epi, H, W, Cin, s, parts);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -814,28 +1162,31 @@ int launch_cell_fp32_k(const CellLaunch& L, const T* x, const T* wt,
 
 // One launch of the gate conv with epilogue `epi`, on the kernel `L` names:
 // the wgmma mainloop reads the packed weights `wpack` (pack_cell_weights,
-// 16-byte aligned), the FP32 pipes `w`.
-template <typename T, class Epi>
+// 16-byte aligned), the FP32 pipes `w`.  kParts (the wgmma mainloop only,
+// one channel group): the input is read from `parts` and xh is unused.
+template <typename T, class Epi, bool kParts = false>
 int launch_cell(const CellLaunch& L, const void* xh, const void* w,
                 const void* wpack, const void* b, const Epi& epi, int H, int W,
-                int Cin, int hid, int k, void* stream) {
+                int Cin, int hid, int k, void* stream,
+                const HaloParts& parts = HaloParts{}) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bb = static_cast<const float*>(b);
+  if (kParts && Cin > kGroupCh) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (L.wgmma) {
       const auto* x = static_cast<const __nv_bfloat16*>(xh);
       const auto* wp = static_cast<const __nv_bfloat16*>(wpack);
       if (wp == nullptr || reinterpret_cast<uintptr_t>(wp) % 16) return (int)cudaErrorInvalidValue;
       switch (k) {
-        case 1: return launch_cell_wgmma<1>(L, x, wp, bb, epi, H, W, Cin, hid, s);
-        case 3: return launch_cell_wgmma<3>(L, x, wp, bb, epi, H, W, Cin, hid, s);
-        case 5: return launch_cell_wgmma<5>(L, x, wp, bb, epi, H, W, Cin, hid, s);
-        case 7: return launch_cell_wgmma<7>(L, x, wp, bb, epi, H, W, Cin, hid, s);
+        case 1: return launch_cell_wgmma<1, Epi, kParts>(L, x, wp, bb, epi, H, W, Cin, hid, s, parts);
+        case 3: return launch_cell_wgmma<3, Epi, kParts>(L, x, wp, bb, epi, H, W, Cin, hid, s, parts);
+        case 5: return launch_cell_wgmma<5, Epi, kParts>(L, x, wp, bb, epi, H, W, Cin, hid, s, parts);
+        case 7: return launch_cell_wgmma<7, Epi, kParts>(L, x, wp, bb, epi, H, W, Cin, hid, s, parts);
         default: return (int)cudaErrorInvalidValue;
       }
     }
   }
-  if (L.wgmma) return (int)cudaErrorInvalidValue;
+  if (L.wgmma || kParts) return (int)cudaErrorInvalidValue;
   const T* x = static_cast<const T*>(xh);
   const T* wt = static_cast<const T*>(w);
   switch (k) {

@@ -24,7 +24,9 @@
 //               are written (B,H,W,4*hid) in block order i, f, g, o: the
 //               residual of the per-cell training route, whose backward
 //               then needs no gate recompute.
-// Both may be on at once.
+// Both may be on at once.  The plain mode has a second entry point that
+// reads its input as the two tensors x and h where they lie, bit-equal to
+// the launch on their concatenation (niswan_convlstm_cell_parts_bf16).
 //
 // The gate conv is one of the two mainloops of cell_mainloop.cuh, whose
 // source note says what bounds it and how the design answers: bf16 operands
@@ -131,6 +133,40 @@ int forward(const void* xh, const void* w, const void* b, const void* c,
   return launch_cell<T>(L, xh, w, wpack, b, epi, H, W, Cin, hid, k, stream);
 }
 
+template <int K>
+size_t two_part_budget_k(int hid, size_t xh_smem) {
+  using E = CellEpi<__nv_bfloat16>;
+  switch (hid) {
+    case 8: return parts_smem_budget<K, 1, E>(xh_smem);
+    case 16: return parts_smem_budget<K, 2, E>(xh_smem);
+    case 32: return parts_smem_budget<K, 4, E>(xh_smem);
+    case 64: return parts_smem_budget<K, 8, E>(xh_smem);
+    default: return kMaxSmem;
+  }
+}
+
+// The plan of the two-part launch: false where no kernel takes the
+// shapes, they are not on the wgmma mainloop, Cin is over one channel
+// group, or a part's layout takes no route (plan_parts).
+bool plan_two_part(const void* x, int x_f32, const long long* xs, const void* h, int h_f32,
+                   const long long* hs, int B, int H, int W, int Cx, int hid, int k,
+                   CellLaunch* L, HaloParts* parts) {
+  if (Cx + hid > kGroupCh || !plan_cell(true, nullptr, B, H, W, Cx + hid, hid, k, false, L) ||
+      !L->wgmma)
+    return false;
+  *parts = HaloParts{};
+  parts->part[0] = HaloPart{x, xs[0], xs[1], xs[2], xs[3], Cx, x_f32 != 0};
+  parts->part[1] = HaloPart{h, hs[0], hs[1], hs[2], hs[3], hid, h_f32 != 0};
+  size_t budget;
+  switch (k) {
+    case 1: budget = two_part_budget_k<1>(hid, L->smem); break;
+    case 3: budget = two_part_budget_k<3>(hid, L->smem); break;
+    case 5: budget = two_part_budget_k<5>(hid, L->smem); break;
+    default: budget = two_part_budget_k<7>(hid, L->smem); break;
+  }
+  return plan_parts(*parts, *L, k, budget);
+}
+
 }  // namespace
 
 extern "C" {
@@ -180,6 +216,29 @@ int niswan_convlstm_cell_bf16(const void* xh, const void* w, const void* b,
                               int H, int W, int Cin, int hid, int k, void* stream) {
   return forward<__nv_bfloat16>(xh, w, b, c, xg, h_out, c_out, gates, wpack, B,
                                 H, W, Cin, hid, k, stream);
+}
+
+// The plain mode reading its input [x; h] from x (B,H,W,Cx) and h
+// (B,H,W,hid) where they lie: each bf16 or f32 (x_f32, h_f32), with its own
+// element strides (batch, row, column, channel).  The wgmma mainloop only
+// (bf16 weights, hid in {8, 16, 32, 64}) and Cx + hid <= 128; h' and c'
+// are bit-equal to niswan_convlstm_cell_bf16 on [x; h] concatenated and
+// cast to bf16.  Returns -1, having launched nothing, where the two-part
+// launch does not take the shapes or the parts' layouts.
+int niswan_convlstm_cell_parts_bf16(
+    const void* x, int x_f32, long long xsb, long long xsy, long long xsx, long long xsc,
+    const void* h, int h_f32, long long hsb, long long hsy, long long hsx, long long hsc,
+    const void* b, const void* c, void* h_out, void* c_out, const void* wpack, int B,
+    int H, int W, int Cx, int hid, int k, void* stream) {
+  const long long xs[4] = {xsb, xsy, xsx, xsc}, hs[4] = {hsb, hsy, hsx, hsc};
+  CellLaunch L;
+  HaloParts parts;
+  if (!plan_two_part(x, x_f32, xs, h, h_f32, hs, B, H, W, Cx, hid, k, &L, &parts)) return -1;
+  const CellEpi<__nv_bfloat16> epi{static_cast<const float*>(c), static_cast<float*>(h_out),
+                                   static_cast<float*>(c_out), hid, nullptr, nullptr,
+                                   nullptr};
+  return launch_cell<__nv_bfloat16, CellEpi<__nv_bfloat16>, true>(
+      L, nullptr, nullptr, wpack, b, epi, H, W, Cx + hid, hid, k, stream, parts);
 }
 
 const char* niswan_error_string(int err) {

@@ -255,7 +255,9 @@ def convlstm_apply(
       return_state: also return the final per-layer (h, c) carry.
       precompute_input_conv: hoist layer 0's input conv out of the time
         loop (``hoist_input_conv``); layer 0 then runs the kernel's xg mode.
-      cell_fn: the fused cell ``(xh, c, w, b, xg=None) -> (h', c')``.  The
+      cell_fn: the fused cell ``(xh, c, w, b, xg=None) -> (h', c')``, xh
+        the pair (x, h) of a layer's input and carry (``join_xh`` makes
+        [x; h] of it), or h alone beside ``xg``.  The
         default dispatches by device and takes the per-cell autograd route
         when differentiating; ``fused_cell_forward_plain`` runs the plain
         version on any device, and eager autograd through it is the oracle
@@ -331,9 +333,9 @@ def convlstm_apply(
             if precompute_input_conv:
                 h0, c0 = state[0]
                 first = cell_fn(h0.to(dt), c0, w_h0, cells[0][1], xg[t])
-                state = [first] + cells_step(cells[1:], first[0], state[1:], dt, cell_fn)
+                state = [first] + cells_step(cells[1:], first[0], state[1:], cell_fn)
             else:
-                state = cells_step(cells, x_steps[t], state, dt, cell_fn)
+                state = cells_step(cells, x_steps[t], state, cell_fn)
             if return_per_step:
                 h_last = state[-1][0]
                 taps.append(

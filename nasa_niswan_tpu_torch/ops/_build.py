@@ -127,13 +127,17 @@ def load_kernels() -> ctypes.CDLL:
 
 def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    part = [ptr, i32] + [i64] * 4  # (data, f32?, strides b, y, x, c)
     signatures = {
         # (xh, w, b, c, xg or null, h_out, c_out, gates or null,
         # packed w or null),
         # (B, H, W, Cin, hid, k), stream
         "niswan_convlstm_cell_f32": [ptr] * 9 + [i32] * 6 + [ptr],
         "niswan_convlstm_cell_bf16": [ptr] * 9 + [i32] * 6 + [ptr],
+        # x part, h part, (b, c, h_out, c_out, packed w),
+        # (B, H, W, Cx, hid, k), stream -> -1 where it does not take them
+        "niswan_convlstm_cell_parts_bf16": part * 2 + [ptr] * 5 + [i32] * 6 + [ptr],
         # (xh, dgates, dw, work), (B, H, W, Cin, N, k), stream
         "niswan_conv_dw_f32": [ptr] * 4 + [i32] * 6 + [ptr],
         "niswan_conv_dw_bf16": [ptr] * 4 + [i32] * 6 + [ptr],

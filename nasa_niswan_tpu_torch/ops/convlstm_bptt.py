@@ -46,14 +46,16 @@ def combined_cells(params, dt: torch.dtype) -> List[Tuple[torch.Tensor, torch.Te
     ]
 
 
-def cells_step(cells, x_t, state, dt, cell_fn) -> State:
-    """One time step through every layer (cell inputs ``xh = [x; h]`` in the
-    compute dtype); returns the new per-layer (h, c)."""
+def cells_step(cells, x_t, state, cell_fn) -> State:
+    """One time step through every layer; returns the new per-layer (h, c).
+    Each cell gets its input as the pair (x, h) as they lie:
+    ``fused_cell_forward``'s two-part launch stages [x; h] from it without
+    a concatenated copy, and a cell that needs one tensor makes it with
+    ``join_xh`` in the compute dtype."""
     inp = x_t
     new = []
     for (w, b), (h, c) in zip(cells, state):
-        xh = torch.cat([inp.to(dt), h.to(dt)], dim=-1)
-        new.append(cell_fn(xh, c, w, b))
+        new.append(cell_fn((inp, h), c, w, b))
         inp = new[-1][0]
     return new
 
@@ -75,7 +77,7 @@ class _ScanCells(torch.autograd.Function):
         cells = combined_cells(_raw_params(flat, n_layers), dt)
         carries = [state0]
         for t in range(xs.shape[1]):
-            carries.append(cells_step(cells, xs[:, t], carries[-1], dt, cell_fn))
+            carries.append(cells_step(cells, xs[:, t], carries[-1], cell_fn))
         ctx.grads_fn = grads_fn
         ctx.dt = dt
         ctx.n_layers = n_layers

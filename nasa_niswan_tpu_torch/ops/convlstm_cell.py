@@ -7,7 +7,9 @@ the v1 kernel ``nasa_niswan_tpu/ops/convlstm_pallas.py::_cell_kernel`` (B4),
 which computes the same cell in the same standard layout:
 
 * plain: (h', c') from ``xh = [x; h]`` and the combined kernel; serving and
-  the whole-scan BPTT's forward run it;
+  the whole-scan BPTT's forward run it, on the pair (x, h) where they lie
+  (``fused_cell_forward``: the kernel stages [x; h] itself, with no
+  concatenated copy written before it);
 * ``emit_gates``: also the pre-activation gates in the compute dtype, the
   residual of the per-cell custom VJP ``_fused_cell_v2``.  Every cell that
   is differentiated outside the whole-scan BPTT takes that VJP: ``remat``
@@ -70,10 +72,13 @@ from nasa_niswan_tpu_torch.ops.conv import conv2d
 # Successful launches of the CUDA kernel in this process, by mode (a launch
 # with both xg and emit_gates on counts once, under gates_launches);
 # chip_smoke.py resets them before driving a path and reads them after.
+# parts_launches is a sub-count of launches: the plain launches that staged
+# their input from the two tensors (x, h).
 launches = 0
 gates_launches = 0
 xg_launches = 0
-LAUNCH_COUNTERS = ("launches", "gates_launches", "xg_launches")
+parts_launches = 0
+LAUNCH_COUNTERS = ("launches", "gates_launches", "xg_launches", "parts_launches")
 
 _KERNEL_SIZES = (1, 3, 5, 7)
 _MAX_HIDDEN = 128  # 4 pixel groups x hidden threads must fit a 512-thread block
@@ -96,15 +101,25 @@ def _gates_plain(xh, w, b, xg):
     return gates if xg is None else gates + xg.float()
 
 
+def join_xh(xh, dtype: torch.dtype) -> torch.Tensor:
+    """A cell's input as one tensor: ``xh`` itself, or the pair (x, h) that
+    ``cells_step`` hands a cell concatenated as ``[x; h]`` in ``dtype``."""
+    if isinstance(xh, tuple):
+        x, h = xh
+        return torch.cat([x.to(dtype), h.to(dtype)], dim=-1)
+    return xh
+
+
 def fused_cell_forward_plain(
-    xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+    xh, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     xg: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's math in plain PyTorch (plain and ``xg`` modes): operands
-    upcast to f32, an f32 SAME conv, then the state update.  Used for CPU
-    tensors and as the reference the kernel is held to on the card; eager
-    autograd through it is the oracle of every training route."""
-    return gate_update(_gates_plain(xh, w, b, xg), c)
+    upcast to f32, an f32 SAME conv, then the state update; ``xh`` one
+    tensor or the pair (x, h), joined in w's dtype.  Used for CPU tensors
+    and as the reference the kernel is held to on the card; eager autograd
+    through it is the oracle of every training route."""
+    return gate_update(_gates_plain(join_xh(xh, w.dtype), w, b, xg), c)
 
 
 def fused_cell_gates_plain(
@@ -339,6 +354,74 @@ def _(xh, c, w, b):
     return torch.empty_like(c), torch.empty_like(c)
 
 
+def _part_args(t: torch.Tensor) -> tuple:
+    """A part's (data pointer, f32?, strides of b, y, x, c) for the kernel;
+    the stride of a dimension of size 1 is given as 0 (it is never used)."""
+    return (t.data_ptr(), int(t.dtype == torch.float32),
+            *(s if n > 1 else 0 for n, s in zip(t.shape, t.stride())))
+
+
+def _launch_parts(x, h, c, w, b):
+    """One plain launch staging its input from x and h where they lie (bf16
+    or f32, any strides), counted under ``launches`` and ``parts_launches``;
+    where the library's plan does not take the shapes or the parts'
+    layouts, the launch on their concatenation."""
+    global launches, parts_launches
+    lib = _build.load_kernels()
+    B, H, W, cx = x.shape
+    hid = c.shape[-1]
+    wpack = packed_weights(w)
+    h_out = torch.empty_like(c)
+    c_out = torch.empty_like(c)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.niswan_convlstm_cell_parts_bf16(
+            *_part_args(x), *_part_args(h), b.data_ptr(), c.data_ptr(),
+            h_out.data_ptr(), c_out.data_ptr(), None if wpack is None else wpack.data_ptr(),
+            B, H, W, cx, hid, w.shape[0], stream,
+        )
+    if err == -1:
+        return _launch(join_xh((x, h), w.dtype), c, w, b, None, False)[:2]
+    _raise_on(err, "convlstm_cell", lib)
+    launches += 1
+    parts_launches += 1
+    return h_out, c_out
+
+
+@torch.library.custom_op(
+    "niswan::convlstm_cell_parts", mutates_args=(), device_types="cuda"
+)
+def _convlstm_cell_parts_cuda(
+    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_parts(x, h, c, w, b)
+
+
+@_convlstm_cell_parts_cuda.register_fake
+def _(x, h, c, w, b):
+    return torch.empty_like(c), torch.empty_like(c)
+
+
+def _stages_parts(x, h, c, w, b) -> bool:
+    """Whether the pair (x, h) goes to the two-part launch: no grad, one
+    CUDA device, x and h bf16 or f32 of the shapes ``check_cell_args``
+    asks of [x; h], bf16 weights.  Anything else is concatenated (and
+    checked) as before; so is what the launch's plan then refuses."""
+    ins = (x, h, c, w, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return False
+    if x.device.type != "cuda" or any(t.device != x.device for t in ins):
+        return False
+    if {x.dtype, h.dtype} - {torch.bfloat16, torch.float32} or w.dtype != torch.bfloat16 \
+            or c.dtype != torch.float32 or b.dtype != torch.float32:
+        return False
+    if x.dim() != 4 or h.shape != c.shape or x.shape[:3] != c.shape[:3]:
+        return False
+    cx, hid, k = x.shape[-1], c.shape[-1], w.shape[0]
+    return w.shape == (k, k, cx + hid, 4 * hid) and b.shape == (4 * hid,) \
+        and all(t.is_contiguous() for t in (c, w, b))
+
+
 @torch.library.custom_op(
     "niswan::convlstm_cell_gates", mutates_args=(), device_types="cuda"
 )
@@ -440,16 +523,32 @@ class FusedCellXg(torch.autograd.Function):
 
 
 def fused_cell_forward(
-    xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+    xh, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     xg: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused cell step; returns (h', c') f32 (B,H,W,hid).  With ``xg``
     (the hoisted input gates, xh's dtype) xh is h alone and w is ``w_h``.
 
+    ``xh`` is one tensor or the pair ``(x, h)`` of its parts, each in any
+    dtype and layout.  Without grad on a CUDA device, where the wgmma
+    mainloop takes the shape, [x; h] has at most 128 channels and each
+    part's layout has a route (a bf16 part with unit channel stride and an
+    even channel count, an f32 one with unit channel stride, a
+    channels-first bf16 frame), the pair is the two-part launch: the
+    kernel stages [x; h] from x and h where they lie (an f32 part rounded
+    to bf16 as ``.to(torch.bfloat16)`` rounds), bit-equal to the launch on
+    ``join_xh((x, h), w.dtype)``, which is what every other pair is turned
+    into.
+
     When grad is enabled and an input requires it, the step is the per-cell
     autograd Function (``FusedCell`` / ``FusedCellXg``: the emit_gates
     launch, no recompute in the backward).  Otherwise CPU tensors run the
     plain version and every other device the plain or xg launch."""
+    if isinstance(xh, tuple):
+        x, h = xh
+        if xg is None and _stages_parts(x, h, c, w, b):
+            return torch.ops.niswan.convlstm_cell_parts(x, h, c, w, b)
+        xh = join_xh(xh, w.dtype)
     check_cell_args(xh, c, w, b, xg)
     ins = (xh, c, w, b) if xg is None else (xh, c, w, b, xg)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):

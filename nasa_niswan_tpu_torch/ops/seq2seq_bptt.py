@@ -66,7 +66,7 @@ def feedback_step(cells, head_w, head_b, x_t, fb, state, dt, padded_shape,
     the forcings x_t (B, H, W, C-1), the fused cells, the head and the crop.
     Returns (new per-layer (h, c), the (B, h, w) normalized prediction)."""
     frame = torch.cat([x_t.to(dt), fb_channel(fb, padded_shape).to(dt)], dim=-1)
-    state = cells_step(cells, frame, state, dt, cell_fn)
+    state = cells_step(cells, frame, state, cell_fn)
     return state, pred_from_h(state[-1][0], head_w, head_b, grid_shape, dt)
 
 

@@ -119,6 +119,7 @@ from nasa_niswan_tpu_torch.ops.convlstm_cell import (
     _cell_vjp,
     fused_cell_forward,
     fused_cell_gates,
+    join_xh,
 )
 from nasa_niswan_tpu_torch.ops.seq2seq_bptt import fb_channel
 from nasa_niswan_tpu_torch.parallel.dp import reduce_gradients
@@ -145,12 +146,13 @@ def cell_on_tile(xh: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Te
                  mesh: Mesh, cell_fn: CellFn = fused_cell_forward,
                  xg: Optional[torch.Tensor] = None):
     """One fused cell step on a rank's tile: xh (B, h, w, Cin) = [x; h] in
-    the compute dtype (h alone with the hoisted gates ``xg`` (B, h, w,
-    4 hid) of the tile), c (B, h, w, hid) f32; returns the tile's (h',
-    c').  ``cell_fn`` is the cell run on the extended tile without grad (a
+    the compute dtype, or the pair (x, h) joined in w's (h alone with the
+    hoisted gates ``xg`` (B, h, w, 4 hid) of the tile), c (B, h, w, hid)
+    f32; returns the tile's (h', c').  ``cell_fn`` is the cell run on the extended tile without grad (a
     test passes the plain version); ``xg`` gets the zero ring.  Under grad
     (the per-cell training route) the step is ``_TileCell``, B1's
     emit_gates mode on the extended tile."""
+    xh = join_xh(xh, w.dtype)
     ins = (xh, c, w, b) if xg is None else (xh, c, w, b, xg)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         return _TileCell.apply(xh, c, w, b, mesh, w.detach().to(xh.dtype), xg)
@@ -402,7 +404,7 @@ def _per_cell_tiles(params, x: torch.Tensor, config: ConvLSTMConfig, mesh: Mesh,
     def cell(xh, c, w, b, xg=None):
         if id(w) not in low:
             low[id(w)] = w.detach().to(dt)
-        return _TileCell.apply(xh, c, w, b, mesh, low[id(w)], xg)
+        return _TileCell.apply(join_xh(xh, dt), c, w, b, mesh, low[id(w)], xg)
 
     return convlstm_apply(params, x, config, precompute_input_conv=hoist, weights=weights,
                           cell_fn=cell, hoist_fn=_hoist_on_tile(mesh, config))
@@ -738,8 +740,7 @@ def make_sharded_feedback_rollout(
         st, prev, preds = nest_state(state), prev_norm, []
         for t in range(xs.shape[0]):
             fb = _tile(fb_channel(prev, padded_shape), mesh, 1).to(dt)
-            st = cells_step(weights["cells"], torch.cat([xs[t], fb], dim=-1), st, dt,
-                            tile_cell)
+            st = cells_step(weights["cells"], torch.cat([xs[t], fb], dim=-1), st, tile_cell)
             tap = head_apply(params, st[-1][0], dt)
             prev = crop_to_grid(gather_tiles(tap[..., 0], mesh, lat_axis=1, lon_axis=2,
                                              batch_axis=None), grid_shape)

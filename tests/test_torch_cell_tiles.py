@@ -16,6 +16,13 @@ package.
   Cin, against ``fused_cell_forward_v2`` / ``fused_cell_bwd_v2`` (Pallas
   interpret mode).  The kernel itself runs only on a card
   (``tests/test_torch_cuda.py``).
+* The two-part stage (``stage_parts``, B1's plain mode reading x and h
+  where they lie): each part's route, its scratch within the shared memory
+  the launch may take, and the halo it stages, byte for byte the one
+  ``stage_halo`` stages from the concatenated, cast xh; the layouts it
+  refuses, which the caller concatenates; the pair through
+  ``fused_cell_forward`` and ``cells_step`` on the CPU, with and without
+  grad.
 
 Inputs are seeded numpy; shapes are small."""
 
@@ -538,3 +545,384 @@ def test_weight_ring_protocol_never_stalls_or_overwrites(shape):
     p = _plan(*shape)
     events = _ring_protocol(p["steps"], p["ks"], p["ring"], p["n"])
     assert sum(e[0] == "release" for e in events) == (p["steps"] - 1) // p["ks"]
+
+
+# ---- the two-part stage (B1's plain mode reading x and h where they lie) ------
+
+
+def _dims(t):
+    """A part's (batch, row, column, channel) strides as the kernel gets
+    them: 0 for a dimension of size 1."""
+    return tuple(s if n > 1 else 0 for n, s in zip(t.shape, t.stride()))
+
+
+def _part_route(t, off):
+    """``plan_part``: (route, copy width) of part ``t`` when its first
+    channel is channel ``off`` of the input (storage 16-byte aligned, as the
+    allocators give it), or None where it takes none."""
+    sb, sy, sx, sc = _dims(t)
+    ch = t.shape[-1]
+    f32 = t.dtype == torch.float32
+    esz = 4 if f32 else 2
+    addr = t.storage_offset() * esz
+    if sc == 1:
+        vec = next((v for v in ((4, 2) if f32 else (8, 4, 2))
+                    if ch % v == 0 and addr % (esz * v) == 0
+                    and all(s_ % v == 0 for s_ in (sb, sy, sx)) and (f32 or off % v == 0)), 1)
+        return None if not f32 and vec == 1 else ("f32" if f32 else "direct", vec)
+    if not f32 and sx == 1 and sb % 2 == 0 and sy % 2 == 0 and sc % 2 == 0 and addr % 4 == 0:
+        return "planes", 2
+    return None
+
+
+def _scratch_bytes(route, ch, k):
+    hr, hc = ROWS + k - 1, COLS + k - 1
+    n = {"f32": ch * hr * hc * 4, "planes": ch * hr * (hc + 2) * 2}.get(route, 0)
+    return _ceil(n, 16) * 16
+
+
+def _parts_plan(x, h, k, smem, budget=MAX_SMEM):
+    """``plan_parts``: both parts' (route, copy width), their scratch
+    offsets past the halo, and the launch's shared memory (``smem`` the
+    plan's without the scratch), which may grow to ``budget``: past it the
+    "f32" part of 4-float copies with the smaller scratch, then the other,
+    goes to "regs".  None where a part takes no route or the scratch that
+    remains does not fit."""
+    routes = [_part_route(x, 0), _part_route(h, x.shape[-1])]
+    if None in routes:
+        return None
+    routes = [list(r) for r in routes]
+    chs = (x.shape[-1], h.shape[-1])
+    while True:
+        b0, b1 = (_scratch_bytes(r[0], c, k) for r, c in zip(routes, chs))
+        if b0 + b1 == 0 or smem + b0 + b1 <= min(budget, MAX_SMEM):
+            break
+        r0, r1 = (r == ["f32", 4] for r in routes)
+        if not (r0 or r1):
+            return None
+        routes[0 if r0 and (not r1 or b0 <= b1) else 1][0] = "regs"
+    return [tuple(r) for r in routes], (0, b0), smem + b0 + b1
+
+
+def _bits(t):
+    """The bf16 bits (as int32) of every element of t's storage: an f32
+    part rounded as ``.to(torch.bfloat16)`` (and ``__float2bfloat16``)
+    round, to nearest even."""
+    n = t.untyped_storage().nbytes() // t.element_size()
+    flat = torch.as_strided(t, (n,), (1,), 0)
+    return flat.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+
+
+def _stage_halo(xh, b, by, bx, g, k, vec, cp):
+    """``stage_halo`` on the concatenated bf16 xh: the block's halo as bf16
+    bits, -1 where nothing is written (the 8 channels of pixel padding)."""
+    B, H, W, cin = xh.shape
+    P, hc = k // 2, COLS + k - 1
+    pix_n, ps = (ROWS + k - 1) * hc, cp + 8
+    c0 = g * GROUP_CH
+    cend = min(cin, c0 + GROUP_CH)
+    bits = xh.contiguous().view(torch.int16).to(torch.int32)
+    halo = torch.full((pix_n * ps,), -1, dtype=torch.int32)
+    units = cp // vec
+    e = torch.arange(pix_n * units)
+    pix, u = e // units, e % units
+    y, x = by * ROWS - P + pix // hc, bx * COLS - P + pix % hc
+    for i in range(vec):
+        ch = c0 + u * vec + i
+        ok = (y >= 0) & (y < H) & (x >= 0) & (x < W) & (c0 + u * vec < cend)
+        v = bits[b, y.clamp(0, H - 1), x.clamp(0, W - 1), ch.clamp(max=cin - 1)]
+        halo[pix * ps + u * vec + i] = torch.where(ok, v, 0)
+    return halo
+
+
+def _stage_parts(parts, plan, H, W, b, by, bx, k, cp):
+    """``stage_parts``: the block's halo from the parts where they lie, item
+    by item as the kernel walks them, the addresses from each part's
+    strides on its storage.  "direct" copies land in the halo, "f32" ones
+    in the part's scratch [pixel][channel], "planes" ones (column pairs
+    from an even column, zero past the frame) in its scratch
+    [channel][row][column]; "regs" loads 4 floats at a time through
+    registers straight into the halo; then zeros past Cin; then, once the copies
+    have landed, each scratch is rounded or moved into the halo.  Also
+    returns how often each halo position is written."""
+    routes = plan[0]
+    cin = sum(t.shape[-1] for t in parts)
+    P, hr, hc = k // 2, ROWS + k - 1, COLS + k - 1
+    pix_n, ps, pairs_n = hr * hc, cp + 8, hc // 2 + 1
+    row0, col0 = by * ROWS, bx * COLS
+    x0 = (col0 - P) & ~1
+    halo = torch.full((pix_n * ps,), -1, dtype=torch.int32)
+    writes = torch.zeros(pix_n * ps, dtype=torch.int32)
+    scratch = {}
+
+    def put(idx, val):
+        halo[idx] = val
+        writes[idx] += 1
+
+    off = 0
+    for i, t in enumerate(parts):
+        (route, vec), ch = routes[i], t.shape[-1]
+        sb, sy, sx, sc = _dims(t)
+        bits = _bits(t)
+        base = t.storage_offset() + b * sb
+
+        def load(addr, ok):
+            return torch.where(ok, bits[addr.clamp(0, bits.numel() - 1)], 0)
+
+        if route in ("direct", "f32", "regs"):
+            assert ch % vec == 0 and (route != "direct" or off % vec == 0)
+            assert route != "regs" or vec == 4
+            units = ch // vec
+            e = torch.arange(pix_n * units)
+            pix, u = e // units, e % units
+            y, x = row0 - P + pix // hc, col0 - P + pix % hc
+            ok = (y >= 0) & (y < H) & (x >= 0) & (x < W)
+            for j in range(vec):
+                v = load(base + y * sy + x * sx + u * vec + j, ok)
+                if route == "f32":
+                    scratch.setdefault(i, torch.full((pix_n * ch,), -1, dtype=torch.int32))
+                    scratch[i][pix * ch + u * vec + j] = v
+                else:
+                    put(pix * ps + off + u * vec + j, v)
+        else:
+            assert route == "planes"
+            e = torch.arange(ch * hr * pairs_n)
+            pr, r, c = e % pairs_n, (e // pairs_n) % hr, e // (pairs_n * hr)
+            y, x = row0 - P + r, x0 + 2 * pr
+            row_ok = (y >= 0) & (y < H) & (x >= 0)
+            plane = scratch.setdefault(i, torch.full((ch * hr * 2 * pairs_n,), -1,
+                                                     dtype=torch.int32))
+            for j in range(2):  # the copy reads 2 * min(2, W - x) bytes, zero past them
+                ok = row_ok & (j < (W - x).clamp(0, 2))
+                plane[(c * hr + r) * 2 * pairs_n + 2 * pr + j] = load(base + y * sy + x + j + c * sc, ok)
+        off += ch
+    nz = cp - cin
+    if nz > 0:
+        e = torch.arange(pix_n * nz)
+        put((e // nz) * ps + cin + e % nz, 0)
+    off = 0
+    for i, t in enumerate(parts):  # the scratch into the halo, once landed
+        route, ch = routes[i][0], t.shape[-1]
+        if route in ("f32", "planes"):
+            pix, c = torch.arange(pix_n)[:, None], torch.arange(ch)[None, :]
+            if route == "f32":
+                v = scratch[i][pix * ch + c]
+            else:
+                col = (col0 - P) - x0 + pix % hc
+                v = scratch[i][(c * hr + pix // hc) * 2 * pairs_n + col]
+            assert (v != -1).all()  # every value read has landed
+            put((pix * ps + off + c).flatten(), v.flatten())
+        off += ch
+    return halo, writes
+
+
+def _frames(B, T, C, H, W, seed):
+    """A prepared serving chunk (B, T, H, W, C) bf16: the channels-first
+    frames through ``_prep_frame``, whose ``movedim`` leaves channel
+    stride H*W."""
+    from nasa_niswan_tpu_torch.data.dataset import Normalizer
+    from nasa_niswan_tpu_torch.rollout.autoregressive import _prep_frame
+
+    rng = np.random.default_rng(seed)
+    norm = Normalizer(rng.standard_normal(C).astype(np.float32),
+                      (1.0 + rng.random(C)).astype(np.float32), 0.5, 2.0)
+    raw = torch.tensor(rng.standard_normal((B, T, C, H - 4, W - 6)), dtype=torch.float32)
+    return _prep_frame(raw, norm, None, (H, W), torch.bfloat16)
+
+
+def _part(kind, B, H, W, C, seed):
+    """One part of a cell input: "frame" (a serving chunk's step 1, bf16,
+    channel stride H*W), "xs" (a training batch's step 1, NHWC bf16),
+    "frame32" (the chunk's step in f32, channels-first), "f32" (a carry
+    or the previous layer's h', contiguous), "bf16" (a contiguous bf16
+    frame), "bf16+2" (one starting 4 bytes past its storage)."""
+    if kind == "frame":
+        return _frames(B, 3, C, H, W, seed)[:, 1]
+    if kind == "frame32":
+        return _frames(B, 3, C, H, W, seed).float()[:, 1]
+    if kind == "xs":
+        return _t(_randn(seed, B, 3, H, W, C)).bfloat16()[:, 1]
+    if kind == "f32":
+        return _t(_randn(seed, B, H, W, C))
+    if kind == "bf16":
+        return _t(_randn(seed, B, H, W, C)).bfloat16()
+    flat = _t(_randn(seed, B * H * W * C + 2)).bfloat16()
+    return flat[2:].view(B, H, W, C)
+
+
+# (B, H, W, x kind, Cx, h kind, hid, k, the parts' routes[, the shared
+# memory the launch may take]): serving layers 1-3 (B 1), training layers
+# 1-3 (B 8), config #3's layer 1 (Cin 70), and the other routes (bf16
+# parts off their 16-byte alignment, scratch cut by the budget)
+PART_CASES = {
+    "serve-62+64": (1, 20, 38, "frame", 62, "f32", 64, 5, (("planes", 2), ("f32", 4))),
+    "serve-64+32": (1, 20, 38, "f32", 64, "f32", 32, 3, (("f32", 4), ("f32", 4))),
+    "serve-32+16": (1, 20, 38, "f32", 32, "f32", 16, 3, (("f32", 4), ("f32", 4))),
+    "train-8+64": (8, 12, 20, "xs", 8, "f32", 64, 5, (("direct", 8), ("f32", 4))),
+    "train-64+32": (8, 12, 20, "f32", 64, "f32", 32, 3, (("f32", 4), ("f32", 4))),
+    "train-32+16": (8, 12, 20, "f32", 32, "f32", 16, 3, (("f32", 4), ("f32", 4))),
+    "config3-6+64": (8, 12, 20, "bf16", 6, "f32", 64, 5, (("direct", 2), ("f32", 4))),
+    "shifted-12+16": (2, 11, 19, "bf16+2", 12, "bf16", 16, 7, (("direct", 2), ("direct", 4))),
+    "budget-32+16": (8, 12, 20, "f32", 32, "f32", 16, 3, (("f32", 4), ("regs", 4)), 115712),
+}
+
+# (B, H, W, x kind, Cx, h kind, hid, k[, the shared memory the launch may
+# take]): layouts the two-part launch refuses, so the caller concatenates:
+# a bf16 part of odd channels, a channels-first frame of odd width (odd
+# channel stride), an f32 channels-first frame, a frame's planes past the
+# budget, and f32 parts of odd channels past it
+REFUSED_CASES = {
+    "odd-13+8": (2, 11, 19, "bf16", 13, "f32", 8, 3),
+    "odd-width-62+64": (1, 11, 37, "frame", 62, "f32", 64, 7),
+    "frame32-62+64": (1, 20, 38, "frame32", 62, "f32", 64, 1),
+    "budget-62+64": (1, 20, 38, "frame", 62, "f32", 64, 5, 0),
+    "budget-odd-13+10": (2, 11, 19, "f32", 13, "f32", 10, 3, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(PART_CASES))
+def test_two_part_stage_equals_the_concatenated_halo(case):
+    """Every block at the frame's corners and one inside, of the first and
+    the last image: the halo staged from (x, h) where they lie is, byte for
+    byte, the halo ``stage_halo`` stages from ``torch.cat([x,
+    h.to(torch.bfloat16)], -1)``; no position is written twice and every
+    scratch value read has landed; each part takes the route the case
+    names, within the card's shared memory."""
+    B, H, W, xk, cx, hk, hid, k, routes, *budget = PART_CASES[case]
+    x, h = _part(xk, B, H, W, cx, 60), _part(hk, B, H, W, hid, 61)
+    if xk.startswith("frame"):
+        assert x.stride()[-1] == H * W
+    xh = torch.cat([x.to(torch.bfloat16), h.to(torch.bfloat16)], -1)
+    cin = cx + hid
+    assert cin <= GROUP_CH
+    p = _plan(B, H, W, cin, hid, k)
+    plan = _parts_plan(x, h, k, p["smem"], *budget)
+    assert plan is not None and tuple(plan[0]) == routes and plan[2] <= MAX_SMEM
+    gx, gy = p["grid"][0], p["grid"][1]
+    blocks = {(by, bx) for by in (0, gy - 1) for bx in (0, gx - 1)} | {(gy // 2, gx // 2)}
+    for b in sorted({0, B - 1}):
+        for by, bx in sorted(blocks):
+            want = _stage_halo(xh, b, by, bx, 0, k, p["vec"], p["cp"])
+            got, writes = _stage_parts((x, h), plan, H, W, b, by, bx, k, p["cp"])
+            assert torch.equal(got, want), (b, by, bx)
+            assert writes.max() == 1 and torch.equal(writes == 1, want != -1)
+
+
+@pytest.mark.parametrize("case", list(REFUSED_CASES))
+def test_two_part_plan_refuses_what_it_cannot_copy(case):
+    """A part that no copy or vector load takes, or scratch past the
+    budget that no f32 part of 4-float loads can leave, refuses the whole
+    launch (the library then launches on the concatenation), where the
+    same shapes with a contiguous bf16 x of even channels are taken."""
+    B, H, W, xk, cx, hk, hid, k, *budget = REFUSED_CASES[case]
+    x, h = _part(xk, B, H, W, cx, 64), _part(hk, B, H, W, hid, 65)
+    p = _plan(B, H, W, cx + hid, hid, k)
+    assert _parts_plan(x, h, k, p["smem"], *budget) is None
+    even = 2 * (cx // 2)
+    taken = _parts_plan(_part("bf16", B, H, W, even, 66), _part("f32", B, H, W, hid, 67), k,
+                        _plan(B, H, W, even + hid, hid, k)["smem"])
+    assert taken is not None and taken[0][0][0] == "direct"
+
+
+# the two-part plan at the main-path shapes (100 x 154) on an H100 (228 KB
+# of shared memory per SM, 1 KB of it reserved per block): (B, x kind, Cx,
+# hid, k) -> (the shared memory it may take, routes, shared memory).  The
+# hid-64 and hid-32 launches on xh run one block per SM, so the parts may
+# take the 227 KB a block may; the hid-16 launch runs two, so the parts
+# keep within half an SM: its smaller f32 scratch goes to registers
+MAIN_PART_PLANS = {
+    (1, "frame", 62, 64, 5): (MAX_SMEM, (("planes", 2), ("f32", 4)), 225120),
+    (1, "f32", 64, 32, 3): (MAX_SMEM, (("f32", 4), ("f32", 4)), 172224),
+    (1, "f32", 32, 16, 3): (115712, (("f32", 4), ("regs", 4)), 108864),
+    (8, "xs", 8, 64, 5): (MAX_SMEM, (("direct", 8), ("f32", 4)), 169344),
+    (8, "bf16", 6, 64, 5): (MAX_SMEM, (("direct", 2), ("f32", 4)), 169344),
+}
+
+
+@pytest.mark.parametrize("shape", list(MAIN_PART_PLANS))
+def test_two_part_plan_at_the_main_path_shapes(shape):
+    """Serving layers 1-3, the remat layer 1 and config #3's: every part on
+    a copy or vector-load route, within the shared memory the launch may
+    take."""
+    B, xk, cx, hid, k = shape
+    H, W = 100, 154
+    budget, want_routes, want_smem = MAIN_PART_PLANS[shape]
+    x, h = _part(xk, B, H, W, cx, 62), _part("f32", B, H, W, hid, 63)
+    p = _plan(B, H, W, cx + hid, hid, k)
+    routes, _, smem = _parts_plan(x, h, k, p["smem"], budget)  # never None here
+    assert (tuple(routes), smem) == (want_routes, want_smem) and smem <= budget
+
+
+def _pair_cell(B, H, W, cx, hid, k, dtype, seed):
+    x = _t(_randn(seed, B, H, W, cx))
+    h, c = _t(_randn(seed + 1, B, H, W, hid)), _t(_randn(seed + 2, B, H, W, hid))
+    w = _t(_randn(seed + 3, k, k, cx + hid, 4 * hid, scale=(k * k * (cx + hid)) ** -0.5), dtype)
+    b = _t(_randn(seed + 4, 4 * hid, scale=0.1))
+    return x.to(dtype), h, c, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_cell_forward_takes_the_pair_on_the_cpu(dtype):
+    """On the CPU the pair (x, h) is [x; h] in w's dtype: the same h', c'
+    bit for bit, for a channels-first frame too and for 100 + 64 channels,
+    and the pair's launch counters stay where they were."""
+    from nasa_niswan_tpu_torch.ops import convlstm_cell
+    from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward
+
+    before = (convlstm_cell.launches, convlstm_cell.parts_launches)
+    for cx, hid in ((6, 8), (100, 64)):  # one channel group, and over one
+        x, h, c, w, b = _pair_cell(2, 9, 13, cx, hid, 3, dtype, 70)
+        for xv in (x, x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)):
+            got = fused_cell_forward((xv, h), c, w, b)
+            want = fused_cell_forward(torch.cat([xv.to(dtype), h.to(dtype)], -1), c, w, b)
+            assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    assert (convlstm_cell.launches, convlstm_cell.parts_launches) == before
+
+
+def test_cells_step_with_the_pair_equals_the_concatenated_input():
+    """Three steps of three layers through ``cells_step``: the default cell,
+    which takes the pair, bit-equal to the same cell handed the pair
+    joined by ``join_xh`` (what a cell that needs one tensor does)."""
+    from nasa_niswan_tpu_torch.ops.convlstm_bptt import cells_step
+    from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward, join_xh
+
+    B, H, W, C, hids, ks = 2, 9, 13, 5, (8, 4, 4), (5, 3, 3)
+    dt = torch.bfloat16
+    cells, state, cin = [], [], C
+    for i, (hd, k) in enumerate(zip(hids, ks)):
+        w = _t(_randn(80 + i, k, k, cin + hd, 4 * hd, scale=(k * k * (cin + hd)) ** -0.5), dt)
+        cells.append((w, _t(_randn(90 + i, 4 * hd, scale=0.1))))
+        state.append((_t(_randn(100 + i, B, H, W, hd)), _t(_randn(110 + i, B, H, W, hd))))
+        cin = hd
+    xs = _t(_randn(120, B, 3, H, W, C)).to(dt)
+    seen = []
+
+    def concatenated(xh, c, w, b):
+        seen.append(isinstance(xh, tuple))
+        return fused_cell_forward(join_xh(xh, dt), c, w, b)
+
+    got, want = state, state
+    for t in range(3):
+        got = cells_step(cells, xs[:, t], got, fused_cell_forward)
+        want = cells_step(cells, xs[:, t], want, concatenated)
+        for (hg, cg), (hw, cw) in zip(got, want):
+            assert torch.equal(hg, hw) and torch.equal(cg, cw)
+    assert seen and all(seen)
+
+
+def test_the_pair_under_grad_gives_the_concatenated_gradients():
+    """With grad the pair is concatenated and cast inside
+    ``fused_cell_forward`` and takes the per-cell Function: the gradients
+    of x, h, c, w and b equal those through the concatenated xh."""
+    from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward
+
+    def grads(pair):
+        x, h, c, w, b = (t.clone().requires_grad_(True)
+                         for t in _pair_cell(2, 9, 13, 6, 8, 3, torch.bfloat16, 130))
+        xh = (x, h) if pair else torch.cat([x.to(w.dtype), h.to(w.dtype)], -1)
+        h2, c2 = fused_cell_forward(xh, c, w, b)
+        (h2.square().sum() + (c2 * 0.5).sum()).backward()
+        return [t.grad for t in (x, h, c, w, b)]
+
+    for g, w_ in zip(grads(True), grads(False)):
+        assert g is not None and torch.equal(g, w_)

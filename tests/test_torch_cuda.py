@@ -1,6 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
 card: the fused ConvLSTM cell forward (B1) in its plain, emit_gates and xg
-modes, the fused cell backward (B2) and its dW kernels on their own, the
+modes and its plain mode's two-part launch (bit-equal to the launch on
+the concatenated input), the fused cell backward (B2) and its dW kernels on their own, the
 SAME data-gradient conv (B3), and the two training routes built on them
 (the whole-scan BPTT and the per-cell Functions); the serving loops
 replayed as CUDA graphs against their eager bodies; and the UNet's forward
@@ -50,6 +51,7 @@ from nasa_niswan_tpu_torch.ops.convlstm_cell import (  # noqa: E402
     fused_cell_forward_plain,
     fused_cell_gates,
     fused_cell_gates_plain,
+    join_xh,
 )
 from nasa_niswan_tpu_torch.rollout.autoregressive import (  # noqa: E402
     make_rollout_fn,
@@ -605,6 +607,127 @@ def test_cell_halo_at_every_xh_alignment(device, cin):
             assert torch.equal(g, a), shift
         for g, a in zip(fused_cell_bwd(odd, c, dh, dh, w, b), want_bwd):
             assert torch.equal(g, a), shift
+
+
+# ---- B1 reading its input [x; h] from two tensors where they lie -----------
+
+# (B, x's layout, Cx, hid, k) on the 100 x 154 frame: serving layers 1-3
+# (B 1; layer 1's x a step of a prepared chunk, channel stride H*W),
+# training layers 1-3 (B 8; layer 1's x a step of the NHWC batch) and
+# config #3's layer 1 (Cin 70); h is the f32 carry.  Their routes (planes,
+# f32 scratch, registers, direct copies) are tests/test_torch_cell_tiles.py's
+PART_SHAPES = {
+    "serve-62+64": (1, "frame", 62, 64, 5),
+    "serve-64+32": (1, "f32", 64, 32, 3),
+    "serve-32+16": (1, "f32", 32, 16, 3),
+    "train-8+64": (8, "xs", 8, 64, 5),
+    "train-64+32": (8, "f32", 64, 32, 3),
+    "train-32+16": (8, "f32", 32, 16, 3),
+    "config3-6+64": (8, "bf16", 6, 64, 5),
+}
+
+
+def _part(kind, B, H, W, C, device, seed):
+    """"frame": step 1 of a (B, 3, C, H, W) bf16 chunk moved channels-last,
+    as ``_prep_frame`` leaves it ("frame32" the same in f32); "xs": step 1
+    of a (B, 3, H, W, C) bf16 batch; "f32" / "bf16": a contiguous (B, H, W,
+    C) tensor."""
+    g = torch.Generator().manual_seed(seed)
+    if kind in ("frame", "frame32"):
+        dt = torch.bfloat16 if kind == "frame" else torch.float32
+        return torch.randn((B, 3, C, H, W), generator=g).to(device, dt).movedim(2, -1)[:, 1]
+    if kind == "xs":
+        return torch.randn((B, 3, H, W, C), generator=g).to(device, torch.bfloat16)[:, 1]
+    t = torch.randn((B, H, W, C), generator=g).to(device)
+    return t if kind == "f32" else t.bfloat16()
+
+
+def _cat(x, h, dtype=torch.bfloat16):
+    return torch.cat([x.to(dtype), h.to(dtype)], dim=-1)
+
+
+@pytest.mark.parametrize("case", list(PART_SHAPES))
+def test_two_part_launch_is_bit_equal_to_the_concatenated_launch(device, case):
+    """The pair (x, h) at every main-path shape: one two-part launch,
+    counted under ``launches`` and ``parts_launches``, and h', c' bit-equal
+    to the launch on the concatenated, cast xh."""
+    B, xk, cx, hid, k = PART_SHAPES[case]
+    H, W = 100, 154
+    _, c, w, b = _cell_inputs(device, torch.bfloat16, B, H, W, cx + hid, hid, k, seed=B + cx)
+    x, h = _part(xk, B, H, W, cx, device, 1), _part("f32", B, H, W, hid, device, 2)
+    before = (convlstm_cell.launches, convlstm_cell.parts_launches)
+    got = fused_cell_forward((x, h), c, w, b)
+    assert (convlstm_cell.launches, convlstm_cell.parts_launches) == (before[0] + 1, before[1] + 1)
+    want = fused_cell_forward(_cat(x, h), c, w, b)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype,xk,cx,hid,grad", [(torch.bfloat16, "frame", 6, 4, False),
+                                                  (torch.float32, "frame", 6, 16, False),
+                                                  (torch.bfloat16, "frame", 6, 16, True),
+                                                  (torch.bfloat16, "frame", 100, 64, False),
+                                                  (torch.bfloat16, "frame32", 6, 16, False),
+                                                  (torch.bfloat16, "bf16", 13, 16, False)])
+def test_a_pair_off_the_two_part_launch_is_concatenated(device, dtype, xk, cx, hid, grad):
+    """A pair that the two-part launch does not take (a shape on the FP32
+    pipes, f32 weights, grad, 100 + 64 channels, over one 128-channel
+    group, or a part whose layout the library's plan refuses: an f32
+    channels-first frame, a bf16 x of odd channels) is concatenated and
+    cast first: the same h', c' as the concatenated call, one launch under
+    ``launches`` and nothing added to ``parts_launches``."""
+    B, H, W, k = 1, 16, 24, 3
+    _, c, w, b = _cell_inputs(device, dtype, B, H, W, cx + hid, hid, k)
+    x, h = _part(xk, B, H, W, cx, device, 3), _part("f32", B, H, W, hid, device, 4)
+    w.requires_grad_(grad)
+    parts, plain = convlstm_cell.parts_launches, convlstm_cell.launches
+    got = fused_cell_forward((x, h), c, w, b)
+    assert convlstm_cell.launches - plain == (0 if grad else 1)
+    want = fused_cell_forward(_cat(x, h, dtype), c, w, b)
+    torch.cuda.synchronize()
+    assert convlstm_cell.parts_launches == parts
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+
+
+def test_serving_chunk_of_two_part_cells(device):
+    """A config #2-shaped chunk (C 62, hidden 64/32/16, kernels 5/3/3,
+    bf16, 6 steps): the replay bit-equal to its eager body and to the eager
+    body with every cell handed the pair joined by ``join_xh``; a replay adds 3 x 6 to
+    ``launches`` and to ``parts_launches``, nothing to the other modes; and
+    under ``torch.profiler`` the replay's ``cell_wgmma_kernel`` launches
+    with the ``CellEpi`` epilogue are launches + gates_launches +
+    xg_launches, as the benchmark's trace check counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = ConvLSTMConfig(compute_dtype="bfloat16", in_channels=62,
+                         hidden_channels=(64, 32, 16), kernel_sizes=(5, 3, 3))
+    params = convlstm_init(torch.Generator().manual_seed(0), cfg, device=device)
+    rng = np.random.default_rng(0)
+    norm = Normalizer(rng.standard_normal(62).astype(np.float32),
+                      (1.0 + rng.random(62)).astype(np.float32), 0.5, 2.0)
+    forcings = torch.tensor(rng.standard_normal((1, 6, 62, 16, 24)), dtype=torch.float32,
+                            device=device)
+    rollout = make_rollout_fn(cfg, norm, device=device, **G_GEO)
+    concatenated = make_rollout_fn(
+        cfg, norm, device=device,
+        cell_fn=lambda xh, c, w, b, xg=None: fused_cell_forward(join_xh(xh, w.dtype), c, w, b, xg),
+        **G_GEO)
+    rollout(params, forcings)  # a one-step warm-up, the capture, one replay
+    counts = lambda: (convlstm_cell.launches, convlstm_cell.parts_launches,  # noqa: E731
+                      convlstm_cell.gates_launches, convlstm_cell.xg_launches)
+    before = counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        p_g, s_g = rollout(params, forcings)
+        torch.cuda.synchronize()
+    got = [a - b for a, b in zip(counts(), before)]
+    assert got == [3 * 6, 3 * 6, 0, 0]
+    cells = [e for e in prof.events()
+             if "cell_wgmma_kernel" in e.name and "CellEpi" in e.name]
+    assert len(cells) == got[0] + got[2] + got[3]
+    p_e, s_e = rollout.eager(params, forcings)
+    p_c, s_c = concatenated.eager(params, forcings)
+    assert torch.equal(p_g, p_e) and _same_state(s_g, s_e)
+    assert torch.equal(p_g, p_c) and _same_state(s_g, s_c)
 
 
 # ---- config #2 (20-level fusion, C = 62): layer 1 reads 62 + 64 = 126 -----
