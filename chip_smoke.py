@@ -32,8 +32,10 @@ Phases, each printing its own lines:
       three training layer shapes (B=8, 100x154) and one ragged shape, bf16
       and f32, with the bounds in BWD_BOUNDS; B3 alone also at config #3's
       layer 1 (Cout 70); B2's dW
-      kernels on their own (conv_dw) at every dW shape of the main paths
-      (DW_SHAPES), bf16, each on the tensor-core plan; B2's gate recompute
+      kernel on its own (conv_dw) at every dW shape of the main paths
+      (DW_SHAPES), bf16, each on the wgmma kernel (``dw_wgmma_launches``
+      counting each launch), replayed in a CUDA graph too and beside the
+      mma.sync kernel it replaced (DW_MMA_SYNC_MS); B2's gate recompute
       (a) alone (``cell_bwd_recompute``), bit-identical to B2's own dgates,
       dc_prev and db, on the wgmma mainloop; two runs bit-identical; per
       shape kernel, plain, library and bound times (CUDA events);
@@ -41,7 +43,8 @@ Phases, each printing its own lines:
       hidden 64/32/16, kernels 5/3/3, bf16, 100x154, Adam lr 1e-3 betas
       (0.5, 0.999)) on the synthetic fixture (T=720, 90x144, seed 0): one
       warm-up step, then 3 optimizer steps through make_device_train_step
-      with exactly 3 x 48 x 3 launches of each of B1, B2, B3, finite loss and
+      with exactly 3 x 48 x 3 launches of each of B1, B2, B3 (every B2's dW
+      on the wgmma kernel: ``dw_wgmma_launches``), finite loss and
       parameters; the parameter gradients at T=8 against eager autograd
       through the plain cell, per leaf relative to the plain gradient's norm
       (TOL_GRAD); one epoch of the training CLI's main on a small fixture,
@@ -985,18 +988,41 @@ def _b3_alone(device, gen, rows, shapes=B3_SHAPES, tag0="[f]", **extra) -> float
     return err
 
 
+# ms of one launch of the mma.sync dW kernel that dw_mma_kernel_wgmma
+# replaced (PERF.md section 6: eager CUDA events on an H100 at 700 W, PR
+# 6-14), at the shapes _dw_alone times
+DW_MMA_SYNC_MS = {
+    (8, 100, 154, 72, 256, 5): 0.5050, (8, 100, 154, 96, 128, 3): 0.2366,
+    (8, 100, 154, 48, 64, 3): 0.1231, (8, 100, 154, 70, 256, 5): 0.5166,
+    (8, 100, 154, 64, 256, 5): 0.4185, (384, 100, 154, 8, 256, 5): 4.4490,
+    (8, 100, 154, 126, 256, 5): 0.8232,
+    (8, 104, 158, 72, 256, 5): 0.5059, (8, 54, 81, 72, 256, 5): 0.1847,
+    (8, 54, 26, 72, 256, 5): 0.0901, (8, 102, 156, 96, 128, 3): 0.1577,
+    (8, 52, 79, 96, 128, 3): 0.0658, (8, 52, 24, 96, 128, 3): 0.0593,
+    (8, 102, 156, 48, 64, 3): 0.0650, (8, 52, 79, 48, 64, 3): 0.0699,
+    (8, 52, 24, 48, 64, 3): 0.0811, (384, 104, 158, 8, 256, 5): 4.4537,
+    (384, 54, 81, 8, 256, 5): 1.4536, (384, 54, 26, 8, 256, 5): 0.5039,
+}
+
+
 def _dw_alone(device, gen, shape, tag0="[f]", **extra) -> dict:
-    """B2's dW kernels on their own (``conv_dw``) at one shape, bf16, on
-    the tensor-core plan, against one f32 matmul per tap: relative to the
-    largest entry <= BWD_BOUNDS["dw"], reruns bit-identical.  The shape's
-    row: error, kernel, plain, library (cuDNN's bf16 weight gradient) and
-    bound times, with ``extra``."""
+    """B2's dW kernel on its own (``conv_dw``) at one shape, bf16, on the
+    wgmma kernel (each launch counted once in ``dw_wgmma_launches``),
+    against one f32 matmul per tap: relative to the largest entry <=
+    BWD_BOUNDS["dw"], reruns bit-identical.  The shape's row: error,
+    kernel (eager and replayed in a CUDA graph), plain, library (cuDNN's
+    bf16 weight gradient) and bound times, with ``extra``; the print puts
+    the replaced mma.sync kernel's time (DW_MMA_SYNC_MS, not measured in
+    this run) beside them."""
     B, H, W, cin, n, k = shape
-    check(convgrad.dw_uses_mma(torch.bfloat16, B, H, W, cin, n, k),
-          f"conv_dw at {shape} bf16 is not on the tensor cores")
+    plan = convgrad.dw_plan(torch.bfloat16, B, H, W, cin, n, k)
+    check(plan == "wgmma", f"conv_dw at {shape} bf16 planned on {plan}, not wgmma")
     x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
     g = torch.randn((B, H, W, n), generator=gen, device=device).bfloat16()
+    n_wgmma = convgrad.dw_wgmma_launches
     got, again = convgrad.conv_dw(x, g, k), convgrad.conv_dw(x, g, k)
+    check(convgrad.dw_wgmma_launches == n_wgmma + 2,
+          f"conv_dw at {shape}: dw_wgmma_launches {convgrad.dw_wgmma_launches - n_wgmma}, want 2")
     want = convlstm_cell.dw_per_tap(x, g, k)
     torch.cuda.synchronize()
     tag = f"B={B} H={H} W={W} Cin={cin} N={n} k={k} bfloat16"
@@ -1011,20 +1037,25 @@ def _dw_alone(device, gen, shape, tag0="[f]", **extra) -> dict:
           cuda_ms(lambda: convlstm_cell.dw_per_tap(x, g, k), reps),
           cuda_ms(lambda: torch.nn.grad.conv2d_weight(
               xn, (n, cin, k, k), gn, padding=k // 2), reps)]
+    replay = graph_ms(lambda: convgrad.conv_dw(x, g, k), n=2 if B > TRAIN_BS else 8, reps=3)
+    old = DW_MMA_SYNC_MS.get(tuple(shape))
     # in: x and dgates bf16, out: dw f32
     px, kk = B * H * W, k * k * cin * n
     flops, nbytes = 2.0 * px * kk, px * cin * 2 + px * n * 2 + kk * 4
     bound = least_time(flops, nbytes)
-    print(f"{tag0} conv_dw {tag}: tensor-core plan; rel max |d dw| {rel:.3e} (<= "
-          f"{BWD_BOUNDS['dw']:g}), bit-identical reruns; kernel {ms[0]:.4f} ms, "
-          f"plain {ms[1]:.4f} ms, library (bf16 conv2d_weight) {ms[2]:.4f} ms, "
-          f"bound {bound[0]:.4f} ms")
+    print(f"{tag0} conv_dw {tag}: wgmma; rel max |d dw| {rel:.3e} (<= "
+          f"{BWD_BOUNDS['dw']:g}), bit-identical reruns; kernel {ms[0]:.4f} ms (replayed "
+          f"{replay:.4f} ms), the mma.sync kernel it replaced "
+          f"{'not measured' if old is None else f'{old:.4f} ms'} (PERF.md), plain "
+          f"{ms[1]:.4f} ms, library (bf16 conv2d_weight) {ms[2]:.4f} ms, bound "
+          f"{bound[0]:.4f} ms")
     check(rel <= BWD_BOUNDS["dw"], f"conv_dw {rel:.3e} at {tag}")
     del x, g, got, want
     torch.cuda.empty_cache()
     return {"shape": list(shape), "rel_err": rel, "max_abs_err": err, "ms": ms[0],
-            "plain_ms": ms[1], "library_ms": ms[2], "bound_ms": bound[0],
-            "bound_by": bound[1], "flops": flops, "bytes": nbytes, **extra}
+            "replay_ms": replay, "plain_ms": ms[1],
+            "library_ms": ms[2], "bound_ms": bound[0], "bound_by": bound[1], "flops": flops,
+            "bytes": nbytes, **extra}
 
 
 def phase_dw(device) -> dict:
@@ -1067,14 +1098,17 @@ def _set_counts(n: int) -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, n)
     convlstm_cell.parts_launches = n
+    convgrad.dw_wgmma_launches = n
 
 
-def _expect_counts(tag: str, parts=None, **want) -> dict:
+def _expect_counts(tag: str, parts=None, dw_wgmma=None, **want) -> dict:
     """Read the counts of the main-path run that began at ``_set_counts(0)``:
     each kernel named in ``want`` exactly that often (> 0), every other
     kernel never; with ``parts``, that many of B1's plain launches staged
     the pair (x, h) (``convlstm_cell.parts_launches``, a sub-count of
-    ``launches``).  Adds them to LAUNCHED."""
+    ``launches``); with ``dw_wgmma``, that many dW launches ran the wgmma
+    kernel (``convgrad.dw_wgmma_launches``, a sub-count of the dW launches
+    in ``cell_bwd`` and ``conv_dw``).  Adds them to LAUNCHED."""
     got = _counts()
     want = {name: want.get(name, 0) for name in COUNTERS}
     print(f"{tag}: launches {got} (want {want})")
@@ -1083,6 +1117,10 @@ def _expect_counts(tag: str, parts=None, **want) -> dict:
         n_parts = convlstm_cell.parts_launches
         print(f"{tag}: {n_parts} of them staged the pair (x, h) (want {parts})")
         check(n_parts == parts, f"{tag}: {n_parts} two-part launches, want {parts}")
+    if dw_wgmma is not None:
+        n_dw = convgrad.dw_wgmma_launches
+        print(f"{tag}: {n_dw} dW launches ran the wgmma kernel (want {dw_wgmma})")
+        check(n_dw == dw_wgmma, f"{tag}: {n_dw} wgmma dW launches, want {dw_wgmma}")
     check(all(v > 0 for v in want.values() if v), f"{tag}: a kernel of the path ran no time")
     for name, n in got.items():
         LAUNCHED[name] += n
@@ -1178,8 +1216,8 @@ def phase_train(device) -> dict:
     _set_counts(0)
     t_kernel, metrics = _train_run(step, params, TRAIN_STEPS, order[TRAIN_BS:])
     want = len(HIDDEN) * TRAIN_T * TRAIN_STEPS
-    _expect_counts("[g] remat route", parts=want, convlstm_cell=want, cell_bwd=want,
-                   conv_same=want)
+    _expect_counts("[g] remat route", parts=want, dw_wgmma=want, convlstm_cell=want,
+                   cell_bwd=want, conv_same=want)
     peak = max(peak_first, torch.cuda.max_memory_allocated())
     print(f"[g] {TRAIN_STEPS} training steps (bs {TRAIN_BS}, T {TRAIN_T}, bf16): "
           f"loss {metrics['loss'].item():.5f}, R2 {metrics['r2'].item():.4f}, "
@@ -4328,7 +4366,7 @@ def _w_profile(step, p, batch, smi) -> None:
             cls = "B3"
         else:
             continue
-        layer = re.search(r"_kernel<(\d+), ?(\d+)", key)
+        layer = re.search(r"_kernel(?:_wgmma)?<(\d+), ?(\d+)", key)
         sub = f"k {layer.group(1)}, {layer.group(2)}" if layer else ""
         c, t = by.get((cls, sub), (0, 0.0))
         by[cls, sub] = (c + n, t + ms)

@@ -26,8 +26,8 @@
 //      slots; each block owns a tile of dw and one slot and writes its f32
 //      partial tile.  The TPU kernel kept dw resident across its sequential
 //      grid (the dW half, convgrad_pallas.py:165-183); CUDA blocks run in no
-//      order, hence the slots.  bf16 runs dw_mma_kernel on the tensor cores
-//      for every shape; f32 runs dw_partial_kernel on the FP32 pipes.
+//      order, hence the slots.  bf16 runs dw_mma_kernel_wgmma on the tensor
+//      cores for every shape; f32 runs dw_partial_kernel on the FP32 pipes.
 //  (c) sum_slots_kernel / sum_rows_kernel: dw and db summed over the slots
 //      and block rows, each in a fixed order.
 //
@@ -41,28 +41,21 @@
 // What bounds dw on this card: at the training layer-1 shape (B=8, 100x154,
 // Cin=72, N=256, k=5) it is 113.5 GFLOP, 0.115 ms at the dense bf16 peak,
 // against ~80 MB of operands (0.024 ms at 3.35 TB/s): operations, so the
-// operands must reach the tensor cores from shared memory, each fetched from
-// L2 as few times as possible, with the copies overlapping the mmas, at any
-// channel count (config #3's layer 1 takes Cin = 70, the 20-level fusion
-// 126).  dw_mma_kernel (bf16):
-//  * owns 16 channels x all k*k taps (up to 32 with 128 columns at k 7,
-//    the rest in a second block) x 32-128 gate columns per block, and
-//    walks 8-row x 16-column pixel tiles indexed by (b, tile row, tile
-//    column), so no per-load pixel div/mod;
-//  * stages each tile's haloed xh rows (16 channels, zero-filled past Cin
-//    and outside the frame) and its dgates rows once per block, by 16-byte
-//    cp.async, three stages in flight with one barrier per stage: an xh
-//    byte is fetched once per tile halo, not once per tap (k*k = 25 times);
-//  * forms every tap of the block from that one staged halo: the A fragment
-//    of tap (dy, dx) is ldmatrix.trans at the halo pixel shifted by (dy, dx)
-//    (the TPU kernel's roll of dgates per dx, done on the other operand),
-//    while each warp's dgates fragments are loaded once per k16 step and
-//    reused for all of its taps;
-//  * takes any Cin and N: a ragged channel count (Cin or N not a multiple
-//    of 8, or an unaligned operand, which no 16-byte copy can read) is
-//    first copied once into a zero-padded buffer of the workspace by
-//    pad_channels_kernel (17.7 MB written at config #3's layer 1, ~11 us at
-//    3.35 TB/s).  The padded rows of dw are never written.
+// operands must reach the tensor cores from shared memory at wgmma's rate,
+// each fetched from L2 as few times as possible, with the copies
+// overlapping the mmas, at any channel count (config #3's layer 1 takes
+// Cin = 70, the 20-level fusion 126).  dw_mma_kernel_wgmma (bf16;
+// section (b) below): two consumer
+// warpgroups of wgmma accumulators over 8-channel row octets and 128 (or
+// 64) gate columns, fed by one TMA producer through full / empty
+// mbarriers; every tap from one staged halo by shifted ldmatrix.trans.  It
+// takes any Cin and N: a ragged channel count (Cin or N not a multiple of
+// 8, or an unaligned operand, which no tensor map can describe) is first
+// copied once into a zero-padded buffer of the workspace by
+// pad_channels_kernel (17.7 MB written at config #3's layer 1, ~11 us at
+// 3.35 TB/s).  The padded rows of dw are never written.
+
+#include <cuda.h>  // CUtensorMap (its encoder is looked up in libcuda at run time)
 
 #include "cell_mainloop.cuh"
 
@@ -223,187 +216,251 @@ dw_partial_kernel(const float* __restrict__ xh, const float* __restrict__ dg,
 
 // ---- (b) on the tensor cores: bf16 operands, any shape -----------------------
 //
-// mma.sync m16n8k16 (f32 accumulate) with M = dw rows (tap, channel), N =
-// gate columns and K = pixels.  Block: 16 channels [c0, c0+16) x the taps
-// [t0, t0 + taps) x kTileN = 32*NJ gate columns, over the pixel tiles of one
-// slot.  16 warps, 16/NJ along the taps x NJ along the columns (32 each):
-// warp (wm, wn) owns the taps t0 + wm + (16/NJ)*i, i < kTapsPerWarp, and
-// keeps one m16 x n32 accumulator per tap.  Per stage one 8 x 16 pixel
-// tile: the halo of xh, (8+k-1) x (16+k-1) pixels x 16 channels (48-byte
-// pixel rows, so the eight rows of an ldmatrix fall in distinct banks), and
-// dgates, 128 pixels x kTileN columns.  Each of the tile's rows is one k16
-// step.  (8 rows and 16 warps measured 14% faster at layer 1 than 4 rows
-// and 8 warps: fewer barriers per pixel, more warps to hide latency.)
+// wgmma.m64nNk16 (f32 accumulate) with M = dw rows (tap, channel), K =
+// pixels and N = gate columns.  The M rows come in octets: an octet is the
+// 8 channels [8g, 8g + 8) of one tap, and octet o is (plane g = o / k*k,
+// tap o % k*k), so Cin 72 or 70 takes 9 planes and Cin 8 one, with no
+// 16-channel rounding.  A block owns `octs` consecutive octets (at most
+// 16 ACC) x BN gate columns over the pixel tiles of one slot:
+//  * two consumer warpgroups, each with ACC accumulators of m64 x BN (BN
+//    128, ACC 2 or BN 64, ACC 4: 128 f32 registers a thread); accumulator a
+//    of warpgroup wg holds the 8 octets from o0 + 8 (wg ACC + a), warp w of
+//    it the two octets 2w, 2w + 1 (its m16 rows);
+//  * one producer thread keeps a ring of stages full through TMA, each
+//    stage one 8 x 16 pixel tile: the tile's dgates as BN / 64 slabs of 64
+//    columns (128 bytes a pixel, 128-byte swizzle), and the tile's xh halo
+//    ((8+k-1) x (16+k-1) pixels, zero outside the frame and past Cin: the
+//    tensor map's out-of-bounds fill) as one plane of 8 channels (16 bytes
+//    a pixel) for each plane the block's octets touch, so an ldmatrix row
+//    set (8 pixels of a plane) is 128 contiguous bytes at any tap shift
+//    and conflict-free.  full / empty mbarriers hand the stages over; no
+//    block-wide barrier per tile; the producer's warpgroup gives its
+//    registers to the consumers (setmaxnreg);
+//  * per tile row (a k16 step of 16 pixels) each warp ldmatrix.trans'es
+//    its A fragment from the halo: rows 0-7 from its first octet's plane
+//    at that octet's tap shift, rows 8-15 from its second's (the TPU
+//    kernel's roll of dgates per dx, done on the other operand), so one
+//    staged halo feeds every tap; B is the dgates slab, read by the tensor
+//    cores through a descriptor (MN-major, transpose bit set).  Two tile
+//    rows make one commit group; A is double buffered across groups;
+//  * dgates is staged once per row block and column block, not once per
+//    16 channels, and each staged byte feeds 16 ACC octets of rows.
+// The plan (plan_dw) picks BN from N, the octets per block from ACC, k
+// and Cin (fewer where two stages would not fit), and the slots so that
+// the grid fills one wave of an H100's 132 SMs, one block per SM.
 
-constexpr int kDwmRows = 8;                 // frame rows per pixel tile
-constexpr int kDwmCols = 16;                // columns per tile row: one k16 step
-constexpr int kDwmPix = kDwmRows * kDwmCols;
-constexpr int kDwmCh = 16;                  // channels per block: m16 per tap
-constexpr int kDwmChStride = kDwmCh + 8;    // bf16 per staged halo pixel
-constexpr int kDwmStages = 3;
-constexpr int kDwmWarps = 16;
-constexpr int kDwmThreads = 32 * kDwmWarps;
-constexpr int kDwmTapsPerWarp = 4;          // accumulators: 4 x 16 of <= 128 registers
-constexpr long long kDwmTargetBlocks = 264; // two waves of 132 SMs, 1 block/SM
-constexpr long long kDwmMaxSlots = 128;
+constexpr int kDwgRows = 8;                        // frame rows of a pixel tile: a k16 step each
+constexpr int kDwgCols = 16;                       // frame columns of a tile: a k16 step's pixels
+constexpr int kDwgSlabCols = 64;                   // gate columns of a slab: 128 bytes a pixel
+constexpr int kDwgSlabBytes = kDwgRows * kDwgCols * 128;
+constexpr int kDwgConsumers = 256;                 // two consumer warpgroups
+constexpr int kDwgThreads = kDwgConsumers + 128;   // + a producer warpgroup (one thread works)
+constexpr int kDwgConsumerRegs = 232;              // setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 64K
+constexpr int kDwgProducerRegs = 40;
+constexpr int kDwgRing = 4;                        // most stages in the ring
+constexpr int kDwgLead = 1152;                     // the mbarriers, the stages' 1024-byte alignment
+constexpr int kDwgSms = 132;                       // an H100's SMs: one block each
+// wgmma B descriptor of a slab: MN-major, 128-byte swizzle (layout 1), the
+// next 8 pixels (K) 1024 bytes on (SBO), the next 64 columns (N) a slab on
+// (LBO); the start address (>> 4) is added per stage and tile row
+constexpr uint64_t kDwgDesc = (uint64_t)1 << 62 | (uint64_t)(kDwgSlabBytes >> 4) << 16 |
+                             (uint64_t)(1024 >> 4) << 32;
 
-// taps per block for kernel size k and NJ warps along the columns
-__host__ __device__ constexpr int dwm_taps(int k, int nj) {
-  return k * k < (kDwmWarps / nj) * kDwmTapsPerWarp ? k * k
-                                                    : (kDwmWarps / nj) * kDwmTapsPerWarp;
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-template <int K, int NJ>
-struct DwmShape {
-  static constexpr int kWarpsM = kDwmWarps / NJ;
-  static constexpr int kTileN = 32 * NJ;
-  static constexpr int kStrideN = kTileN + 8;  // bf16 per staged dgates row
-  static constexpr int kTaps = dwm_taps(K, NJ);
-  static constexpr int kTapsPerWarp = (kTaps + kWarpsM - 1) / kWarpsM;
-  static constexpr int kHaloRows = kDwmRows + K - 1;
-  static constexpr int kHaloCols = kDwmCols + K - 1;
-  static constexpr int kHaloBytes = kHaloRows * kHaloCols * kDwmChStride * 2;
-  static constexpr int kStageBytes = kHaloBytes + kDwmPix * kStrideN * 2;
-  static constexpr int kSmem = kDwmStages * kStageBytes;
-};
+// the box of `map` at coordinates (c0, c1, c2, c3) into shared memory at
+// dst, completing on the mbarrier `bar`; out-of-bounds elements read zero
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(bar)
+      : "memory");
+}
 
-template <int K, int NJ>
-__global__ void __launch_bounds__(kDwmThreads, 1)
-dw_mma_kernel(const __nv_bfloat16* __restrict__ xh,
-              const __nv_bfloat16* __restrict__ dg, float* __restrict__ part,
-              int H, int W, int Cin, int Cp, int N, int Np, int cblocks,
-              int tiles_w, int tiles_h, long long tiles,
-              long long tiles_per_slot) {
-  using S = DwmShape<K, NJ>;
+// The halo plane of 8 channels of (8+k-1) x (16+k-1) pixels, 16 bytes a
+// pixel, in a stage: 128-byte aligned for TMA
+__host__ __device__ constexpr int dw_plane_bytes(int k) {
+  return ((kDwgRows + k - 1) * (kDwgCols + k - 1) * 16 + 127) / 128 * 128;
+}
+
+// xmap: xh (B,H,W,cp) in boxes of (8 channels, 16+K-1, 8+K-1, 1);
+// gmap: dgates (B,H,W,np) in boxes of (64 columns, 16, 8, 1), swizzled.
+// Grid: (row blocks x column blocks, slots); the block writes the f32
+// partial of its rows and columns into its slot's (k,k,Cin,N) slice.
+template <int K, int BN, int ACC>
+__global__ void __launch_bounds__(kDwgThreads, 1)
+dw_mma_kernel_wgmma(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap gmap, float* __restrict__ part,
+                    int H, int Cin, int N, int octets, int octs, int ring, int stage_bytes,
+                    int cblocks, int tiles_w, int tiles_h, long long tiles,
+                    long long tiles_per_slot) {
   constexpr int P = K / 2;
-  extern __shared__ __align__(16) unsigned char dw_smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / NJ, wn = warp % NJ;
-  const int grp = lane >> 2, quad = lane & 3;
-  const int lr = lane & 7, li = lane >> 3;  // ldmatrix: row lr of matrix li
-  const int c0 = (blockIdx.x % cblocks) * kDwmCh;
-  const int t0 = (blockIdx.x / cblocks) * S::kTaps;
-  const int taps = min(S::kTaps, K * K - t0);
-  const int n0 = blockIdx.y * S::kTileN;
-  const long long tile0 = (long long)blockIdx.z * tiles_per_slot;
-  const int n_tiles = (int)max(0LL, min(tiles, tile0 + tiles_per_slot) - tile0);
+  constexpr int KK = K * K;
+  constexpr int kHaloW = kDwgCols + K - 1;
+  constexpr int kHaloH = kDwgRows + K - 1;
+  constexpr int kSlabs = BN / kDwgSlabCols;
+  constexpr uint32_t kHaloOff = kSlabs * kDwgSlabBytes;  // the halo's planes follow the slabs
+  constexpr int kPlane = dw_plane_bytes(K);
+  extern __shared__ __align__(1024) unsigned char dw_smem[];
+  const uint32_t bars = smem_u32(dw_smem);  // full[kDwgRing], then empty[kDwgRing]
+  const uint32_t stages = (bars + 64 + 1023) & ~1023u;
+  const int rb = blockIdx.x / cblocks;
+  const int n0 = (blockIdx.x - rb * cblocks) * BN;
+  const int o0 = rb * octs;
+  const int o_end = min(octets, o0 + octs);
+  const int g_lo = o0 / KK;
+  const int span = (o_end - 1) / KK - g_lo + 1;  // planes of this block's octets
+  const long long t0 = (long long)blockIdx.y * tiles_per_slot;
+  const int n_tiles = (int)max(0LL, min(tiles, t0 + tiles_per_slot) - t0);
+  const int tid = threadIdx.x;
 
-  // halo offset (bf16) of each of this warp's taps
-  int tap_off[S::kTapsPerWarp];
-#pragma unroll
-  for (int i = 0; i < S::kTapsPerWarp; ++i) {
-    const int tap = t0 + min(wm + S::kWarpsM * i, taps - 1);
-    tap_off[i] = ((tap / K) * S::kHaloCols + tap % K) * kDwmChStride;
+  if (tid == 0) {
+    for (int i = 0; i < kDwgRing; ++i) {
+      mbar_init(bars + 8 * i, 1);                              // the producer
+      mbar_init(bars + 8 * (kDwgRing + i), kDwgConsumers / 32);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // one pixel tile (b, rows y0.., columns x0..) into stage buffer `buf`
-  auto issue = [&](long long t, int buf) {
-    unsigned char* base = dw_smem + buf * S::kStageBytes;
-    __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(base);
-    __nv_bfloat16* gt = reinterpret_cast<__nv_bfloat16*>(base + S::kHaloBytes);
-    const int tx = (int)(t % tiles_w);
+  // pixel tile t: image b, first row y0, first column x0
+  auto tile_at = [&](long long t, int& b, int& y0, int& x0) {
     const long long t2 = t / tiles_w;
-    const int ty = (int)(t2 % tiles_h);
-    const size_t b = (size_t)(t2 / tiles_h);
-    const int y0 = ty * kDwmRows, x0 = tx * kDwmCols;
-    const __nv_bfloat16* xb = xh + b * H * W * Cp;
-    for (int e = threadIdx.x; e < S::kHaloRows * S::kHaloCols * 2;
-         e += kDwmThreads) {
-      const int pix = e >> 1, g = e & 1;
-      const int y = y0 - P + pix / S::kHaloCols;
-      const int x = x0 - P + pix % S::kHaloCols;
-      const int ch = c0 + 8 * g;
-      const bool ok = y >= 0 && y < H && x >= 0 && x < W && ch < Cp;
-      cp_async16(halo + pix * kDwmChStride + 8 * g,
-                 ok ? xb + ((size_t)y * W + x) * Cp + ch : xh, ok);
-    }
-    const __nv_bfloat16* gb = dg + b * H * W * Np;
-    constexpr int kGroups = S::kTileN / 8;
-    for (int e = threadIdx.x; e < kDwmPix * kGroups; e += kDwmThreads) {
-      const int p = e / kGroups, j = e % kGroups;
-      const int y = y0 + p / kDwmCols, x = x0 + p % kDwmCols;
-      const int n = n0 + 8 * j;
-      // pixels past the frame stage zero cotangents: they add nothing
-      const bool ok = y < H && x < W && n < Np;
-      cp_async16(gt + p * S::kStrideN + 8 * j,
-                 ok ? gb + ((size_t)y * W + x) * Np + n : dg, ok);
-    }
+    x0 = (int)(t - t2 * tiles_w) * kDwgCols;
+    y0 = (int)(t2 % tiles_h) * kDwgRows;
+    b = (int)(t2 / tiles_h);
   };
 
-  float acc[S::kTapsPerWarp][4][4];
+  if (tid >= kDwgConsumers) {
+    // producer: one thread keeps the ring full; its warpgroup hands its
+    // registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kDwgProducerRegs));
+    if (tid == kDwgConsumers) {
+      const uint32_t bytes = kHaloOff + (uint32_t)(span * kHaloW * kHaloH * 16);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % ring;
+        if (i >= ring) mbar_wait(bars + 8 * (kDwgRing + s), ((i / ring) - 1) & 1);
+        int b, y0, x0;
+        tile_at(t0 + i, b, y0, x0);
+        const uint32_t dst = stages + s * stage_bytes, full = bars + 8 * s;
+        mbar_expect_tx(full, bytes);
 #pragma unroll
-  for (int i = 0; i < S::kTapsPerWarp; ++i)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][nt][q] = 0.0f;
-
-  auto compute = [&](int buf) {
-    const unsigned char* base = dw_smem + buf * S::kStageBytes;
-    const __nv_bfloat16* halo = reinterpret_cast<const __nv_bfloat16*>(base);
-    const __nv_bfloat16* gt =
-        reinterpret_cast<const __nv_bfloat16*>(base + S::kHaloBytes);
-#pragma unroll
-    for (int r = 0; r < kDwmRows; ++r) {
-      // B (k16 pixels x n32 of this warp), column-major: matrices (pixels
-      // 0-7 | 8-15) x (n8 tile 2np | 2np+1)
-      uint32_t bf[2][4];
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldmatrix_x4_trans(bf[np], gt + (r * kDwmCols + lr + 8 * (li & 1)) * S::kStrideN +
-                                      wn * 32 + (2 * np + (li >> 1)) * 8);
-      // A (m16 channels x k16 pixels) of each tap: the halo row r + dy,
-      // shifted by dx; matrices (pixels 0-7 | 8-15) x (channels 0-7 | 8-15)
-      const __nv_bfloat16* arow =
-          halo + (r * S::kHaloCols + lr + 8 * (li >> 1)) * kDwmChStride + 8 * (li & 1);
-#pragma unroll
-      for (int i = 0; i < S::kTapsPerWarp; ++i) {
-        if (wm + S::kWarpsM * i < taps) {
-          uint32_t a[4];
-          ldmatrix_x4_trans(a, arow + tap_off[i]);
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_bf16(acc[i][nt], a, bf[nt >> 1][2 * (nt & 1)],
-                     bf[nt >> 1][2 * (nt & 1) + 1]);
-        }
+        for (int j = 0; j < kSlabs; ++j)
+          tma_load_4d(dst + j * kDwgSlabBytes, &gmap, n0 + j * kDwgSlabCols, x0, y0, b, full);
+        for (int g = 0; g < span; ++g)
+          tma_load_4d(dst + kHaloOff + g * kPlane, &xmap, 8 * (g_lo + g), x0 - P, y0 - P, b,
+                      full);
       }
     }
-  };
-
-  // kDwmStages - 1 tiles in flight ahead of the one being multiplied; one
-  // barrier per tile (it also frees the buffer the next copy overwrites)
-#pragma unroll
-  for (int s = 0; s < kDwmStages - 1; ++s) {
-    if (s < n_tiles) issue(tile0 + s, s);
-    cp_async_commit();
+    return;
   }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kDwgConsumerRegs));
+  const int lane = tid & 31, wg = tid >> 7, w = (tid >> 5) & 3;
+  const int grp = lane >> 2, q = lane & 3;
+  // ldmatrix row of this lane: matrix lane / 8 = (pixels 0-7 | 8-15) x
+  // (first | second octet of the warp), its pixel 8 (lane / 16) + lane % 8
+  // of the k16 step.  Rows past the block's last octet read the first
+  // octet's and are never written: every accumulator runs, so no wgmma
+  // sits on a divergent path (which serialized them all, C7520: layer 1
+  // 0.319 ms against 0.240 on an H100, PERF.md)
+  const int pix = 8 * (lane >> 4) + (lane & 7);
+  uint32_t aoff[ACC];
+#pragma unroll
+  for (int a = 0; a < ACC; ++a) {
+    int o = o0 + (wg * ACC + a) * 8 + 2 * w + ((lane >> 3) & 1);
+    if (o >= o_end) o = o0;
+    const int tap = o % KK;
+    aoff[a] = kHaloOff + (o / KK - g_lo) * kPlane + ((tap / K) * kHaloW + tap % K + pix) * 16;
+  }
+  constexpr uint32_t kRowBytes = kHaloW * 16;
+
+  float acc[ACC][BN / 2];
+#pragma unroll
+  for (int a = 0; a < ACC; ++a)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[a][i] = 0.0f;
+
+  uint32_t a0[2][ACC][4], a1[2][ACC][4];
+  int slot = 0, rel_slot = 0;
+  uint32_t phase = 0;
+  bool release = false;
   for (int i = 0; i < n_tiles; ++i) {
-    cp_async_wait<kDwmStages - 2>();
-    __syncthreads();
-    const int nx = i + kDwmStages - 1;
-    if (nx < n_tiles) issue(tile0 + nx, nx % kDwmStages);
-    cp_async_commit();
-    compute(i % kDwmStages);
+    int b, y0, x0;
+    tile_at(t0 + i, b, y0, x0);
+    // row pairs holding a row of the frame (a row past it reads zero dgates)
+    const int pairs = (min(kDwgRows, H - y0) + 1) / 2;
+    mbar_wait(bars + 8 * slot, phase);
+    const uint32_t st = stages + slot * stage_bytes;
+    const uint64_t desc = kDwgDesc | (uint64_t)((st >> 4) & 0x3FFF);
+    // tile rows r, r + 1 in one commit group: A of every accumulator, then
+    // their wgmmas on the slab rows (16 pixels x 128 bytes = 2048 bytes a
+    // row).  ptxas serializes the wgmmas behind the ldmatrix that defines
+    // their A (C7513); on an H100 one row a group measured 2.5% slower at
+    // layer 1 and four rows 2-5% slower at k 5 (PERF.md)
+    auto step = [&](uint32_t (&af)[2][ACC][4], int r) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int a = 0; a < ACC; ++a)
+          ldsm_x4_trans(af[j][a], st + aoff[a] + (r + j) * kRowBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int a = 0; a < ACC; ++a)
+          WgmmaRS<BN, 1>::mma(acc[a], af[j][a], desc + (uint64_t)((r + j) * (2048 >> 4)));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous pair is done: its A registers (and stage) are free
+      if (release) {
+        if (lane == 0) mbar_arrive(bars + 8 * (kDwgRing + rel_slot));
+        release = false;
+      }
+    };
+    for (int p = 0; p < pairs; p += 2) {
+      step(a0, 2 * p);
+      if (p + 1 < pairs) step(a1, 2 * p + 2);
+    }
+    if (pairs & 1) wgmma_wait<0>();  // the next tile starts again from a0
+    release = true;
+    rel_slot = slot;
+    if (++slot == ring) {
+      slot = 0;
+      phase ^= 1;
+    }
   }
+  wgmma_wait<0>();
 
-  // accumulator (row, col): d0,d1 -> (grp, 2*quad + {0,1}); d2,d3 -> (grp+8,
-  // same); a row is channel c0 + row of the tap, a column a gate column.
-  // Channels past Cin (the zero-filled group) are not written.
-  float* out = part + (size_t)blockIdx.z * K * K * Cin * N;
+  // accumulator (row, col): [4i + 2h + e] -> (16w + grp + 8h, 8i + 2q + e);
+  // row 16w + grp + 8h is channel grp of the warp's octet h.  Channels
+  // past Cin (the zero-filled plane) and columns past N are not written.
+  const size_t M = (size_t)KK * Cin;
+  float* out = part + (size_t)blockIdx.y * M * N;
 #pragma unroll
-  for (int i = 0; i < S::kTapsPerWarp; ++i) {
-    const int t = wm + S::kWarpsM * i;
-    if (t >= taps) continue;
+  for (int a = 0; a < ACC; ++a) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int n = n0 + wn * 32 + nt * 8 + 2 * quad;
+    for (int h = 0; h < 2; ++h) {
+      const int o = o0 + (wg * ACC + a) * 8 + 2 * w + h;
+      const int c = 8 * (o / KK) + grp;
+      if (o >= o_end || c >= Cin) continue;
+      float* row = out + ((size_t)(o % KK) * Cin + c) * N;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = c0 + grp + 8 * h;
-        if (c >= Cin) continue;
-        float* o = out + ((size_t)(t0 + t) * Cin + c) * N + n;
-        if (n < N) o[0] = acc[i][nt][2 * h];
-        if (n + 1 < N) o[1] = acc[i][nt][2 * h + 1];
+      for (int i = 0; i < BN / 8; ++i) {
+        const int n = n0 + 8 * i + 2 * q;
+        const float v0 = acc[a][4 * i + 2 * h], v1 = acc[a][4 * i + 2 * h + 1];
+        if (n + 1 < N && N % 2 == 0) {
+          *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+        } else {
+          if (n < N) row[n] = v0;
+          if (n + 1 < N) row[n + 1] = v1;
+        }
       }
     }
   }
@@ -467,20 +524,33 @@ sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out,
 inline long long round4(long long n) { return (n + 3) / 4 * 4; }
 
 struct DwPlan {
-  bool mma = false;
+  bool wgmma = false;
   int n_tiles = 0, slots = 0;
   // FP32 pipes: m_tiles x n_tiles x slots blocks of pix_per_slot pixels
   int m_tiles = 0, pix_per_slot = 0;
-  // tensor cores: (cblocks * tblocks) x n_tiles x slots blocks, each walking
-  // tiles_per_slot of the `tiles` pixel tiles; cp, np the padded channel
-  // pitches of xh and dgates
-  int nj = 0, cblocks = 0, tblocks = 0, tiles_w = 0, tiles_h = 0, cp = 0, np = 0;
+  // tensor cores: (rblocks x n_tiles column blocks of bn) x slots blocks,
+  // each `octs` of the `octets` row octets, walking tiles_per_slot of the
+  // `tiles` pixel tiles through a ring of `ring` stages of stage_bytes;
+  // its halo `span` planes; cp, np the padded channel pitches of xh and
+  // dgates
+  int bn = 0, acc = 0, octets = 0, octs = 0, rblocks = 0, span = 0, ring = 0;
+  int stage_bytes = 0, tiles_w = 0, tiles_h = 0, cp = 0, np = 0;
+  size_t smem = 0;
   long long tiles = 0, tiles_per_slot = 0;
   bool pad_x = false, pad_g = false;
   // workspace floats: slot partials, then the padded xh and dgates copies
   long long part_floats = 0, xpad_floats = 0, gpad_floats = 0;
   long long floats() const { return part_floats + xpad_floats + gpad_floats; }
 };
+
+// The planes the halo of a block of `octs` octets must hold, the most
+// over the row blocks; octet o lies in plane o / kk.
+inline int dw_span(int octets, int octs, int kk) {
+  int span = 1;
+  for (int o0 = 0; o0 < octets; o0 += octs)
+    span = std::max(span, (std::min(octets, o0 + octs) - 1) / kk - o0 / kk + 1);
+  return span;
+}
 
 // The plan follows the shape, the dtype and the operands' alignment only
 // (never the device or the run), so the summation order, and with it every
@@ -495,25 +565,39 @@ bool plan_dw(bool bf16, const void* xh, const void* dg, int B, int H, int W,
   const long long npix = (long long)B * H * W;
   const long long M = (long long)k * k * Cin;
   if (bf16) {
-    p.mma = true;
-    p.nj = N <= 32 ? 1 : (k <= 3 && N > 64 ? 4 : 2);
+    p.wgmma = true;
     p.cp = (Cin + 7) / 8 * 8;
     p.np = (N + 7) / 8 * 8;
-    p.cblocks = (p.cp + kDwmCh - 1) / kDwmCh;
-    const int tpb = dwm_taps(k, p.nj);
-    p.tblocks = (k * k + tpb - 1) / tpb;
-    p.n_tiles = (N + 32 * p.nj - 1) / (32 * p.nj);
-    p.tiles_w = (W + kDwmCols - 1) / kDwmCols;
-    p.tiles_h = (H + kDwmRows - 1) / kDwmRows;
+    const int kk = k * k;
+    p.octets = kk * (p.cp / 8);
+    // 64 columns (four m64n64 accumulators a warpgroup) up to N 64, else
+    // 128 (two m64n128)
+    p.bn = N <= kDwgSlabCols ? kDwgSlabCols : 2 * kDwgSlabCols;
+    p.acc = 256 / p.bn;
+    p.n_tiles = (N + p.bn - 1) / p.bn;
+    // 16 acc octets a block, an accumulator's 8 fewer at a time while two
+    // stages exceed shared memory
+    for (p.octs = 16 * p.acc;; p.octs -= 8) {
+      p.span = dw_span(p.octets, p.octs, kk);
+      p.stage_bytes = p.bn / kDwgSlabCols * kDwgSlabBytes +
+                      (p.span * dw_plane_bytes(k) + 1023) / 1024 * 1024;
+      if (p.octs == 8 || kDwgLead + 2 * p.stage_bytes <= kMaxSmem) break;
+    }
+    if (kDwgLead + 2 * p.stage_bytes > kMaxSmem) return false;
+    p.rblocks = (p.octets + p.octs - 1) / p.octs;
+    p.ring = std::min(kDwgRing, (kMaxSmem - kDwgLead) / p.stage_bytes);
+    p.smem = kDwgLead + (size_t)p.ring * p.stage_bytes;
+    p.tiles_w = (W + kDwgCols - 1) / kDwgCols;
+    p.tiles_h = (H + kDwgRows - 1) / kDwgRows;
     p.tiles = (long long)B * p.tiles_h * p.tiles_w;
-    const long long outs = (long long)p.cblocks * p.tblocks * p.n_tiles;
-    const long long slots =
-        std::max(1LL, std::min(kDwmMaxSlots, kDwmTargetBlocks / outs));
+    // one block per SM: as many slots as fill one wave of them
+    const long long outs = (long long)p.rblocks * p.n_tiles;
+    const long long slots = std::min(p.tiles, std::max(1LL, kDwgSms / outs));
     p.tiles_per_slot = (p.tiles + slots - 1) / slots;
     p.slots = (int)((p.tiles + p.tiles_per_slot - 1) / p.tiles_per_slot);
     p.pad_x = Cin % 8 != 0 || reinterpret_cast<uintptr_t>(xh) % 16 != 0;
     p.pad_g = N % 8 != 0 || reinterpret_cast<uintptr_t>(dg) % 16 != 0;
-    if (outs / p.n_tiles > 0x7fffffffLL || p.n_tiles > 65535) return false;
+    if (outs > 0x7fffffffLL) return false;
     p.xpad_floats = p.pad_x ? round4((npix * p.cp + 1) / 2) : 0;
     p.gpad_floats = p.pad_g ? round4((npix * p.np + 1) / 2) : 0;
   } else {
@@ -532,34 +616,75 @@ bool plan_dw(bool bf16, const void* xh, const void* dg, int B, int H, int W,
   return true;
 }
 
-template <int K, int NJ>
-int launch_dw_mma_k(const DwPlan& p, const __nv_bfloat16* x,
-                    const __nv_bfloat16* g, float* part, int H, int W, int Cin,
-                    int N, cudaStream_t s) {
-  using S = DwmShape<K, NJ>;
-  int err = (int)cudaFuncSetAttribute(dw_mma_kernel<K, NJ>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      S::kSmem);
-  if (err) return err;
-  const dim3 grid(p.cblocks * p.tblocks, p.n_tiles, p.slots);
-  dw_mma_kernel<K, NJ><<<grid, kDwmThreads, S::kSmem, s>>>(
-      x, g, part, H, W, Cin, p.cp, N, p.np, p.cblocks, p.tiles_w, p.tiles_h,
-      p.tiles, p.tiles_per_slot);
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (nothing links
+// libcuda); null where the lookup fails
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+    cudaGetLastError();  // a failed query leaves no error for the next launch
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 (B,H,W,C) tensor (C % 8 == 0, 16-byte
+// aligned) in boxes of (bc channels, bw columns, bh rows, 1 image), the
+// 128-byte swizzle or none; elements out of bounds read zero.
+bool nhwc_map(CUtensorMap* map, const void* t, int B, int H, int W, int C, int bc, int bw,
+              int bh, bool swizzle) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int K, int BN, int ACC>
+int launch_dw_wgmma_k(const DwPlan& p, const __nv_bfloat16* x, const __nv_bfloat16* g,
+                      float* part, int B, int H, int W, int Cin, int N, cudaStream_t s) {
+  CUtensorMap xmap, gmap;
+  if (!nhwc_map(&xmap, x, B, H, W, p.cp, 8, kDwgCols + K - 1, kDwgRows + K - 1, false) ||
+      !nhwc_map(&gmap, g, B, H, W, p.np, kDwgSlabCols, kDwgCols, kDwgRows, true))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = dw_mma_kernel_wgmma<K, BN, ACC>;
+  // once per kernel, to the card's most, so a CUDA graph capture makes no
+  // attribute call
+  static int ready = 0;
+  if (!ready) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err) return err;
+    ready = 1;
+  }
+  const dim3 grid(p.rblocks * p.n_tiles, p.slots);
+  kernel<<<grid, kDwgThreads, p.smem, s>>>(xmap, gmap, part, H, Cin, N, p.octets, p.octs,
+                                            p.ring, p.stage_bytes, p.n_tiles, p.tiles_w,
+                                            p.tiles_h, p.tiles, p.tiles_per_slot);
   return (int)cudaGetLastError();
 }
 
 template <int K>
-int launch_dw_mma_nj(const DwPlan& p, const __nv_bfloat16* x,
-                     const __nv_bfloat16* g, float* part, int H, int W,
-                     int Cin, int N, cudaStream_t s) {
-  switch (p.nj) {
-    case 1: return launch_dw_mma_k<K, 1>(p, x, g, part, H, W, Cin, N, s);
-    case 2: return launch_dw_mma_k<K, 2>(p, x, g, part, H, W, Cin, N, s);
-    case 4:  // plan_dw takes 128 columns for k <= 3 only
-      if constexpr (K <= 3) return launch_dw_mma_k<K, 4>(p, x, g, part, H, W, Cin, N, s);
-      return (int)cudaErrorInvalidValue;
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch_dw_wgmma(const DwPlan& p, const __nv_bfloat16* x, const __nv_bfloat16* g,
+                    float* part, int B, int H, int W, int Cin, int N, cudaStream_t s) {
+  if (p.bn == kDwgSlabCols) return launch_dw_wgmma_k<K, 64, 4>(p, x, g, part, B, H, W, Cin, N, s);
+  return launch_dw_wgmma_k<K, 128, 2>(p, x, g, part, B, H, W, Cin, N, s);
 }
 
 int launch_pad(const __nv_bfloat16* src, __nv_bfloat16* dst, long long rows,
@@ -582,7 +707,7 @@ int launch_dw(const DwPlan& p, const void* xh, const void* dgates,
   int err = 0;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     // every bf16 shape runs on the tensor cores: no other kernel takes it
-    if (!p.mma) return (int)cudaErrorInvalidValue;
+    if (!p.wgmma) return (int)cudaErrorInvalidValue;
     const auto* x = static_cast<const __nv_bfloat16*>(xh);
     const auto* g = static_cast<const __nv_bfloat16*>(dgates);
     const long long npix = (long long)B * H * W;
@@ -597,14 +722,14 @@ int launch_dw(const DwPlan& p, const void* xh, const void* dgates,
       g = gp;
     }
     switch (k) {
-      case 1: err = launch_dw_mma_nj<1>(p, x, g, part, H, W, Cin, N, s); break;
-      case 3: err = launch_dw_mma_nj<3>(p, x, g, part, H, W, Cin, N, s); break;
-      case 5: err = launch_dw_mma_nj<5>(p, x, g, part, H, W, Cin, N, s); break;
-      case 7: err = launch_dw_mma_nj<7>(p, x, g, part, H, W, Cin, N, s); break;
+      case 1: err = launch_dw_wgmma<1>(p, x, g, part, B, H, W, Cin, N, s); break;
+      case 3: err = launch_dw_wgmma<3>(p, x, g, part, B, H, W, Cin, N, s); break;
+      case 5: err = launch_dw_wgmma<5>(p, x, g, part, B, H, W, Cin, N, s); break;
+      case 7: err = launch_dw_wgmma<7>(p, x, g, part, B, H, W, Cin, N, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
-    if (p.mma) return (int)cudaErrorInvalidValue;
+    if (p.wgmma) return (int)cudaErrorInvalidValue;
     const dim3 grid(p.m_tiles, p.n_tiles, p.slots);
     dw_partial_kernel<<<grid, kDwThreads, 0, s>>>(
         static_cast<const float*>(xh), static_cast<const float*>(dgates), part,
@@ -657,7 +782,7 @@ int backward(const void* xh, const void* w, const void* b, const void* c,
                 hid, k, &p))
     return (int)cudaErrorInvalidValue;
   // the plan took dgates as aligned (it is this call's output)
-  if (p.dw.mma && !p.dw.pad_g && reinterpret_cast<uintptr_t>(dgates) % 16)
+  if (p.dw.wgmma && !p.dw.pad_g && reinterpret_cast<uintptr_t>(dgates) % 16)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int N = 4 * hid;
@@ -704,14 +829,13 @@ long long niswan_conv_dw_workspace(int bf16, const void* xh,
   return p.floats();
 }
 
-// The plan of dw (b) for these shapes: 1 the tensor cores, 0 the FP32
+// The plan of dw (b) for these shapes: 1 dw_mma_kernel_wgmma, 0 the FP32
 // pipes, -1 no kernel takes them.  The same for niswan_conv_dw_* and the
 // dw of niswan_cell_bwd_* (N = 4*hid).
-int niswan_conv_dw_uses_mma(int bf16, int B, int H, int W, int Cin, int N,
-                            int k) {
+int niswan_conv_dw_plan(int bf16, int B, int H, int W, int Cin, int N, int k) {
   DwPlan p;
   if (!plan_dw(bf16 != 0, nullptr, nullptr, B, H, W, Cin, N, k, &p)) return -1;
-  return p.mma ? 1 : 0;
+  return p.wgmma ? 1 : 0;
 }
 
 // dw (k,k,Cin,N) f32 = sum over pixels of im2col(xh) x dgates, for xh

@@ -170,9 +170,9 @@ def _load(path: Path) -> ctypes.CDLL:
     # no kernel takes them
     lib.niswan_conv_dw_workspace.argtypes = [i32, ptr, ptr] + [i32] * 6
     lib.niswan_conv_dw_workspace.restype = ctypes.c_longlong
-    # (bf16, B, H, W, Cin, N, k) -> 1 tensor cores, 0 FP32 pipes, -1 none
-    lib.niswan_conv_dw_uses_mma.argtypes = [i32] * 7
-    lib.niswan_conv_dw_uses_mma.restype = i32
+    # (bf16, B, H, W, Cin, N, k) -> 1 wgmma, 0 FP32 pipes, -1 none
+    lib.niswan_conv_dw_plan.argtypes = [i32] * 7
+    lib.niswan_conv_dw_plan.restype = i32
     lib.niswan_error_string.argtypes = [i32]
     lib.niswan_error_string.restype = ctypes.c_char_p
     return lib

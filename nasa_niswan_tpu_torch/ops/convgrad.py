@@ -7,10 +7,9 @@ Replaces the TPU kernels of ``nasa_niswan_tpu/ops/convgrad_pallas.py``:
   recomputes the gates of one cell step from (xh, w, b), applies the
   elementwise backward of the nonlinearities and the state update, and
   reduces the weight and bias gradients over every pixel.  Kernel:
-  ``csrc/cell_bwd.cu`` (gate recompute on the forward's mainloop; dW on the
-  tensor cores for every bf16 shape, split over a fixed number of pixel
-  slots and summed in a fixed order; no atomics, so reruns are
-  bit-identical).
+  ``csrc/cell_bwd.cu`` (gate recompute on the forward's mainloop; dW on
+  ``wgmma`` for every bf16 shape, split over a fixed number of pixel slots
+  and summed in a fixed order; no atomics, so reruns are bit-identical).
 * ``conv_same`` (B3, ``_conv_same_kernel`` via ``conv_same_v2``): a SAME
   k x k conv with an f32 output; on the flipped, transposed cell kernel it is
   the data gradient dxh.  Kernel: ``csrc/conv_same.cu``, whose bf16 entry
@@ -64,8 +63,11 @@ cell_bwd_launches = 0
 conv_same_launches = 0
 dw_launches = 0
 recompute_launches = 0  # B2's part (a) alone: timing only, on no main path
+# dw_wgmma_launches is a sub-count of the dW launches (one in each
+# cell_bwd launch and each conv_dw launch): those that ran the wgmma kernel
+dw_wgmma_launches = 0
 LAUNCH_COUNTERS = ("cell_bwd_launches", "conv_same_launches", "dw_launches",
-                   "recompute_launches")
+                   "recompute_launches", "dw_wgmma_launches")
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -142,9 +144,10 @@ def _cell_bwd_cuda(
     xh: torch.Tensor, c: torch.Tensor, dh: torch.Tensor, dc: torch.Tensor,
     w: torch.Tensor, b: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    global cell_bwd_launches
+    global cell_bwd_launches, dw_wgmma_launches
     out = _cell_bwd_launch(xh, c, dh, dc, w, b, True)
     cell_bwd_launches += 1
+    dw_wgmma_launches += xh.dtype == torch.bfloat16  # bf16 dW always runs wgmma
     return out
 
 
@@ -263,7 +266,7 @@ def conv_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 @torch.library.custom_op("niswan::conv_dw", mutates_args=(), device_types="cuda")
 def _conv_dw_cuda(x: torch.Tensor, dgates: torch.Tensor, k: int) -> torch.Tensor:
-    global dw_launches
+    global dw_launches, dw_wgmma_launches
     lib = _build.load_kernels()
     bf16 = x.dtype == torch.bfloat16
     B, H, W, cin = x.shape
@@ -282,6 +285,7 @@ def _conv_dw_cuda(x: torch.Tensor, dgates: torch.Tensor, k: int) -> torch.Tensor
                  B, H, W, cin, n, k, stream)
     _raise_on(err, "conv_dw", lib)
     dw_launches += 1
+    dw_wgmma_launches += bf16  # bf16 dW always runs wgmma
     return dw
 
 
@@ -290,23 +294,25 @@ def _(x, dgates, k):
     return x.new_empty((k, k, x.shape[-1], dgates.shape[-1]), dtype=torch.float32)
 
 
-def dw_uses_mma(dtype: torch.dtype, B, H, W, cin, n, k) -> bool:
-    """Whether the dW kernels (``conv_dw`` and B2's) take these shapes on the
-    tensor cores, as the library plans them (builds the library); raises if
-    no kernel takes them."""
-    plan = _build.load_kernels().niswan_conv_dw_uses_mma(
+def dw_plan(dtype: torch.dtype, B, H, W, cin, n, k) -> str:
+    """Which kernel the dW launches (``conv_dw`` and B2's) take for these
+    shapes, as the library plans them (builds the library): ``"wgmma"``
+    (bf16, the tensor cores) or ``"fp32"`` (the FP32 pipes); raises if no
+    kernel takes them."""
+    plan = _build.load_kernels().niswan_conv_dw_plan(
         int(dtype == torch.bfloat16), B, H, W, cin, n, k)
     if plan < 0:
         raise ValueError(f"no dw kernel for B={B} H={H} W={W} Cin={cin} N={n} k={k}")
-    return plan == 1
+    return "wgmma" if plan == 1 else "fp32"
+
 
 
 def conv_dw(x: torch.Tensor, dgates: torch.Tensor, k: int) -> torch.Tensor:
     """f32 weight gradient (k,k,Cin,N) of the SAME k x k conv of x
     (B,H,W,Cin) for the output cotangent dgates (B,H,W,N) of x's dtype.
     CPU tensors run the plain version (one f32 matmul per tap), every other
-    device the kernel: the tensor cores for bf16 at any Cin and N, the FP32
-    pipes for f32."""
+    device the kernel: ``wgmma`` for bf16 at any Cin and N, the FP32 pipes
+    for f32."""
     if x.dim() != 4 or dgates.dim() != 4 or x.shape[:3] != dgates.shape[:3]:
         raise ValueError(
             f"expected x (B,H,W,Cin), dgates (B,H,W,N); got {tuple(x.shape)}, "

@@ -6,13 +6,17 @@ within one machine session.
 ``--root`` names the checkout whose ``nasa_niswan_tpu_torch`` is imported
 (default: the one holding this script); its kernels are built there at the
 first launch.  bf16 operands, B = 8 (the hoisted input conv: T*B = 384
-frames), 100x154, random inputs from a seed.  Prints the card's name and
-power limit, the build time, then per shape the mean time of one launch
-(CUDA events around ``--iters`` launches after a warm-up, L2 not flushed),
-the least time the card could take for the same work (dense bf16 peak and
+frames), 100x154 (dW also on the halo-extended training tiles of the
+(1, 1), (2, 2) and (2, 7) meshes, and at config #2's Cin 126), random
+inputs from a seed.  Prints the card's name and power limit, the build
+time, then per shape the mean time of one launch (CUDA events around
+``--iters`` launches after a warm-up, L2 not flushed), eager and with the
+launches captured in one CUDA graph and replayed (so the host's dispatch
+drops out, as in a training step's graph; cuDNN eager alone), the least
+time the card could take for the same work (dense bf16 peak and
 HBM rate: the larger) and the one PyTorch call computing the same function
-(cuDNN: ``conv2d_weight`` for dW, ``F.conv2d`` with a bf16 output for B3),
-``--reps`` times; last one JSON line with the means over the reps.
+(cuDNN: ``conv2d_weight`` for dW, ``F.conv2d`` with a bf16 output for
+B3), ``--reps`` times; last one JSON line with the means over the reps.
 ``--routes`` also times training steps of the root's package on the host
 clock (synchronised, no profiler attached), ``--steps`` of them after one
 warm-up: remat (the canonical windowed step), per-cell, seq2seq (config #3
@@ -42,6 +46,17 @@ DW_SHAPES = (
     (8, 100, 154, 70, 256, 5),
     (8, 100, 154, 64, 256, 5),
     (384, 100, 154, 8, 256, 5),
+    (8, 100, 154, 126, 256, 5),
+)
+# dW on the training tiles of the (1, 1), (2, 2) and (2, 7) meshes, each
+# tile extended by its halo (parallel/spatial): layer 1 (k 5) 104 x 158 /
+# 54 x 81 / 54 x 26, layers 2 and 3 (k 3) 102 x 156 / 52 x 79 / 52 x 24
+DW_TILE_SHAPES = tuple(
+    (8, h, w, cin, n, k)
+    for cin, n, k, tiles in ((72, 256, 5, ((104, 158), (54, 81), (54, 26))),
+                             (96, 128, 3, ((102, 156), (52, 79), (52, 24))),
+                             (48, 64, 3, ((102, 156), (52, 79), (52, 24))))
+    for h, w in tiles
 )
 # (B, H, W, Cin, Cout, k) of B3 as the data gradient dxh = conv_same(dgates,
 # w'): the three training layers, config #3's layer 1, the 20-level fusion's
@@ -140,23 +155,30 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-    def ms(fn):
+    def ms(fn, replay=False):
         for _ in range(2):
             fn()
+        run = lambda: [fn() for _ in range(args.iters)]  # noqa: E731
+        if replay:
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                run()
+            graph.replay()
+            run = graph.replay
         start.record()
-        for _ in range(args.iters):
-            fn()
+        run()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.iters
 
     cases = []
-    for B, H, W, cin, n, k in DW_SHAPES:
+    for B, H, W, cin, n, k in DW_SHAPES + DW_TILE_SHAPES:
         x = torch.randn((B, H, W, cin), generator=gen, device=dev).bfloat16()
         g = torch.randn((B, H, W, n), generator=gen, device=dev).bfloat16()
         px = B * H * W
         cases.append((
-            f"conv_dw B={B} Cin={cin} N={n} k={k}",
+            f"conv_dw B={B} H={H} W={W} Cin={cin} N={n} k={k}",
             lambda x=x, g=g, k=k: convgrad.conv_dw(x, g, k),
             lambda x=x, g=g, k=k, n=n, cin=cin: torch.nn.grad.conv2d_weight(
                 x.permute(0, 3, 1, 2), (n, cin, k, k), g.permute(0, 3, 1, 2), padding=k // 2),
@@ -180,12 +202,13 @@ def main():
     sums = {}
     for rep in range(args.reps):
         for tag, fn, lib_fn, bound in cases:
-            kernel, library = ms(fn), ms(lib_fn)
-            print(f"rep {rep} {tag}: kernel {kernel:.4f} ms, library {library:.4f} ms, "
-                  f"bound {bound:.4f} ms")
-            s = sums.setdefault(tag, [0.0, 0.0, bound])
+            kernel, replay, library = ms(fn), ms(fn, replay=True), ms(lib_fn)
+            print(f"rep {rep} {tag}: kernel {kernel:.4f} ms (replayed {replay:.4f} ms), "
+                  f"library {library:.4f} ms, bound {bound:.4f} ms")
+            s = sums.setdefault(tag, [0.0, 0.0, 0.0, bound])
             s[0] += kernel / args.reps
-            s[1] += library / args.reps
+            s[1] += replay / args.reps
+            s[2] += library / args.reps
     del cases
     torch.cuda.empty_cache()
     steps = {}
@@ -202,7 +225,8 @@ def main():
         del step
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "device": smi, "ms": {
-        tag: {"kernel": k, "library": lib, "bound": b} for tag, (k, lib, b) in sums.items()},
+        tag: {"kernel": k, "replay": r, "library": lib, "bound": b}
+        for tag, (k, r, lib, b) in sums.items()},
         "ms_per_step": steps}))
 
 

@@ -7,8 +7,9 @@ package, plus emulations of the two tensor-core kernels' loop nests.
   route), ``conv_same`` against ``conv_same_v2`` and ``fused_cell_bwd``
   against ``fused_cell_bwd_v2``, both in Pallas interpret mode.
 * A torch emulation of each kernel's loop nest (``csrc/cell_bwd.cu``
-  ``dw_mma_kernel`` and ``csrc/conv_same.cu`` ``conv_same_mma_kernel``):
+  ``dw_mma_kernel_wgmma`` and ``csrc/conv_same.cu`` ``conv_same_mma_kernel``):
   their plans, pixel tiles, haloes, tap offsets, zero-filled channel groups,
+  the dW kernel's staged images, ldmatrix addresses and descriptor reads,
   slot split and in-order slot sum, written out index by index as the
   kernels compute them, against the plain versions at ragged H, W and Cin.
   The kernels themselves run only on a card (``tests/test_torch_cuda.py``).
@@ -139,89 +140,165 @@ def test_fused_cell_bwd_matches_jax_pallas_ragged_cin(dtype):
     np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), atol=2e-4)
 
 
-# ---- the dW kernel's loop nest (csrc/cell_bwd.cu, dw_mma_kernel) -----------
+# ---- the dW kernel's loop nest (csrc/cell_bwd.cu, dw_mma_kernel_wgmma) -----
 
-ROWS, COLS, CH = 8, 16, 16  # pixel tile, channels per block
-WARPS, TARGET_BLOCKS, MAX_SLOTS, TAPS_PER_WARP = 16, 264, 128, 4
+ROWS, COLS = 8, 16  # pixel tile: one k16 step of 16 pixels per row
+SLAB = 64  # gate columns of a dgates slab: 128 bytes a pixel
+SLAB_BYTES = ROWS * COLS * 128
+SMS, RING, LEAD, MAX_SMEM = 132, 4, 1152, 232448
 
 
 def _ceil(a, b):
     return -(-a // b)
 
 
+def _plane_bytes(k):
+    """One halo plane: 8 channels of (8+k-1) x (16+k-1) pixels, 16 bytes a
+    pixel, 128-byte aligned."""
+    return _ceil((ROWS + k - 1) * (COLS + k - 1) * 16, 128) * 128
+
+
 def _dw_plan(B, H, W, cin, n, k):
-    """``plan_dw`` for bf16: warps along the columns, taps per block, block
-    counts and the fixed slot split of the pixel tiles."""
-    nj = 1 if n <= 32 else (4 if k <= 3 and n > 64 else 2)
+    """``plan_dw`` for bf16: octets (8 channels of one tap; octet o is plane
+    o // k*k, tap o % k*k), the column tile and accumulators, the octets a
+    block owns and the planes its halo holds, the ring, and the slots that
+    fill one wave of 132 SMs."""
     cp, np_ = _ceil(cin, 8) * 8, _ceil(n, 8) * 8
-    taps = min(k * k, (WARPS // nj) * TAPS_PER_WARP)
-    plan = dict(nj=nj, cp=cp, np=np_, taps=taps, tn=32 * nj,
-                cblocks=_ceil(cp, CH), tblocks=_ceil(k * k, taps),
-                n_tiles=_ceil(n, 32 * nj), tiles_w=_ceil(W, COLS), tiles_h=_ceil(H, ROWS))
+    kk = k * k
+    octets = kk * cp // 8
+    bn = SLAB if n <= SLAB else 2 * SLAB
+    acc = 256 // bn
+    octs = 16 * acc
+    while True:
+        span = max((min(octets, o0 + octs) - 1) // kk - o0 // kk + 1
+                   for o0 in range(0, octets, octs))
+        stage = bn // SLAB * SLAB_BYTES + _ceil(span * _plane_bytes(k), 1024) * 1024
+        if octs == 8 or LEAD + 2 * stage <= MAX_SMEM:
+            break
+        octs -= 8
+    plan = dict(cp=cp, np=np_, kk=kk, octets=octets, bn=bn, acc=acc, octs=octs, span=span,
+                stage=stage, ring=min(RING, (MAX_SMEM - LEAD) // stage),
+                rblocks=_ceil(octets, octs), n_tiles=_ceil(n, bn),
+                tiles_w=_ceil(W, COLS), tiles_h=_ceil(H, ROWS))
+    plan["smem"] = LEAD + plan["ring"] * stage
     plan["tiles"] = B * plan["tiles_h"] * plan["tiles_w"]
-    outs = plan["cblocks"] * plan["tblocks"] * plan["n_tiles"]
-    slots = max(1, min(MAX_SLOTS, TARGET_BLOCKS // outs))
+    outs = plan["rblocks"] * plan["n_tiles"]
+    slots = min(plan["tiles"], max(1, SMS // outs))
     plan["per"] = _ceil(plan["tiles"], slots)
     plan["slots"] = _ceil(plan["tiles"], plan["per"])
+    plan["blocks"] = outs * plan["slots"]
     return plan
 
 
+def _swizzled(e):
+    """The 128-byte swizzle of TMA and of the wgmma descriptor on element
+    (bf16) offsets of a 1024-byte aligned buffer: byte bits 4-6 ^= 7-9."""
+    return e ^ (((e >> 6) & 7) << 3)
+
+
+def _stage_images(xp, gp, plan, k, tiles, g_lo, span, n0):
+    """The producer's TMA boxes of each tile into its stage, as element
+    (bf16) images: BN // 64 slabs of dgates (box: 64 columns from n0 + 64j,
+    16 columns, 8 rows; 128-byte swizzle), then `span` halo planes (box: 8
+    channels from 8 (g_lo + i), 16+k-1 columns from x0 - k//2, 8+k-1 rows
+    from y0 - k//2); every box element out of the tensor reads zero."""
+    B, H, W, _ = xp.shape
+    P, hw, hh = k // 2, COLS + k - 1, ROWS + k - 1
+    # zero borders wide enough for every box
+    gz = torch.nn.functional.pad(gp, (0, plan["n_tiles"] * plan["bn"], 0, COLS, 0, ROWS))
+    xz = torch.nn.functional.pad(xp, (0, 8 * span, P, hw, P, hh))
+    out = torch.zeros((len(tiles), plan["stage"] // 2))
+    for ti, t in enumerate(tiles):
+        t2, tx = divmod(t, plan["tiles_w"])
+        b, ty = divmod(t2, plan["tiles_h"])
+        y0, x0 = ty * ROWS, tx * COLS
+        for j in range(plan["bn"] // SLAB):
+            box = gz[b, y0 : y0 + ROWS, x0 : x0 + COLS, n0 + SLAB * j : n0 + SLAB * (j + 1)]
+            lin = torch.arange(SLAB_BYTES // 2)
+            out[ti, j * SLAB_BYTES // 2 + _swizzled(lin)] = box.reshape(-1)
+        base = plan["bn"] // SLAB * SLAB_BYTES // 2
+        for i in range(span):
+            c0 = 8 * (g_lo + i)
+            box = xz[b, y0 : y0 + hh, x0 : x0 + hw, c0 : c0 + 8]  # rows y0 - P.. (padded by P)
+            pl = base + i * _plane_bytes(k) // 2
+            out[ti, pl : pl + hh * hw * 8] = box.reshape(-1)
+    return out
+
+
 def _dw_kernel_emulation(x, g, k):
-    """dw as ``dw_mma_kernel`` computes it: xh and dgates zero-padded to whole
-    8-channel groups (``pad_channels_kernel``); per slot and block (16
-    channels x its taps x its columns) the slot's 8 x 16 pixel tiles, each
-    staged as its xh halo (zero outside the frame and past the padded
-    channels) and its dgates rows (zero past the frame); tap (dy, dx) reads
-    the halo shifted by (dy, dx); partials per slot, rows past Cin never
-    written; then the slots summed in order.  Returns (dw, plan, writes),
-    writes counting how often each dw entry was written per slot."""
+    """dw as ``dw_mma_kernel_wgmma`` computes it.  xh and dgates zero-padded
+    to whole 8-channel groups (``pad_channels_kernel``).  Per slot and block
+    (row block rb: octets [rb octs, ...); column block: BN columns) each
+    tile of the slot is staged as the TMA boxes land (``_stage_images``);
+    per tile row r (row pairs holding a row of the frame), each warp's A
+    fragment is read at the addresses its lanes give ldmatrix.trans: lane
+    l, matrix l // 8 = (pixels 0-7 | 8-15) x (the warp's first | second
+    octet), its row pixel 8 (l // 16) + l % 8 at that octet's plane and tap
+    shift; B is read through the slab descriptor (MN-major, 128-byte
+    swizzle, SBO 1024 bytes along the pixels, LBO a slab along the
+    columns).  The epilogue writes octet rows below Cin and columns below N
+    into the slot's partial; then the slots are summed in order.  Returns
+    (dw, plan, writes), writes counting how often each entry was written
+    per slot."""
     B, H, W, cin = x.shape
     n = g.shape[-1]
     p = _dw_plan(B, H, W, cin, n, k)
-    P = k // 2
-    x = torch.nn.functional.pad(x.float(), (0, p["cp"] - cin))
-    g = torch.nn.functional.pad(g.float(), (0, p["np"] - n))
-    hr, hc = ROWS + k - 1, COLS + k - 1
-    part = torch.zeros((p["slots"], k * k, cin, n))
-    writes = torch.zeros((p["slots"], k * k, cin, n), dtype=torch.int32)
+    kk, hw, acc_n, bn = p["kk"], COLS + k - 1, p["acc"], p["bn"]
+    xp = torch.nn.functional.pad(x.float(), (0, p["cp"] - cin))
+    gp = torch.nn.functional.pad(g.float(), (0, p["np"] - n))
+    halo0 = bn // SLAB * SLAB_BYTES // 2  # the halo's first element in a stage
+    row_step = hw * 8  # elements from one tile row of the halo to the next
+    # B of tile row 0 through the descriptor: element (pixel kp, column c)
+    kp, col = torch.meshgrid(torch.arange(16), torch.arange(bn), indexing="ij")
+    b_bytes = (col // SLAB) * SLAB_BYTES + (kp // 8) * 1024 + (kp % 8) * 128 + (col % SLAB) * 2
+    b_idx = _swizzled(b_bytes // 2)  # slabs start 1024-aligned
+    part = torch.zeros((p["slots"], kk, cin, n))
+    writes = torch.zeros((p["slots"], kk, cin, n), dtype=torch.int32)
     for slot in range(p["slots"]):
-        tile_ids = range(slot * p["per"], min(p["tiles"], (slot + 1) * p["per"]))
-        for cb in range(p["cblocks"]):
-            c0 = cb * CH
-            halos, gts = [], []
-            for t in tile_ids:
-                tx, t2 = t % p["tiles_w"], t // p["tiles_w"]
-                ty, b = t2 % p["tiles_h"], t2 // p["tiles_h"]
-                y0, x0 = ty * ROWS, tx * COLS
-                halo = torch.zeros((hr, hc, CH))
-                for r in range(hr):
-                    y = y0 - P + r
-                    if not 0 <= y < H:
-                        continue
-                    lo, hi = max(0, x0 - P), min(W, x0 - P + hc)
-                    for grp in range(2):  # two 8-channel groups, zero past cp
-                        ch = c0 + 8 * grp
-                        if ch < p["cp"]:
-                            halo[r, lo - (x0 - P) : hi - (x0 - P), 8 * grp : 8 * grp + 8] = \
-                                x[b, y, lo:hi, ch : ch + 8]
-                gt = torch.zeros((ROWS, COLS, p["n_tiles"] * p["tn"]))
-                ys, xs = slice(y0, min(H, y0 + ROWS)), slice(x0, min(W, x0 + COLS))
-                gt[: ys.stop - y0, : xs.stop - x0, : p["np"]] = g[b, ys, xs]
-                halos.append(halo)
-                gts.append(gt)
-            halos, gts = torch.stack(halos), torch.stack(gts)
-            for tb in range(p["tblocks"]):
-                t0 = tb * p["taps"]
-                for tap in range(t0, min(k * k, t0 + p["taps"])):
-                    dy, dx = divmod(tap, k)
-                    a = halos[:, dy : dy + ROWS, dx : dx + COLS]  # (tiles, 8, 16, 16 ch)
-                    acc = torch.einsum("trpc,trpn->cn", a, gts)
-                    for nb in range(p["n_tiles"]):
-                        n0 = nb * p["tn"]
-                        cs, ns = min(CH, cin - c0), min(p["tn"], n - n0)
-                        if cs > 0:
-                            part[slot, tap, c0 : c0 + cs, n0 : n0 + ns] = acc[:cs, n0 : n0 + ns]
-                            writes[slot, tap, c0 : c0 + cs, n0 : n0 + ns] += 1
+        tiles = range(slot * p["per"], min(p["tiles"], (slot + 1) * p["per"]))
+        for rb in range(p["rblocks"]):
+            o0 = rb * p["octs"]
+            o_end = min(p["octets"], o0 + p["octs"])
+            g_lo = o0 // kk
+            span = (o_end - 1) // kk - g_lo + 1
+            # A of tile row 0: [warpgroup, accumulator, warp, m16 row, k16 pixel]
+            a_idx = torch.zeros((2, acc_n, 4, 16, 16), dtype=torch.long)
+            for wg in range(2):
+                for a in range(acc_n):
+                    for w in range(4):
+                        for lane in range(32):
+                            m, i = lane // 8, lane % 8
+                            o = o0 + (wg * acc_n + a) * 8 + 2 * w + m % 2
+                            o = o if o < o_end else o0
+                            tap = o % kk
+                            pix = 8 * (m // 2) + i
+                            addr = (halo0 + (o // kk - g_lo) * _plane_bytes(k) // 2
+                                    + ((tap // k) * hw + tap % k + pix) * 8)
+                            a_idx[wg, a, w, 8 * (m % 2) : 8 * (m % 2) + 8, pix] = \
+                                addr + torch.arange(8)
+            for cb in range(p["n_tiles"]):
+                n0 = cb * bn
+                img = _stage_images(xp, gp, p, k, tiles, g_lo, span, n0)
+                accs = torch.zeros((2, acc_n, 4, 16, bn))
+                for ti, t in enumerate(tiles):
+                    y0 = (t // p["tiles_w"]) % p["tiles_h"] * ROWS
+                    for r in range(2 * _ceil(min(ROWS, H - y0), 2)):
+                        a_mat = img[ti][a_idx + r * row_step]
+                        b_mat = img[ti][b_idx + r * (2048 // 2)]
+                        accs += a_mat @ b_mat
+                for wg in range(2):
+                    for a in range(acc_n):
+                        for w in range(4):
+                            for h in range(2):
+                                o = o0 + (wg * acc_n + a) * 8 + 2 * w + h
+                                cs = min(8, cin - 8 * (o // kk))
+                                ns = min(bn, n - n0)
+                                if o >= o_end or cs <= 0:
+                                    continue
+                                c0 = 8 * (o // kk)
+                                part[slot, o % kk, c0 : c0 + cs, n0 : n0 + ns] = \
+                                    accs[wg, a, w, 8 * h : 8 * h + cs, :ns]
+                                writes[slot, o % kk, c0 : c0 + cs, n0 : n0 + ns] += 1
     dw = part[0].clone()
     for s in range(1, p["slots"]):  # sum_slots_kernel: slots in order
         dw = dw + part[s]
@@ -230,9 +307,22 @@ def _dw_kernel_emulation(x, g, k):
 
 @pytest.mark.parametrize(
     "B,H,W,cin,n,k",
-    [(2, 9, 37, 22, 40, 5),  # ragged rows, columns and channels; 2 warps along N
-     (1, 11, 19, 6, 96, 3),  # Cin 6: one zero-filled group; 4 warps along N
-     (1, 6, 17, 40, 40, 7)],  # k 7 splits its 49 taps (32 + 17); 3 channel blocks
+    [(2, 9, 37, 22, 40, 5),  # ragged rows, columns, channels and N
+     (1, 11, 19, 6, 96, 3),  # Cin 6: one plane, two zero channels; 32 zero columns
+     (1, 6, 17, 40, 40, 7),  # k 7, 5 planes
+     (1, 9, 21, 70, 256, 5),  # config #3's Cin 70: 9 planes, two column blocks
+     (1, 7, 18, 126, 256, 5),  # config #2's Cin 126: 16 planes, 13 row blocks
+     (1, 10, 17, 126, 128, 7),  # k 7 at 126 channels: 25 row blocks
+     (2, 5, 33, 6, 32, 7),  # 32 columns of a 64-wide tile
+     (1, 13, 20, 22, 64, 3),  # four m64n64 accumulators a warpgroup
+     (1, 9, 16, 70, 128, 3),
+     (1, 12, 15, 6, 256, 5),
+     (1, 17, 9, 126, 64, 3),
+     (2, 8, 16, 22, 128, 7),
+     (1, 11, 23, 70, 32, 7),
+     (1, 9, 13, 126, 32, 3),
+     (1, 6, 35, 8, 256, 5),  # the hoisted input conv's Cin 8: one plane
+     (3, 4, 5, 5, 16, 1)],  # k 1
 )
 def test_dw_kernel_loop_nest_matches_plain(B, H, W, cin, n, k):
     """The emulated dW kernel equals ``dw_per_tap`` to f32 rounding (1e-5 of
@@ -245,22 +335,36 @@ def test_dw_kernel_loop_nest_matches_plain(B, H, W, cin, n, k):
     assert _rel(got.numpy(), convgrad.conv_dw(x, g, k).numpy()) <= 1e-5
 
 
-def test_dw_plan_at_the_main_path_shapes():
-    """The slot split of the main path's dW shapes: two waves of 132 blocks
-    or fewer, and config #3's Cin 70 blocked like Cin 72 (5 channel blocks,
-    one zero-filled group)."""
-    shapes = {  # (B, H, W, Cin, N, k): (channel blocks, column tiles, slots)
-        (8, 100, 154, 72, 256, 5): (5, 4, 13),
-        (8, 100, 154, 70, 256, 5): (5, 4, 13),
-        (8, 100, 154, 96, 128, 3): (6, 1, 44),
-        (8, 100, 154, 48, 64, 3): (3, 1, 87),
-        (8, 100, 154, 64, 256, 5): (4, 4, 16),
-        (384, 100, 154, 8, 256, 5): (1, 4, 66),
-    }
-    for shape, want in shapes.items():
-        p = _dw_plan(*shape)
-        assert (p["cblocks"], p["n_tiles"], p["slots"]) == want, shape
-        assert p["cblocks"] * p["tblocks"] * p["n_tiles"] * p["slots"] <= TARGET_BLOCKS
+@pytest.mark.parametrize(
+    "shape,want",
+    [  # (B, H, W, Cin, N, k): (row blocks, column blocks, slots, halo planes)
+        ((8, 100, 154, 72, 256, 5), (8, 2, 8, 3)),  # the remat layers 1-3
+        ((8, 100, 154, 96, 128, 3), (4, 1, 33, 5)),
+        ((8, 100, 154, 48, 64, 3), (1, 1, 130, 6)),
+        ((8, 100, 154, 70, 256, 5), (8, 2, 8, 3)),  # config #3's layer 1, as Cin 72
+        ((8, 100, 154, 64, 256, 5), (7, 2, 9, 3)),  # the hoisted layer 0's h
+        ((384, 100, 154, 8, 256, 5), (1, 2, 66, 1)),  # the hoisted input conv
+        ((8, 100, 154, 126, 256, 5), (13, 2, 5, 3)),  # config #2's layer 1
+        ((8, 104, 158, 72, 256, 5), (8, 2, 8, 3)),  # the training tiles of the
+        ((8, 54, 81, 72, 256, 5), (8, 2, 8, 3)),  # (1, 1), (2, 2), (2, 7)
+        ((8, 54, 26, 72, 256, 5), (8, 2, 8, 3)),  # meshes, halo included
+        ((8, 102, 156, 96, 128, 3), (4, 1, 33, 5)),
+        ((8, 52, 79, 96, 128, 3), (4, 1, 32, 5)),
+        ((8, 52, 24, 48, 64, 3), (1, 1, 112, 6)),
+    ],
+)
+def test_dw_plan_at_the_main_path_shapes(shape, want):
+    """The plan at the main paths' dW shapes: its row blocks, column
+    blocks, slots and halo planes; one block per SM, the grid a whole wave
+    of 132 SMs at least 95% full (or one pixel tile per block, where the
+    frame has fewer tiles); two to four stages that fit shared memory."""
+    p = _dw_plan(*shape)
+    assert (p["rblocks"], p["n_tiles"], p["slots"], p["span"]) == want
+    waves = _ceil(p["blocks"], SMS)
+    assert p["blocks"] >= 0.95 * SMS * waves or p["per"] == 1
+    assert waves == 1
+    assert 2 <= p["ring"] <= RING and p["smem"] <= MAX_SMEM
+    assert p["rblocks"] * p["octs"] >= p["octets"] > (p["rblocks"] - 1) * p["octs"]
 
 
 # ---- B3's loop nest (csrc/conv_same.cu, conv_same_mma_kernel) --------------

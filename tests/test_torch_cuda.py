@@ -1,8 +1,10 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
 card: the fused ConvLSTM cell forward (B1) in its plain, emit_gates and xg
 modes and its plain mode's two-part launch (bit-equal to the launch on
-the concatenated input), the fused cell backward (B2) and its dW kernels on their own, the
-SAME data-gradient conv (B3), and the two training routes built on them
+the concatenated input), the fused cell backward (B2) and its dW kernel
+on its own (at every main-path shape, on unaligned operands, its kernel
+name and sub-counter), the SAME data-gradient conv (B3), and the two
+training routes built on them
 (the whole-scan BPTT and the per-cell Functions); the serving loops
 replayed as CUDA graphs against their eager bodies; and the UNet's forward
 on the card against the CPU, and its 6-channel closed loop as graph
@@ -179,8 +181,8 @@ def test_conv_dw_bf16_ragged_cin_on_the_tensor_cores(device, cin):
     holds the per-tap f32 matmul within 1e-3 of the largest entry; reruns
     bit-identical.  Also through a 2-byte-misaligned xh (a padded copy)."""
     B, H, W, n, k = 2, 13, 21, 256, 5
-    assert convgrad.dw_uses_mma(torch.bfloat16, B, H, W, cin, n, k)
-    assert not convgrad.dw_uses_mma(torch.float32, B, H, W, cin, n, k)
+    assert convgrad.dw_plan(torch.bfloat16, B, H, W, cin, n, k) == "wgmma"
+    assert convgrad.dw_plan(torch.float32, B, H, W, cin, n, k) == "fp32"
     rng = np.random.default_rng(cin)
     x = torch.tensor(rng.standard_normal((B, H, W, cin)), dtype=torch.bfloat16)
     g = torch.tensor(rng.standard_normal((B, H, W, n)), dtype=torch.bfloat16)
@@ -193,6 +195,88 @@ def test_conv_dw_bf16_ragged_cin_on_the_tensor_cores(device, cin):
     torch.cuda.synchronize()
     assert torch.equal(got, again) and torch.equal(got, odd)
     assert _rel(got, want) <= 1e-3
+
+
+# (B, H, W, Cin, N, k) of every dW launch shape of the main paths (as
+# chip_smoke.DW_SHAPES): the three training layers, config #3's layer 1
+# (Cin 70), the hoisted layer 0's h-conv, the hoisted input conv over all
+# T*B frames; and config #2's layer 1 (Cin 126)
+DW_SHAPES = ((8, 100, 154, 72, 256, 5), (8, 100, 154, 96, 128, 3), (8, 100, 154, 48, 64, 3),
+             (8, 100, 154, 70, 256, 5), (8, 100, 154, 64, 256, 5), (384, 100, 154, 8, 256, 5),
+             (8, 100, 154, 126, 256, 5))
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_conv_dw_wgmma_at_the_main_path_shapes(device, shape):
+    """B2's dW alone at every main-path dW shape, bf16: planned on the
+    wgmma kernel, within 1e-3 of the largest entry of the per-tap f32
+    matmul, reruns bit-identical, each launch counted once under
+    ``dw_launches`` and once under ``dw_wgmma_launches``."""
+    B, H, W, cin, n, k = shape
+    assert convgrad.dw_plan(torch.bfloat16, *shape) == "wgmma"
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+    x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
+    g = torch.randn((B, H, W, n), generator=gen, device=device).bfloat16()
+    before = (convgrad.dw_launches, convgrad.dw_wgmma_launches)
+    got, again = conv_dw(x, g, k), conv_dw(x, g, k)
+    assert (convgrad.dw_launches, convgrad.dw_wgmma_launches) == (before[0] + 2, before[1] + 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    del again
+    assert _rel(got, dw_per_tap(x, g, k)) <= 1e-3
+
+
+@pytest.mark.parametrize("cin,n,k", [(8, 256, 5), (70, 40, 3), (126, 256, 7), (5, 16, 1)])
+def test_conv_dw_wgmma_unaligned_operands(device, cin, n, k):
+    """dW through a 2-byte-misaligned xh and dgates (no tensor map takes
+    them, so both are copied into zero-padded, aligned buffers first), at
+    channel and column counts that are not multiples of 8: bit-equal to
+    the launch on the aligned tensors, within 1e-3 of the per-tap f32
+    matmul."""
+    B, H, W = 2, 19, 35
+    rng = np.random.default_rng(cin + n)
+    x = torch.tensor(rng.standard_normal((B, H, W, cin)), dtype=torch.bfloat16).to(device)
+    g = torch.tensor(rng.standard_normal((B, H, W, n)), dtype=torch.bfloat16).to(device)
+
+    def odd(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    got, shifted = conv_dw(x, g, k), conv_dw(odd(x), odd(g), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, shifted)
+    assert _rel(got, dw_per_tap(x, g, k)) <= 1e-3
+
+
+def test_dw_kernel_name_and_launch_counts(device):
+    """Under ``torch.profiler`` one ``conv_dw`` and one B2 launch each run
+    exactly one kernel whose demangled name holds ``dw_mma_kernel`` (the
+    benchmark's kernel class ``dw`` finds dW by that name and counts one
+    per ``dw_launches`` and ``cell_bwd_launches``), and each adds one to
+    ``dw_wgmma_launches``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, H, W, cin, hid, k = 2, 12, 20, 72, 64, 5
+    xh, c, w, b = _cell_inputs(device, torch.bfloat16, B, H, W, cin, hid, k)
+    rng = np.random.default_rng(11)
+    dh, dc = (torch.tensor(rng.standard_normal(c.shape), dtype=torch.float32, device=device)
+              for _ in range(2))
+    g = torch.tensor(rng.standard_normal((B, H, W, 4 * hid)), dtype=torch.bfloat16).to(device)
+    conv_dw(xh, g, k)
+    fused_cell_bwd(xh, c, dh, dc, w, b)  # the library is built and loaded
+    torch.cuda.synchronize()
+    counts = lambda: (convgrad.dw_launches, convgrad.cell_bwd_launches,  # noqa: E731
+                      convgrad.dw_wgmma_launches)
+    before = counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        conv_dw(xh, g, k)
+        fused_cell_bwd(xh, c, dh, dc, w, b)
+        torch.cuda.synchronize()
+    assert [a - b_ for a, b_ in zip(counts(), before)] == [1, 1, 2]
+    names = [e.name for e in prof.events() if "dw_mma_kernel" in e.name]
+    assert len(names) == 2 and all("dw_mma_kernel_wgmma" in n for n in names), names
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -738,7 +822,7 @@ def test_config2_layer1_dw_at_b8(device):
     columns, k 5, bf16: on the tensor cores, within 1e-3 of the largest
     entry of the per-tap f32 matmul, reruns bit-identical."""
     B, H, W, cin, n, k = 8, 100, 154, 126, 256, 5
-    assert convgrad.dw_uses_mma(torch.bfloat16, B, H, W, cin, n, k)
+    assert convgrad.dw_plan(torch.bfloat16, B, H, W, cin, n, k) == "wgmma"
     gen = torch.Generator(device=device).manual_seed(126)
     x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
     g = torch.randn((B, H, W, n), generator=gen, device=device).bfloat16()
