@@ -103,7 +103,7 @@ Phases, each printing its own lines:
       kernels), the batches in batch_iterator's order, losses, R^2 and
       weights equal to the same batches fed synchronously (bit-equal);
       streamed and staged ms/step and host_input_wait_frac;
-  (o) serving as CUDA graphs (rollout/graph.py; every rollout on the card
+  (o) serving as CUDA graphs (graph.py; every rollout on the card
       above was one already): (d)'s four chained requests and their carry
       bit-equal to the eager body that is captured, chunked equal to
       one-shot, two hoisted requests, ten streaming steps; after one Adam
@@ -263,7 +263,7 @@ Phases, each printing its own lines:
       its traced step exactly 3 x 48 B1 and B2 (a) launches); every time
       finite and positive;
   (w) run right after (h): training as CUDA graphs.  Every training step
-      above, (g)-(u), is a graph replay (train/graph.py), each phase
+      above, (g)-(u), is a graph replay (graph.py), each phase
       printing its eager body's (``step.eager``) ms/step beside the
       replay's; here each step function from one set of weights, 4 calls
       graphed (an eager step and the capture, then replays) against 4
@@ -347,6 +347,7 @@ from nasa_niswan_tpu_torch.evalx.evaluate import (
     predict_test_feedback,
     zero_closed_loop_state,
 )
+from nasa_niswan_tpu_torch.graph import optimizer_leaves
 from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, convlstm_init
 from nasa_niswan_tpu_torch.models.pix2pix import DiscriminatorConfig, discriminator_init
 from nasa_niswan_tpu_torch.models.registry import build_model
@@ -404,7 +405,6 @@ from nasa_niswan_tpu_torch.train.loop import (
     make_train_step,
     set_learning_rate,
 )
-from nasa_niswan_tpu_torch.train.graph import optimizer_leaves
 
 SEED = 0
 C = 3 * 20 + 2  # 20-level fusion: u/v/omega per level + prec + emission
@@ -4099,7 +4099,7 @@ def phase_campaigns(device, smi) -> None:
         print(f"[u] served chunks vs one rollout: max|d|/max {d:.3e}")
         check(np.isfinite(sv["preds"]).all() and d <= 1e-6, "[u] served chunks != rollout")
         _multihost(device)
-        print("[u] every training step of these runs is a graph replay (train/graph.py), "
+        print("[u] every training step of these runs is a graph replay (graph.py), "
               "timed by the runs themselves; their eager bodies' ms/step are (h)'s, (j)'s, "
               "(l)'s and (m)'s and (w)'s, on the same card")
     finally:

@@ -27,7 +27,7 @@ DYNAMIC_CHANNELS = ("u", "v", "omega", "prec", "src")
 
 class DeviceConst:
     """A host array copied to each device it is asked for once, and kept
-    there: a captured CUDA graph (rollout/graph.py) may hold no
+    there: a captured CUDA graph (graph.py) may hold no
     host-to-device copy.  The copies are ordinary tensors (made outside
     inference mode), usable in training too."""
 

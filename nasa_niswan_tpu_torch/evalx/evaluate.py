@@ -12,7 +12,7 @@ The closed-loop evaluation of a seq2seq (config #3) snapshot feeds the
 model's own previous prediction back, step after step, with the (h, c)
 carry and the feedback frame handed from chunk to chunk, so a whole test
 period is one continuous episode.  On a CUDA device each chunk is one
-CUDA graph replay (rollout/graph.py), as the JAX package jit-compiles the
+CUDA graph replay (graph.py), as the JAX package jit-compiles the
 chunk's scan; chunks are fetched one dispatch behind (``ChunkDrain``).
 The closed loop of a 6-channel single-step (UNet-6ch) snapshot
 (``predict_test_feedback``) carries its raw feedback frame from chunk to
@@ -34,7 +34,8 @@ from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
 from nasa_niswan_tpu_torch.data.dataset import Normalizer
 from nasa_niswan_tpu_torch.data.pipeline import ChunkDrain, async_batches, batch_iterator
 from nasa_niswan_tpu_torch.evalx import metrics as M
-from nasa_niswan_tpu_torch.models.convlstm import CellFn, ConvLSTMConfig, cell_weights
+from nasa_niswan_tpu_torch.graph import Graphed
+from nasa_niswan_tpu_torch.models.convlstm import CellFn, ConvLSTMConfig
 from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward
 from nasa_niswan_tpu_torch.ops.seq2seq_bptt import feedback_step
 from nasa_niswan_tpu_torch.rollout.autoregressive import (
@@ -44,7 +45,6 @@ from nasa_niswan_tpu_torch.rollout.autoregressive import (
     serving_weights,
     zero_state,
 )
-from nasa_niswan_tpu_torch.rollout.graph import GraphRunner
 
 
 def _device_of(params) -> torch.device:
@@ -192,8 +192,8 @@ def make_closed_loop_chunk(
             preds.append(prev)
         return (prev, normalizer.unnormalize_y(torch.cat(preds)), *flat_state(st))
 
-    runner = GraphRunner(body, lambda params: serving_weights(params, config),
-                         warm=lambda xs: [xs[0][:1], *xs[1:]])  # one step
+    runner = Graphed(body, weights=lambda params: serving_weights(params, config),
+                     warm=lambda xs: [xs[0][:1], *xs[1:]])  # one step
 
     def _inputs(params, state, prev_norm, x_chunk):
         dev = _device_of(params)
@@ -209,9 +209,7 @@ def make_closed_loop_chunk(
     def run(params, state, prev_norm, x_chunk, graph: bool):
         with torch.inference_mode():
             inputs = _inputs(params, state, prev_norm, x_chunk)
-            if graph and inputs[0].is_cuda:
-                return _out(runner(params, inputs))
-            return _out(body(params, cell_weights(params, config), *inputs))
+            return _out((runner if graph else runner.eager)(params, *inputs))
 
     def run_chunk(params, state, prev_norm, x_chunk):
         return run(params, state, prev_norm, x_chunk, graph=True)
@@ -269,7 +267,7 @@ def make_feedback_chunk(
     (``run_chunk.runner``), and ``run_chunk.eager`` runs the same body
     without one."""
 
-    def body(model, _, x_chunk, prev_raw):
+    def body(model, x_chunk, prev_raw):
         params, state = model  # the graph's key: weights and state
         preds = []
         for t in range(x_chunk.shape[0]):
@@ -281,18 +279,14 @@ def make_feedback_chunk(
             preds.append(prev_raw)
         return prev_raw, torch.stack(preds)
 
-    runner = GraphRunner(body, lambda model: None,
-                         warm=lambda xs: [xs[0][:1], *xs[1:]])  # one step
+    runner = Graphed(body, warm=lambda xs: [xs[0][:1], *xs[1:]])  # one step
 
     def run(params, state, prev_raw, x_chunk, graph: bool):
         with torch.inference_mode():
             dev = _device_of(params)
             inputs = [torch.as_tensor(x_chunk, device=dev),
                       torch.as_tensor(prev_raw, device=dev, dtype=torch.float32)]
-            if graph and dev.type == "cuda":
-                prev, preds = runner((params, state), inputs)
-            else:
-                prev, preds = body((params, state), None, *inputs)
+            prev, preds = (runner if graph else runner.eager)((params, state), *inputs)
         return state, prev, preds
 
     def run_chunk(params, state, prev_raw, x_chunk):

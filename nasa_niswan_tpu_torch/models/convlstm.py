@@ -190,7 +190,7 @@ def cell_weights(params: Params, config: ConvLSTMConfig, hoist: bool = False) ->
     combined ``[w_x; w_h]`` and the f32 bias (``combined_cells``), and with
     the hoist layer 0's ``w_x`` and ``w_h`` alone.  ``convlstm_apply`` makes
     them on every call; a caller that replays a captured step loop
-    (rollout/graph.py) makes them once, before the capture."""
+    (graph.py) makes them once, before the capture."""
     dt = config.torch_dtype
     out = {"cells": combined_cells(params, dt)}
     if hoist:

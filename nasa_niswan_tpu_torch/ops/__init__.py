@@ -3,7 +3,7 @@
 Every module here that launches a kernel keeps one module-level launch
 counter per kernel (or mode) and names them in its ``LAUNCH_COUNTERS``.
 ``launch_counts`` reads every such counter of the loaded modules and
-``add_launch_counts`` adjusts them: a CUDA graph replay (rollout/graph.py)
+``add_launch_counts`` adjusts them: a CUDA graph replay (graph.py)
 runs no Python, so its runner takes back what was counted while capturing
 and adds it once per replay.
 """

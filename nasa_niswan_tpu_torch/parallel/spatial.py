@@ -30,7 +30,7 @@ its tile; ``gather_state`` and ``scatter_state`` turn it into the global
 carry of a carry file and back.
 
 On a card each serving chunk is one CUDA graph replay, as every unsharded
-serving chunk is (rollout/graph.py): the chunk's device work (``body``:
+serving chunk is (graph.py): the chunk's device work (``body``:
 preparation, the time loop with its halo messages and gathers, head, crop)
 is captured once per input signature and replayed; its inputs (the raw
 chunk and the tile carry moved to the card) are made outside the graph, and
@@ -104,6 +104,7 @@ from nasa_niswan_tpu_torch.data.dataset import (
     zscore_static,
 )
 from nasa_niswan_tpu_torch.evalx.metrics import r2_from_stats, r2_stats
+from nasa_niswan_tpu_torch.graph import Graphed
 from nasa_niswan_tpu_torch.models.convlstm import (
     CellFn,
     ConvLSTMConfig,
@@ -132,7 +133,6 @@ from nasa_niswan_tpu_torch.rollout.autoregressive import (
     nest_state,
     serving_weights,
 )
-from nasa_niswan_tpu_torch.rollout.graph import GraphRunner
 from nasa_niswan_tpu_torch.rollout.multitracer import (
     _species,
     _species_weights,
@@ -461,7 +461,7 @@ def make_spatial_train_step(
     the gather rule (parallel/halo.py).  The padded grid must split evenly
     over lat and lon.
 
-    On a CUDA mesh each call is one CUDA graph replay (train/graph.py:
+    On a CUDA mesh each call is one CUDA graph replay (graph.py:
     the halo exchanges, their transposes and the all-reduces captured,
     "thread_local"); ``step.eager`` runs it without one, ``step.body`` is
     the step on device tensors.  On gloo it runs eagerly."""
@@ -533,25 +533,21 @@ def make_spatial_eval_step(
     return graph_step(eval_step, writes=False, prepare=host_batch)
 
 
-def _sharded_entry(body, prepare, warm, inputs, outputs, mesh: Mesh) -> Callable:
+def _sharded_entry(body, weights, warm, inputs, outputs, mesh: Mesh) -> Callable:
     """A sharded serving entry point ``fn(params, *args)``: ``inputs(params,
     *args)`` makes the chunk's device inputs outside any graph (tiles cut,
-    carries moved), ``body(params, prepare(params), *inputs)`` is the
+    carries moved), ``body(params, weights(params), *inputs)`` is the
     chunk's device work, ``outputs`` shapes what it returns.  On a CUDA
     mesh each call replays the chunk's CUDA graph (``fn.runner``, captured
     once per input signature after a warm-up on ``warm(inputs)``); on the
     CPU the body runs eagerly.  ``fn.eager`` runs the body without a graph,
     ``fn.body`` and ``fn.inputs`` are its parts."""
-    # thread_local: other threads' CUDA calls during a capture (NCCL's
-    # watchdog polls its work's events) do not invalidate it
-    runner = GraphRunner(body, prepare, warm=warm, capture_error_mode="thread_local")
+    runner = Graphed(body, weights=weights, warm=warm)
 
     def run(graph: bool, params, *args):
         with torch.inference_mode():
             ins = inputs(params, *args)
-            if graph and mesh.device.type == "cuda":
-                return outputs(runner(params, ins))
-            return outputs(body(params, prepare(params), *ins))
+            return outputs((runner if graph else runner.eager)(params, *ins))
 
     def fn(params, *args):
         return run(True, params, *args)

@@ -5,7 +5,7 @@ Streams a snapshot's forcing frames through the state-carrying rollout in
 fixed-size chunks (one continuous episode, no state resets) and writes the
 physical-unit predictions to netCDF under the packed file's concentration
 variable name.  On the card every chunk is one CUDA graph replay
-(rollout/graph.py), captured once per chunk shape: a repeat-padded tail
+(graph.py), captured once per chunk shape: a repeat-padded tail
 chunk keeps one shape.  Chunks are fetched one dispatch behind
 (``data/pipeline.ChunkDrain``).  The carry can be persisted
 (``--state-out``) and resumed (``--state-in``) so emulation continues

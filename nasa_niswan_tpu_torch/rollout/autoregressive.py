@@ -14,8 +14,8 @@ Every frame is prepared up front in one batched op; the step loop is a
 Python loop whose cell step is the fused CUDA kernel on the card.  On a
 CUDA device the chunk (preparation, step loop, head, crop, unnormalize) is
 captured once per input signature and replayed as one CUDA graph
-(rollout/graph.py), as the JAX package jit-compiles the whole scan; the
-eager loop runs on the CPU and is what the graph captures.  Under a
+(graph.py), as the JAX package jit-compiles the whole scan; the eager
+loop runs on the CPU and is what the graph captures.  Under a
 profiler a chunk is the span ``niswan.serve.chunk``, a streaming step
 ``niswan.serve.step`` holding its frame's upload, ``niswan.serve.upload``
 (utils/profiling.py).
@@ -28,6 +28,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+import nasa_niswan_tpu_torch.graph as cuda_graph
 from nasa_niswan_tpu_torch.bridge import tree_leaves
 from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
 from nasa_niswan_tpu_torch.data.dataset import DeviceConst, Normalizer, zscore_static
@@ -40,7 +41,6 @@ from nasa_niswan_tpu_torch.models.convlstm import (
     head_apply,
 )
 from nasa_niswan_tpu_torch.ops.convlstm_cell import fused_cell_forward, packed_weights
-from nasa_niswan_tpu_torch.rollout.graph import GraphRunner
 from nasa_niswan_tpu_torch.utils.profiling import span
 
 
@@ -83,7 +83,7 @@ def serving_weights(params, config: ConvLSTMConfig, hoist: bool = False):
 
 def first_step(inputs):
     """A rollout's inputs cut to the first step of the forcings (B, T, ...):
-    what ``GraphRunner`` warms up on."""
+    what a chunk's graph warms up on."""
     return [inputs[0][:, :1], *inputs[1:]]
 
 
@@ -126,7 +126,7 @@ def make_rollout_fn(
     ``torch.inference_mode()`` on ``device`` (default: the parameters'; the
     forcings are moved there).  On a CUDA device each call replays the
     chunk's CUDA graph for its (B, T, C, dtype) (``rollout.runner``, a
-    ``GraphRunner``); ``rollout.eager`` runs the same body without a graph.
+    ``graph.Graphed``); ``rollout.eager`` runs the same body without a graph.
     ``cell_fn`` is passed to ``convlstm_apply``.
 
     ``precompute_input_conv``: True hoists layer 0's input conv out of the
@@ -172,16 +172,13 @@ def make_rollout_fn(
                      for h, c in initial_state]
         return [forcings, *flat_state(state)]
 
-    runner = GraphRunner(body, lambda params: serving_weights(params, config, hoist),
-                         warm=first_step)
+    runner = cuda_graph.Graphed(
+        body, weights=lambda params: serving_weights(params, config, hoist), warm=first_step)
 
     def run(params, forcings, initial_state, graph: bool):
         with span("niswan.serve.chunk"), torch.inference_mode():
             inputs = _inputs(params, forcings, initial_state)
-            if graph and inputs[0].is_cuda:
-                out = runner(params, inputs)
-            else:
-                out = body(params, cell_weights(params, config, hoist), *inputs)
+            out = (runner if graph else runner.eager)(params, *inputs)
         return out[0], nest_state(out[1:])
 
     def rollout(params, forcings, initial_state=None):
@@ -261,20 +258,20 @@ def make_streaming_rollout(
             old.copy_(nw)
         return (preds,)
 
-    runner = GraphRunner(step_body, lambda p: serving_weights(p, config))
+    runner = cuda_graph.Graphed(step_body, weights=lambda p: serving_weights(p, config))
 
     def step(frame) -> torch.Tensor:
         with span("niswan.serve.step"):
             with span("niswan.serve.upload"):
                 frame = torch.as_tensor(frame, device=device)[:, None]
-            if device.type != "cuda":
+            if not cuda_graph.on_card(device):
                 preds, carry["state"] = rollout(params, frame, carry["state"])
                 return preds[:, 0]
             with torch.inference_mode():
                 state = carry["state"]
                 if state is None:
                     state = zero_state(config, frame.shape[0], padded_shape, device)
-                (preds,) = runner(params, [frame, *flat_state(state)])
+                (preds,) = runner(params, frame, *flat_state(state))
                 carry["state"] = nest_state(runner.last_inputs[1:])
             return preds[:, 0]
 

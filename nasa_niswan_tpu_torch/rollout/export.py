@@ -13,7 +13,7 @@ its fake implementation).  An artifact runs on the device it was exported
 for (asked for another device type, ``load_rollout_info`` raises), and its
 forcings signature (batch, chunk_steps, C, h, w) is fixed;
 on a CUDA device the loaded program is replayed as a CUDA graph
-(rollout/graph.py), as the live rollout is.  The ``.pt2`` file is the
+(graph.py), as the live rollout is.  The ``.pt2`` file is the
 port's own format: it is not interchangeable with the JAX package's
 StableHLO artifact.  (AOTInductor is not the route: it cannot compile an op
 bound through ctypes.)
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from nasa_niswan_tpu_torch.data.dataset import Normalizer
+from nasa_niswan_tpu_torch.graph import Graphed
 from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, cell_weights
 from nasa_niswan_tpu_torch.ops import convlstm_cell  # noqa: F401  (registers niswan::*)
 from nasa_niswan_tpu_torch.rollout.autoregressive import (
@@ -42,7 +43,6 @@ from nasa_niswan_tpu_torch.rollout.autoregressive import (
     nest_state,
     zero_state,
 )
-from nasa_niswan_tpu_torch.rollout.graph import GraphRunner
 
 _INFO = "rollout_info.json"
 
@@ -137,8 +137,8 @@ def load_rollout_info(path: str, device=None):
     """Load an artifact and report its fixed forcings signature: returns
     ``(fn, (batch, chunk_steps, n_channels, h, w))``.  ``fn`` runs on the
     device the artifact was exported for (``fn.device``), as a CUDA graph
-    replay there (``fn.runner``; its warm-up runs the whole chunk, since
-    the signature is fixed).  When ``device`` is given and is of another
+    replay there (``fn.runner``; its first call runs the chunk eagerly,
+    then captures it).  When ``device`` is given and is of another
     type than that, a ``ValueError`` is raised: the program's weights and
     kernels live on its own device, and serving it elsewhere would run it
     there all the same."""
@@ -152,14 +152,14 @@ def load_rollout_info(path: str, device=None):
             f"{torch.device(device)}: export it there"
         )
     program = ep.module()
-    runner = GraphRunner(lambda params, weights, *xs: program(*xs), lambda params: None)
+    runner = Graphed(lambda params, *xs: program(*xs))
 
     def fn(forcings, state):
         with torch.inference_mode():
             inputs = [torch.as_tensor(forcings, device=home)]
             inputs += [torch.as_tensor(t, device=home, dtype=torch.float32).contiguous()
                        for t in flat_state(state)]
-            out = runner(None, inputs) if home.type == "cuda" else program(*inputs)
+            out = runner(None, *inputs)
         return out[0], nest_state(list(out[1:]))
 
     fn.runner = runner

@@ -4,7 +4,7 @@ BASELINE config #5).
 ModelE needs every tracer at every timestep, and each species has its own
 emulator.  The multi-tracer rollouts run S per-species emulators as one
 program: on a CUDA device one captured CUDA graph replays all S rollouts
-(rollout/graph.py), the counterpart of the JAX package's one jitted
+(graph.py), the counterpart of the JAX package's one jitted
 program.  As there, they are S plain per-species loops, never grouped
 convolutions over stacked filters.  Parameters and carries are stacked on a
 leading species axis; the shared-meteorology variant prepares the
@@ -21,19 +21,14 @@ import torch
 
 from nasa_niswan_tpu_torch.core.padding import crop_to_grid, pad_geo
 from nasa_niswan_tpu_torch.data.dataset import Normalizer
-from nasa_niswan_tpu_torch.models.convlstm import (
-    ConvLSTMConfig,
-    cell_weights,
-    convlstm_apply,
-    head_apply,
-)
+from nasa_niswan_tpu_torch.graph import Graphed
+from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, convlstm_apply, head_apply
 from nasa_niswan_tpu_torch.rollout.autoregressive import (
     flat_state,
     nest_state,
     serving_weights,
     zero_state,
 )
-from nasa_niswan_tpu_torch.rollout.graph import GraphRunner
 
 
 def _tree_map(fn, *trees):
@@ -79,23 +74,15 @@ def _tap(params, grid_shape, dt, normalizer: Normalizer):
 
 
 def _species_weights(config, S: int):
-    """``prepare`` of an S-species rollout: each species' serving weights,
-    made before the capture."""
+    """The ``weights`` hook of an S-species rollout: each species' serving
+    weights, made before the capture."""
     return lambda stacked: [serving_weights(_species(stacked, s), config) for s in range(S)]
 
 
 def _runner(body, config, S, warm):
-    """The S-species GraphRunner."""
-    return GraphRunner(body, _species_weights(config, S), warm=warm)
-
-
-def _run(runner, body, config, stacked_params, inputs, S):
-    """Replay on a CUDA device, else run the body eagerly."""
-    with torch.inference_mode():
-        if inputs[0].device.type == "cuda":
-            return runner(stacked_params, inputs)
-        weights = [cell_weights(_species(stacked_params, s), config) for s in range(S)]
-        return body(stacked_params, weights, *inputs)
+    """The S-species runner: a replay on a CUDA device, the body eagerly
+    elsewhere."""
+    return Graphed(body, weights=_species_weights(config, S), warm=warm)
 
 
 def _state_inputs(config, state, S, B, padded_shape, device):
@@ -144,7 +131,8 @@ def make_multitracer_rollout(
         forcings = torch.as_tensor(forcings, device=device)
         inputs = [forcings, *_state_inputs(config, state, S, forcings.shape[1],
                                            padded_shape, device)]
-        out = _run(runner, body, config, stacked_params, inputs, S)
+        with torch.inference_mode():
+            out = runner(stacked_params, *inputs)
         return out[0], nest_state(list(out[1:]))
 
     rollout.runner = runner
@@ -200,7 +188,8 @@ def make_multitracer_rollout_shared(
         emissions = torch.as_tensor(emissions, device=device)
         inputs = [met, emissions, *_state_inputs(config, state, S, met.shape[0],
                                                  padded_shape, device)]
-        out = _run(runner, body, config, stacked_params, inputs, S)
+        with torch.inference_mode():
+            out = runner(stacked_params, *inputs)
         return out[0], nest_state(list(out[1:]))
 
     rollout.runner = runner

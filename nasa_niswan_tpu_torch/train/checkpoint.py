@@ -78,7 +78,7 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer, params,
     ``load_checkpoint`` or ``optimizer_state`` return it), each on its
     parameter's device (the capturable Adam of a card keeps its step
     there).  The state's tensors are new: a step graph holding the old
-    ones is captured again at its next call (train/graph.py)."""
+    ones is captured again at its next call (graph.py)."""
     for p, m, v in zip(param_leaves(params), opt_state["exp_avg"],
                        opt_state["exp_avg_sq"]):
         optimizer.state[p] = {

@@ -62,7 +62,7 @@ def make_optimizer(params, learning_rate: float,
 
     The lr is a tensor on the parameters' device, which
     ``set_learning_rate`` writes in place: a captured step
-    (train/graph.py) reads it on every replay, where a float would be
+    (graph.py) reads it on every replay, where a float would be
     baked into the graph.  On a card the update is capturable (its step
     count and bias corrections on the device); the CPU has no capturable
     Adam and takes the same update with the lr read from the tensor

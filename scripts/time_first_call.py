@@ -2,7 +2,7 @@
 of the checkout named by ``--root``.
 
 On the card every serving loop is captured as a CUDA graph at its first
-call per input shape (rollout/graph.py), so a request made once (a
+call per input shape (graph.py), so a request made once (a
 test-period rollout, evaluation after an optimizer step) pays the capture.
 The canonical C = 62 model (20-level fusion, hidden 64/32/16, kernels
 5/3/3, 100x154 padded grid), random weights from seeds 0-2, bf16, B = 1,

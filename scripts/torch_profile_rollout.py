@@ -16,7 +16,7 @@ would measure the host):
 * ``cells_taps_hoist`` / ``cells_taps_scan`` / ``cells_notaps_hoist``:
   ``convlstm_apply`` alone on prepared (B, T, 100, 154, C) bf16 frames, with
   and without the per-step head taps, captured through
-  ``rollout/graph.GraphRunner``;
+  ``graph.Graphed``;
 * ``cells_notaps_hoist_L1`` / ``_L2``: the first one or two layers alone.
 
 Each row: a warm-up call (the capture), then ``--reps`` calls on the host
@@ -49,9 +49,9 @@ import torch  # noqa: E402
 
 import torch_trace_summary as ts  # noqa: E402
 from nasa_niswan_tpu_torch.data.dataset import Normalizer  # noqa: E402
+from nasa_niswan_tpu_torch.graph import Graphed  # noqa: E402
 from nasa_niswan_tpu_torch.models.convlstm import (  # noqa: E402
     ConvLSTMConfig,
-    cell_weights,
     convlstm_apply,
     convlstm_init,
 )
@@ -63,7 +63,6 @@ from nasa_niswan_tpu_torch.rollout.autoregressive import (  # noqa: E402
     make_rollout_fn,
     serving_weights,
 )
-from nasa_niswan_tpu_torch.rollout.graph import GraphRunner  # noqa: E402
 from nasa_niswan_tpu_torch.utils.profiling import trace  # noqa: E402
 
 C = 3 * 20 + 2
@@ -144,14 +143,12 @@ def cells_fn(cfg, taps: bool, hoist: bool, cell_fn):
                              precompute_input_conv=hoist, cell_fn=cell_fn, weights=weights)
         return out if taps else (out,)
 
-    runner = GraphRunner(body, lambda p: serving_weights(p, cfg, hoist),
-                         warm=lambda xs: [xs[0][:, :1]])  # one step
+    runner = Graphed(body, weights=lambda p: serving_weights(p, cfg, hoist),
+                     warm=lambda xs: [xs[0][:, :1]])  # one step
 
     def run(params, xs):
         with torch.inference_mode():
-            if xs.is_cuda:
-                return runner(params, [xs])
-            return body(params, cell_weights(params, cfg, hoist), xs)
+            return runner(params, xs)
 
     return run
 

@@ -2,8 +2,8 @@
 against the JAX package's on one small fixture and one set of weights
 (drawn by JAX, carried across by bridge.py): the windowed and rollout
 predictions, the per-window taps, the chunked episode with a ragged tail
-and its carry, and the metric report; plus the key of the CUDA-graph
-runner (rollout/graph.py), whose logic runs without a card.
+and its carry, and the metric report; plus the key and signature of the
+CUDA-graph runner (graph.py), whose logic runs without a card.
 
 Shape: 2 layers, hidden (4, 4), kernels (5, 3), 5 forcings (7 channels
 with the static ones), grid (8, 12) padded to (12, 16), f32.  Predictions
@@ -25,11 +25,11 @@ from nasa_niswan_tpu.models import convlstm as jm  # noqa: E402
 from nasa_niswan_tpu.models.registry import build_model as j_build  # noqa: E402
 from nasa_niswan_tpu.rollout import autoregressive as jroll  # noqa: E402
 from nasa_niswan_tpu_torch import bridge  # noqa: E402
+from nasa_niswan_tpu_torch import graph  # noqa: E402
 from nasa_niswan_tpu_torch.data import dataset as tdata  # noqa: E402
 from nasa_niswan_tpu_torch.evalx import evaluate as teval  # noqa: E402
 from nasa_niswan_tpu_torch.models.registry import build_model as t_build  # noqa: E402
 from nasa_niswan_tpu_torch.rollout import autoregressive as troll  # noqa: E402
-from nasa_niswan_tpu_torch.rollout import graph  # noqa: E402
 
 LAYERS = dict(hidden_channels=(4, 4), kernel_sizes=(5, 3))
 GRID, PADDED = (8, 12), (12, 16)
@@ -175,34 +175,46 @@ def test_test_results_round_trip_between_packages(tmp_path):
 def test_graph_key_changes_with_weights_in_place_and_tree():
     """A graph replays baked-in pointers, so its key must change when a
     parameter leaf changes in place (an optimizer step: same storage, new
-    version) and when the tree is replaced; it stays when nothing changed."""
+    version) and when the tree is replaced; it stays when nothing changed.
+    A runner with a ``weights`` hook keys on versions; one without keys on
+    the leaves alone, since its graph reads them live."""
     params = bridge.params_from_jax(jax.tree.map(
         np.asarray, jm.convlstm_init(jax.random.PRNGKey(0), jm.ConvLSTMConfig(5, **LAYERS))))
-    key = graph.params_key(params)
-    assert graph.params_key(params) == key
+    runner = graph.Graphed(lambda p, w: (), weights=lambda p: None)
+    live = graph.Graphed(lambda p: ())
+    key, live_key = runner.key(params), live.key(params)
+    assert runner.key(params) == key
     w = params["cells"][1]["w_h"]
     with torch.no_grad():
         w.add_(1.0)
-    moved = graph.params_key(params)
-    assert moved != key
-    assert [a[:2] for a in moved] == [a[:2] for a in key]  # same leaves, same storage
+    moved = runner.key(params)
+    assert moved != key and live.key(params) == live_key
+    assert [a[:2] for a in moved[0]] == [a[:2] for a in key[0]]  # same leaves and storage
     opt = torch.optim.Adam([params["head"]["w"].requires_grad_(True)], lr=1e-3)
     params["head"]["w"].grad = torch.ones_like(params["head"]["w"])
     opt.step()
-    stepped = graph.params_key(params)
+    stepped = runner.key(params)
     assert stepped != moved
     replaced = {**params, "head": {k: v.clone() for k, v in params["head"].items()}}
-    assert graph.params_key(replaced) != stepped
+    assert runner.key(replaced) != stepped and live.key(replaced) != live_key
     with torch.inference_mode():
         frozen = {"head": {"w": torch.zeros(1)}}
-    assert graph.params_key(frozen)[0][2] == 0  # inference tensors: no version
+    assert runner.key(frozen)[0][0][2] == 0  # inference tensors: no version
 
 
 def test_graph_signature_separates_shapes_and_dtypes():
+    """The signature picks a graph by each tensor's shape and dtype and by
+    the argument tree's structure, not by values."""
+    def sig(*args):
+        return graph.signature(args)[1]
+
     a = torch.zeros((1, 4, 5))
-    assert graph.signature([a]) == graph.signature([torch.ones((1, 4, 5))])
-    assert graph.signature([a]) != graph.signature([torch.zeros((1, 3, 5))])
-    assert graph.signature([a]) != graph.signature([a.to(torch.bfloat16)])
+    assert sig(a) == sig(torch.ones((1, 4, 5)))
+    assert sig(a) != sig(torch.zeros((1, 3, 5)))
+    assert sig(a) != sig(a.to(torch.bfloat16))
+    assert sig(a, a) != sig(a)
+    assert sig({"x": a}, None) == sig({"x": torch.ones((1, 4, 5))}, None)
+    assert sig({"x": a}, None) != sig({"y": a}, None) != sig(None, {"x": a})
 
 
 def test_cpu_rollout_runs_no_graph(fixture):

@@ -347,7 +347,7 @@ def test_sharded_feedback_rollout_matches_closed_loop(case, world, dims):
 def test_sharded_entry_points_call_eager_and_body_agree(world, dims, entry):
     """The graph-ready split of each sharded serving entry point: the call
     (a graph replay on a card, the body run eagerly here), ``.eager``, and
-    ``.body`` on ``.runner.prepare``'s weights and ``.inputs``' tensors give
+    ``.body`` on ``.runner.weights``' output and ``.inputs``' tensors give
     bit-equal predictions and carries over two chained chunks."""
     assert world(dims)[0]["graph"][entry]
 

@@ -5,7 +5,7 @@
 * Inside ``utils/profiling.trace``, nested spans keep their names, parents
   and host times, and the Chrome trace holds each as a ``user_annotation``
   nested as they were.
-* ``StepGraph`` on a CPU stand-in for a CUDA graph records
+* The graph runner on a CPU stand-in for a CUDA graph records
   ``niswan.graph.run``, ``.stage`` and ``.replay`` on replays and
   ``niswan.train.upload`` around ``DeviceWindowSource.prepare``;
   ``graph.capture_s`` grows on a signature's first call only.
@@ -25,16 +25,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from nasa_niswan_tpu_torch import bridge  # noqa: E402
 from nasa_niswan_tpu_torch.data.dataset import Normalizer, SequenceDataset  # noqa: E402
 from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d  # noqa: E402
 from nasa_niswan_tpu_torch.models.convlstm import ConvLSTMConfig, convlstm_init  # noqa: E402
 from nasa_niswan_tpu_torch.models.registry import build_model  # noqa: E402
 from nasa_niswan_tpu_torch.rollout.autoregressive import make_streaming_rollout  # noqa: E402
-from nasa_niswan_tpu_torch.train import graph as tgraph  # noqa: E402
 from nasa_niswan_tpu_torch.train import loop as tloop  # noqa: E402
 from nasa_niswan_tpu_torch.utils import profiling  # noqa: E402
 from nasa_niswan_tpu_torch.utils.profiling import counters, span, spans, trace  # noqa: E402
+
+import fake_cuda_graph  # noqa: E402  (tests/ is on the path)
 
 MODEL = dict(in_channels=7, hidden_channels=(4, 3), kernel_sizes=(3, 3))
 GEO = dict(padded_shape=(20, 28), grid_shape=(16, 24))
@@ -118,34 +118,11 @@ def test_nested_spans_in_a_trace(tmp_path):
         assert o["ts"] <= e["ts"] and e["ts"] + e["dur"] <= o["ts"] + o["dur"]
 
 
-class FakeGraph:
-    """``StepGraph``'s CUDA graph on the CPU: ``capture(fn)`` runs fn and
-    keeps it, ``replay()`` runs it again into the captured outputs."""
-
-    def __init__(self, device, generator=None):
-        pass
-
-    def eager(self, fn):
-        return fn()
-
-    def capture(self, fn):
-        out = fn()
-        self.fn, self.out = fn, bridge.tree_leaves(out)
-        return out
-
-    def replay(self):
-        out = bridge.tree_leaves(self.fn())
-        with torch.no_grad():
-            for o, n in zip(self.out, out):
-                o.copy_(n)
-
-
 @pytest.fixture
 def device_step(monkeypatch):
-    """``make_device_train_step`` over a tiny resident slab, its
-    ``StepGraph`` on ``FakeGraph``; returns (step, params, window starts)."""
-    monkeypatch.setattr(tgraph.StepGraph, "graph_class", FakeGraph)
-    monkeypatch.setattr(tgraph, "on_card", lambda device: True)
+    """``make_device_train_step`` over a tiny resident slab, its runner on
+    ``fake_cuda_graph.FakeGraph``; returns (step, params, window starts)."""
+    fake_cuda_graph.install(monkeypatch)
     data = synthetic_e33oma_90d(T=40, H=16, W=24, seed=3)
     ds = SequenceDataset(data, period="train", sequence_length=3, in_channels=7)
     bundle = build_model("LSTM-g", **MODEL)

@@ -1,5 +1,5 @@
-"""Training and evaluation steps as CUDA graph replays (train/graph.py), on
-the CPU, against the JAX package and against the eager body.
+"""Training and evaluation steps as CUDA graph replays (train/graph.py over
+graph.py), on the CPU, against the JAX package and against the eager body.
 
 * The tensor lr across a StepLR change: on the remat, per-cell and
   hoisted routes, 3 Adam steps with the lr halved between steps 2 and 3
@@ -8,12 +8,13 @@ the CPU, against the JAX package and against the eager body.
   for bit the draws the step used to make inside itself, and JAX's
   external-draw step on them.
 * ``load_optimizer_state`` puts Adam's step on the parameters' device.
-* ``StepGraph`` on a CPU stand-in for a CUDA graph (``FakeGraph``: a
-  capture runs the body and undoes what it wrote, a replay runs it on the
-  static buffers and leaves every version as a replay leaves it): the
-  first call is one step, K calls are K eager steps, one capture per
-  signature, none after replays or an lr change, a recapture for new
-  leaves, every written leaf's version bumped by each call.
+* The runner on a CPU stand-in for a CUDA graph
+  (``fake_cuda_graph.FakeGraph``: a capture runs the body and undoes what
+  it wrote, a replay runs it on the static buffers and leaves every
+  version as a replay leaves it): the first call is one step, K calls are
+  K eager steps, one capture per signature, none after replays or an lr
+  change, a recapture for new leaves, every written leaf's version bumped
+  by each call.
 * The data-parallel and spatially sharded steps on two gloo ranks,
   through the restructured step functions, against one device.
 
@@ -32,6 +33,7 @@ from nasa_niswan_tpu.models.registry import build_model as j_build_model  # noqa
 from nasa_niswan_tpu.rollout import seq2seq as js2s  # noqa: E402
 from nasa_niswan_tpu.train import loop as jloop  # noqa: E402
 from nasa_niswan_tpu_torch import bridge  # noqa: E402
+from nasa_niswan_tpu_torch import graph as cuda_graph  # noqa: E402
 from nasa_niswan_tpu_torch.data import dataset as tdata  # noqa: E402
 from nasa_niswan_tpu_torch.data.synthetic import synthetic_e33oma_90d  # noqa: E402
 from nasa_niswan_tpu_torch.models import convlstm as tm  # noqa: E402
@@ -39,10 +41,10 @@ from nasa_niswan_tpu_torch.models.registry import build_model  # noqa: E402
 from nasa_niswan_tpu_torch.parallel import launch  # noqa: E402
 from nasa_niswan_tpu_torch.rollout import seq2seq as ts2s  # noqa: E402
 from nasa_niswan_tpu_torch.train import checkpoint as tckpt  # noqa: E402
-from nasa_niswan_tpu_torch.train import graph as tgraph  # noqa: E402
 from nasa_niswan_tpu_torch.train import loop as tloop  # noqa: E402
 
-import torch_train_ranks as ranks  # noqa: E402  (tests/ is on the path)
+import fake_cuda_graph  # noqa: E402  (tests/ is on the path)
+import torch_train_ranks as ranks  # noqa: E402
 
 MODEL = dict(in_channels=7, hidden_channels=(4, 3), kernel_sizes=(3, 3))
 GEO = dict(padded_shape=(20, 28), grid_shape=(16, 24))
@@ -253,71 +255,21 @@ def test_load_optimizer_state_puts_step_on_the_params_device(fixture, dtype):
         assert torch.equal(a, b)
 
 
-# --- StepGraph on a CPU stand-in for a CUDA graph ----------------------------
-
-class _Tracked:
-    """The parameters and optimizers the stand-in graph undoes and
-    replays."""
-
-    def __init__(self):
-        self.params, self.optimizers, self.graphs = None, (), []
-
-    def written(self):
-        return tckpt.param_leaves(self.params) + [
-            t for o in self.optimizers for t in tgraph.optimizer_leaves(o)]
-
+# --- the runner on a CPU stand-in for a CUDA graph ---------------------------
 
 @pytest.fixture
 def fake_graph(monkeypatch):
-    """``StepGraph`` on the CPU with ``FakeGraph`` for the CUDA graph:
-    ``capture(fn)`` runs fn and then restores every written leaf (values
-    and versions) and the generator, as a capture runs nothing;
-    ``replay()`` runs the captured fn on the static buffers, copies its
-    outputs and gradients into the captured ones and resets every written
-    leaf's version, as a replay bumps none."""
-    tracked = _Tracked()
-    set_versions = torch._C._autograd._unsafe_set_version_counter
+    """``graph.Graphed`` on the CPU with ``fake_cuda_graph.FakeGraph`` for
+    the CUDA graph; returns its ``Tracked`` record, whose ``params`` name
+    the gradients a replay hands back."""
+    return fake_cuda_graph.install(monkeypatch)
 
-    class FakeGraph:
-        def __init__(self, device, generator=None):
-            self.generator = generator
-            tracked.graphs.append(self)
 
-        def eager(self, fn):
-            return fn()
-
-        def capture(self, fn):
-            leaves = tracked.written()
-            saved = [t.detach().clone() for t in leaves]
-            versions = [t._version for t in leaves]
-            rng = None if self.generator is None else self.generator.get_state()
-            out = fn()
-            with torch.no_grad():
-                for t, s in zip(leaves, saved):
-                    t.copy_(s)
-            set_versions(leaves, versions)
-            if rng is not None:
-                self.generator.set_state(rng)
-            self.fn, self.out = fn, bridge.tree_leaves(out)
-            self.params = tckpt.param_leaves(tracked.params)
-            self.grads = [p.grad for p in self.params]
-            return out
-
-        def replay(self):
-            leaves = tracked.written()
-            versions = [t._version for t in leaves]
-            out = bridge.tree_leaves(self.fn())
-            with torch.no_grad():
-                for o, n in zip(self.out, out):
-                    o.copy_(n)
-                for g, p in zip(self.grads, self.params):
-                    if g is not None:
-                        g.copy_(p.grad)
-            set_versions(leaves, versions)
-
-    monkeypatch.setattr(tgraph.StepGraph, "graph_class", FakeGraph)
-    monkeypatch.setattr(tgraph, "on_card", lambda device: True)
-    return tracked
+def _written(params, optimizers):
+    """The leaves a training step writes: its parameters and optimizer
+    state."""
+    return tckpt.param_leaves(params) + [
+        t for o in optimizers for t in cuda_graph.optimizer_leaves(o)]
 
 
 def _leaves_equal(a, b):
@@ -335,7 +287,7 @@ def _two_steps(fixture, route="remat", tracked=None, seed=0):
                                      ds.normalizer, opt, static=data["static"][:2], **GEO)
         out.append((params, opt, step))
     if tracked is not None:
-        tracked.params, tracked.optimizers = out[0][0], (out[0][1],)
+        tracked.params = out[0][0]
     return out
 
 
@@ -366,7 +318,7 @@ def test_k_calls_equal_k_eager_steps(fixture, fake_graph, route):
         assert a == b
     assert step.runner.captures == 1
     assert _leaves_equal(p, q)
-    for x, y in zip(tgraph.optimizer_leaves(opt), tgraph.optimizer_leaves(opt_q)):
+    for x, y in zip(cuda_graph.optimizer_leaves(opt), cuda_graph.optimizer_leaves(opt_q)):
         assert torch.equal(x, y)
     for a, b in zip(tckpt.param_leaves(p), tckpt.param_leaves(q)):
         assert torch.equal(a.grad, b.grad)
@@ -422,9 +374,9 @@ def test_every_written_leaf_version_rises_on_each_call(fixture, fake_graph):
     (p, opt, step), _ = _two_steps(fixture, tracked=fake_graph)
     step(p, None, *_batch(ds, 0))
     for s in range(1, 3):
-        before = [t._version for t in fake_graph.written()]
+        before = [t._version for t in _written(p, (opt,))]
         step(p, None, *_batch(ds, s))
-        after = [t._version for t in fake_graph.written()]
+        after = [t._version for t in _written(p, (opt,))]
         assert all(b > a for a, b in zip(before, after))
 
 
@@ -433,7 +385,6 @@ def test_eval_step_replays_and_writes_nothing(fixture, fake_graph):
     body, one capture, and no leaf's version moves."""
     _, ds = fixture
     (p, _, _), _ = _two_steps(fixture, tracked=fake_graph)
-    fake_graph.optimizers = ()
     step = tloop.make_eval_step(build_model("LSTM-g", **MODEL), ds.normalizer,
                                 static=fixture[0]["static"][:2], **GEO)
     versions = [t._version for t in tckpt.param_leaves(p)]
@@ -459,7 +410,7 @@ def test_seq2seq_step_replays_as_its_eager_body(s2s_data, fake_graph):
         params = _trainable(tree)
         opt = tloop.make_optimizer(params, LR, BETAS)
         if graphed:
-            fake_graph.params, fake_graph.optimizers = params, (opt,)
+            fake_graph.params = params
         step = ts2s.make_seq2seq_train_step(cfg, ds.normalizer, opt, **geo)
         call = step if graphed else step.eager
         gen = torch.Generator().manual_seed(5)

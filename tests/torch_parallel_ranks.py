@@ -194,7 +194,7 @@ def _equal(a, b) -> bool:
 
 def graph_ready(mesh, case, cfg, params, norm, stacked, norms, fcfg, fparams):
     """Each sharded serving entry point over two chained chunks three ways:
-    the call, ``.eager``, and ``.body`` on ``.runner.prepare``'s weights and
+    the call, ``.eager``, and ``.body`` on ``.runner.weights``' output and
     ``.inputs``' tensors; per entry point, whether the three agree bit for
     bit (predictions and carries)."""
     g = case["geo"]
@@ -208,7 +208,7 @@ def graph_ready(mesh, case, cfg, params, norm, stacked, norms, fcfg, fparams):
 
     def via_body(fn):
         def run(params, *args):
-            return fn.body(params, fn.runner.prepare(params), *fn.inputs(params, *args))
+            return fn.body(params, fn.runner.weights(params), *fn.inputs(params, *args))
         return run
 
     def rollout_pair(run, nest):

@@ -213,10 +213,10 @@ def family_step(mesh, c, opt):
 
 def graph_bodies_world(rank, case):
     """The data-parallel (2,) and spatially sharded (1, 1, 2) steps as
-    train/graph.py builds them, called as a user calls them and through
-    ``.eager`` (on gloo both run the body): two steps each from the same
-    weights, the lr halved between them.  Every rank's losses and
-    parameters."""
+    ``train/graph.graph_step`` builds them on the graph runner (graph.py),
+    called as a user calls them and through ``.eager`` (on gloo both run
+    the body): two steps each from the same weights, the lr halved between
+    them.  Every rank's losses and parameters."""
     norm = Normalizer(*case["norm"])
     x, y = case["batch"]
     lr, betas = case["opt"]
